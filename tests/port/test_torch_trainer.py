@@ -1,0 +1,41 @@
+"""The port's ``run_cvi_dp`` against the JAX package's golden ELBO trace.
+
+Same configuration as ``tests/golden/generate.py::_config_cvi_dp`` (double
+well, 10,001-point grid, 15 inner iterations), on the dataset that JAX
+``make_dataset`` draws, carried across as numpy arrays.  The trainer takes
+discrete branches on ELBO comparisons, so the run is in float64 and must
+reproduce ``traces.npz::cvi_dp_elbos`` to rtol 1e-6, as the JAX golden
+test does.
+"""
+import numpy as np
+import pytest
+
+from tests.golden.generate import GOLDEN_PATH, SEED
+from vi_diffusion_processes_tpu.exp.runners import ExperimentConfig as JConfig
+from vi_diffusion_processes_tpu.exp.runners import make_dataset
+from vi_diffusion_processes_tpu_torch import interop
+from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_cvi_dp
+from vi_diffusion_processes_tpu_torch.optim.trainers import CVISitesTrainer
+
+from .helpers import to_np
+
+CONFIG = dict(prior_sde="dw", q=0.8, sites_lr=0.5, max_inner_iters=15, max_outer_iters=1)
+DATA = dict(t1=10.0, num_grid=10_001, num_observations=50, noise_stddev=0.2, seed=SEED)
+
+
+def test_run_cvi_dp_reproduces_golden_elbos():
+    dataset = interop.dataset_from_numpy(to_np(make_dataset(JConfig(**CONFIG, **DATA))))
+    out = run_cvi_dp(ExperimentConfig(**CONFIG), dataset)
+    golden = np.load(GOLDEN_PATH)["cvi_dp_elbos"]
+    np.testing.assert_allclose(np.asarray(out["elbos"]), golden, rtol=1e-6)
+    assert np.isfinite(out["nlpd"]) and np.isfinite(out["rmse"])
+    means, covs = out["posterior_means"], out["posterior_covs"]
+    assert means.shape == (10_001, 1) and covs.shape == (10_001, 1, 1)
+    assert bool((covs > 0).all())
+
+
+def test_trainer_refuses_routes_outside_the_slice():
+    with pytest.raises(NotImplementedError, match="slice B"):
+        CVISitesTrainer(model=None, learn_prior_sde=True)
+    with pytest.raises(NotImplementedError, match="slices B and E"):
+        CVISitesTrainer(model=None)

@@ -1,0 +1,44 @@
+"""Experiment data containers and the prior-SDE factory
+(vi_diffusion_processes_tpu/exp/data.py:30-113).
+
+Datasets are not simulated here: the JAX package draws them with
+``jax.random``, which PyTorch cannot reproduce.  A caller hands the port a
+dataset as tensors (see :func:`..interop.dataset_from_numpy`).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..sde import zoo
+
+__all__ = ["DPDataset", "build_prior_sde"]
+
+
+class DPDataset(NamedTuple):
+    latent_path: torch.Tensor  # [T, d]
+    time_grid: torch.Tensor  # [T]
+    obs_times: torch.Tensor  # [n_train]
+    obs_values: torch.Tensor  # [n_train, d]
+    test_times: torch.Tensor  # [n_test]
+    test_values: torch.Tensor  # [n_test, d]
+    noise_stddev: float
+    x0: torch.Tensor
+
+
+def build_prior_sde(name: str, dtype=torch.float64, q: float = 1.0, device=None, **kwargs):
+    """Prior SDE by the reference's config name (exp/data.py:85-113); the
+    d = 1 members of this slice only."""
+    q1 = [[q]]
+    if name == "ou":
+        sde = zoo.OrnsteinUhlenbeckSDE(decay=kwargs.get("decay", 1.0), q=q1, dtype=dtype)
+    elif name == "dw":
+        sde = zoo.DoubleWellSDE(
+            q=q1, scale=kwargs.get("scale", 4.0), c=kwargs.get("c", 1.0), dtype=dtype
+        )
+    else:
+        raise NotImplementedError(
+            f"prior sde {name!r} is not ported yet (slices C, E and H of ROADMAP.md)"
+        )
+    return sde.to(device) if device is not None else sde

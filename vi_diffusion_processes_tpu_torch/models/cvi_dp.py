@@ -1,0 +1,260 @@
+"""CVI-DP: site-based variational inference for diffusion processes
+(vi_diffusion_processes_tpu/models/cvi_dp.py).
+
+The posterior over the state trajectory is parameterized by three site
+groups: Girsanov sites (block-tridiagonal naturals over the whole grid),
+data sites at the observation indices, and the (linearized) prior SSM in
+natural form.  ``dist_q`` sums them and recovers an SSM by the UDU'
+factorization.  Models are frozen dataclasses of tensors; every update
+returns a new model through :meth:`replace`.
+
+This slice ports construction, linearization, ``full_sites`` and
+``dist_q``.  The generic (unpacked) update rules and KL terms raise: the
+d = 1 site loop runs on :mod:`.cvi_dp_packed`, and the generic route is
+slice E of ROADMAP.md (d >= 2), prior learning slice B.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..sde.base import SDE
+from ..sde.utils import BTDNaturals, Gaussian, linearize_sde, ssm_to_btd_nat, transform_girsanov_sites
+from ..ssm.state_space_model import StateSpaceModel
+from ..ssm.transforms import naturals_to_ssm
+
+__all__ = ["CVISitesSSM", "CVISitesSDE", "DataSites"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSites:
+    """Per-observation Gaussian sites in natural form (cvi_dp.py:48)."""
+
+    nat1: torch.Tensor  # [n_obs, d]
+    nat2: torch.Tensor  # [n_obs, d, d]
+
+
+def _scatter_rows(values: torch.Tensor, indices: torch.Tensor, length: int) -> torch.Tensor:
+    out = values.new_zeros((length,) + tuple(values.shape[1:]))
+    return out.index_add(0, indices, values)
+
+
+def _prior_nats_f64(dist_p: StateSpaceModel) -> BTDNaturals:
+    """Prior SSM → naturals, always in float64 (cvi_dp.py:61-65)."""
+    return ssm_to_btd_nat(dist_p.astype(torch.float64))
+
+
+def _not_in_slice(name: str, slice_: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} is not ported yet: it belongs to slice {slice_} of ROADMAP.md"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class CVISitesSSM:
+    """Site-parameterized posterior over an SSM prior (cvi_dp.py:68)."""
+
+    dist_p: Optional[StateSpaceModel]
+    likelihood: object
+    time_grid: torch.Tensor
+    obs_indices: torch.Tensor
+    observations: torch.Tensor
+    girsanov_sites: BTDNaturals
+    data_sites: DataSites
+    prior_initial_state: Gaussian
+    fx_mus: torch.Tensor  # cached posterior path means [T, d]
+    fx_covs: torch.Tensor  # cached posterior path covs [T, d, d]
+    # float64 prior-as-naturals cache; dist_p only changes at linearization
+    prior_nats: Optional[BTDNaturals] = None
+
+    def replace(self, **updates):
+        return dataclasses.replace(self, **updates)
+
+    # ----------------------------------------------------------- construction
+    @classmethod
+    def initialize(
+        cls,
+        prior_ssm: Optional[StateSpaceModel],
+        time_grid: torch.Tensor,
+        input_data: Tuple[torch.Tensor, torch.Tensor],
+        likelihood,
+        prior_initial_state: Optional[Gaussian] = None,
+        initial_posterior_path: Optional[Gaussian] = None,
+        **kwargs,
+    ):
+        """cvi_dp.py:90-140.  ``time_grid`` and the observation times must be
+        the caller's exact values: ``obs_indices`` is a ``searchsorted``."""
+        obs_times, observations = input_data
+        d = observations.shape[-1]
+        dtype, device = observations.dtype, observations.device
+        t = time_grid.shape[0]
+        if prior_initial_state is None:
+            prior_initial_state = Gaussian(
+                mu=torch.zeros((d,), dtype=dtype, device=device),
+                cov=prior_ssm.initial_covariance.to(dtype),
+            )
+        eye = torch.eye(d, dtype=dtype, device=device)
+        if initial_posterior_path is None:
+            initial_posterior_path = Gaussian(
+                mu=torch.zeros((t, d), dtype=dtype, device=device),
+                cov=eye.expand(t, d, d).clone(),
+            )
+        girsanov = BTDNaturals(
+            nat1=torch.zeros((t, d), dtype=dtype, device=device),
+            nat2_diag=torch.full((t, d, d), -1e-10, dtype=dtype, device=device),
+            nat2_sub=torch.full((t - 1, d, d), -1e-10, dtype=dtype, device=device),
+        )
+        data_sites = DataSites(
+            nat1=torch.zeros(observations.shape, dtype=dtype, device=device),
+            nat2=1e-10 * eye.expand(tuple(observations.shape) + (d,)).clone(),
+        )
+        obs_indices = torch.searchsorted(time_grid, obs_times)  # side='left'
+        kwargs.setdefault(
+            "prior_nats", None if prior_ssm is None else _prior_nats_f64(prior_ssm)
+        )
+        return cls(
+            dist_p=prior_ssm,
+            likelihood=likelihood,
+            time_grid=time_grid,
+            obs_indices=obs_indices,
+            observations=observations,
+            girsanov_sites=girsanov,
+            data_sites=data_sites,
+            prior_initial_state=prior_initial_state,
+            fx_mus=initial_posterior_path.mu,
+            fx_covs=initial_posterior_path.cov,
+            **kwargs,
+        )
+
+    # -------------------------------------------------------------- structure
+    @property
+    def state_dim(self) -> int:
+        return self.observations.shape[-1]
+
+    @property
+    def dt(self) -> torch.Tensor:
+        return self.time_grid[1] - self.time_grid[0]
+
+    def full_sites(self) -> BTDNaturals:
+        """prior-as-nats + Girsanov sites + scattered data sites, in float64
+        regardless of the model dtype (cvi_dp.py:151-177): in float32 the
+        naturals→SSM round trip puts the ELBO off by O(10)."""
+        t = self.time_grid.shape[0]
+        p = self.prior_nats if self.prior_nats is not None else _prior_nats_f64(self.dist_p)
+        f64 = torch.float64
+        data_nat1 = _scatter_rows(self.data_sites.nat1, self.obs_indices, t).to(f64)
+        data_nat2 = _scatter_rows(self.data_sites.nat2, self.obs_indices, t).to(f64)
+        g = self.girsanov_sites
+        return BTDNaturals(
+            nat1=p.nat1 + g.nat1.to(f64) + data_nat1,
+            nat2_diag=p.nat2_diag + g.nat2_diag.to(f64) + data_nat2,
+            nat2_sub=p.nat2_sub + g.nat2_sub.to(f64),
+        )
+
+    @property
+    def dist_q(self) -> StateSpaceModel:
+        """Posterior SSM from the summed naturals (cvi_dp.py:179-191),
+        factorized in float64 and cast back to the model dtype."""
+        sites = self.full_sites()
+        ssm64 = naturals_to_ssm(sites.nat1, sites.nat2_diag, sites.nat2_sub)
+        return ssm64.astype(self.time_grid.dtype)
+
+    # ------------------------------------------- generic route (later slices)
+    def kl_q_p(self):
+        raise _not_in_slice("the generic kl_q_p", "E")
+
+    def classic_elbo(self):
+        raise _not_in_slice("the generic classic_elbo", "E")
+
+    def grad_kl_wrt_exp_param(self):
+        raise _not_in_slice("the generic grad_kl_wrt_exp_param", "E")
+
+    def update_girsanov_sites(self, lr):
+        raise _not_in_slice("the generic update_girsanov_sites", "E")
+
+    def update_data_sites(self, lr):
+        raise _not_in_slice("the generic update_data_sites", "E")
+
+
+@dataclasses.dataclass(frozen=True)
+class CVISitesSDE(CVISitesSSM):
+    """CVI-DP against a nonlinear SDE prior (cvi_dp.py:298).
+
+    ``dist_p`` holds the current linearized prior; ``set_linearized_prior``
+    re-linearizes around the cached posterior path and clips the
+    transitions for stability."""
+
+    prior_sde: SDE = None
+    stabilize_ssm: bool = True
+    clip_state_transitions: Tuple[float, float] = (-1.0, 1.0)
+
+    @classmethod
+    def initialize_sde(
+        cls,
+        prior_sde: SDE,
+        time_grid: torch.Tensor,
+        input_data: Tuple[torch.Tensor, torch.Tensor],
+        likelihood,
+        prior_initial_state: Optional[Gaussian] = None,
+        initial_posterior_path: Optional[Gaussian] = None,
+        stabilize_ssm: bool = True,
+        clip_state_transitions: Tuple[float, float] = (-1.0, 1.0),
+    ) -> "CVISitesSDE":
+        """cvi_dp.py:313-344."""
+        _, observations = input_data
+        d = observations.shape[-1]
+        if prior_initial_state is None:
+            prior_initial_state = Gaussian(
+                mu=torch.zeros((d,), dtype=observations.dtype, device=observations.device),
+                cov=torch.broadcast_to(prior_sde.q.detach(), (d, d)).to(observations.dtype),
+            )
+        model = cls.initialize(
+            prior_ssm=None,
+            time_grid=time_grid,
+            input_data=input_data,
+            likelihood=likelihood,
+            prior_initial_state=prior_initial_state,
+            initial_posterior_path=initial_posterior_path,
+            prior_sde=prior_sde,
+            stabilize_ssm=stabilize_ssm,
+            clip_state_transitions=clip_state_transitions,
+        )
+        return model.set_linearized_prior()
+
+    @torch.no_grad()
+    def set_linearized_prior(self) -> "CVISitesSDE":
+        """Linearize the SDE on the cached posterior path (cvi_dp.py:346-362).
+
+        Runs without autograd: no gradient flows into the prior in this
+        slice (prior learning is slice B)."""
+        path = Gaussian(mu=self.fx_mus[1:], cov=self.fx_covs[1:])
+        lin = linearize_sde(
+            self.prior_sde,
+            transition_times=self.time_grid,
+            linearization_path=path,
+            initial_state=self.prior_initial_state,
+        )
+        if self.stabilize_ssm:
+            lo, hi = self.clip_state_transitions
+            lin = lin.replace(
+                state_transitions=torch.clamp(lin.state_transitions, lo, hi),
+                state_offsets=torch.clamp(lin.state_offsets, lo, hi),
+            )
+        return self.replace(dist_p=lin, prior_nats=_prior_nats_f64(lin))
+
+    @torch.no_grad()
+    def relinearize(self) -> "CVISitesSDE":
+        """Re-linearize AND re-base the Girsanov sites so that ``dist_q`` is
+        unchanged (cvi_dp.py:364-373)."""
+        old_prior = self.dist_p
+        model = self.set_linearized_prior()
+        new_sites = transform_girsanov_sites(model.girsanov_sites, old_prior, model.dist_p)
+        return model.replace(girsanov_sites=new_sites)
+
+    def grad_kl_wrt_prior_params(self):
+        raise _not_in_slice("grad_kl_wrt_prior_params", "B")
+
+    def grad_ve_wrt_prior_params(self):
+        raise _not_in_slice("grad_ve_wrt_prior_params", "B")

@@ -1,0 +1,330 @@
+"""CUDA scans for the d=1 CVI-DP hot loop, with their plain PyTorch versions.
+
+Counterpart of vi_diffusion_processes_tpu/ops/pallas_scan.py.  Three
+kernels, written by hand for Hopper in ``csrc/cuda_scan.cu``:
+
+* :func:`riccati_d_sweep` (K1) replaces ``pallas_scan.py::riccati_d_sweep_df``
+  (``_riccati_kernel``): the UDU' pivot sweep ``D_k = kd_k − b2_k/D_{k+1}``.
+* :func:`linear_recurrence` (K2) replaces ``pallas_scan.py::linear_recurrence``
+  (``_linrec_kernel_df``/``_linrec_kernel_f32``): ``x_k = t_k·x_{k∓1} + c_k``.
+* :func:`dist_q_1d_planes` (K3) replaces ``pallas_scan.py::dist_q_1d_planes``
+  (``_dist_q_kernel``): naturals → SSM params → marginals in one launch.
+
+What bounds them on the card is the latency of a sequential dependency
+chain, not bytes: at T = 100k an f64 plane is 0.8 MB.  The kernels cut the
+chain's depth from N to about ``2·ceil(N/1024) + 20`` with one 1024-thread
+block per sequence: per-thread chunk maps, a block-wide scan of the maps in
+shared memory, then the exact recursion from each chunk's boundary value
+(the TPU kernel's phases A/B/C).  The strided chunk loads and the single
+busy SM are known costs (see the source note in the ``.cu`` file).
+
+Each wrapper checks device, dtype, shape and contiguity, launches its kernel
+for CUDA tensors and calls the plain version for CPU tensors; it raises on
+anything else.  The plain versions run the same windowed algorithm in
+PyTorch (sequential over the window length, vectorised over windows, a
+Hillis–Steele scan across windows), on any device.  Each wrapper carries a
+plain-int ``launches`` count, raised by one where it launches its kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+__all__ = [
+    "riccati_d_sweep",
+    "linear_recurrence",
+    "dist_q_1d_planes",
+    "riccati_d_sweep_plain",
+    "linear_recurrence_plain",
+    "dist_q_1d_planes_plain",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+#: threads per block of the CUDA kernels = windows of the plain versions
+THREADS = 1024
+
+
+# ----------------------------------------------------------- plain versions
+def _chunking(n: int) -> Tuple[int, int]:
+    """(nb, l): nb ≤ THREADS windows of length l = ceil(n / THREADS)."""
+    l = -(-n // THREADS)
+    return -(-n // l), l
+
+
+def _blockify(x: torch.Tensor, nb: int, l: int, fill: float) -> torch.Tensor:
+    """[..., n] → [..., nb, l]; window w owns the chunk [w·l, (w+1)·l)."""
+    pad = nb * l - x.shape[-1]
+    if pad:
+        x = torch.cat([x, x.new_full(x.shape[:-1] + (pad,), fill)], dim=-1)
+    return x.reshape(x.shape[:-1] + (nb, l))
+
+
+def _unblockify(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x.reshape(x.shape[:-2] + (-1,))[..., :n]
+
+
+def _shift(x: torch.Tensor, sh: int, fill: float, toward_start: bool) -> torch.Tensor:
+    """Shift along the window axis by ``sh``, filling vacated windows;
+    ``toward_start`` brings window ``w + sh`` to ``w``."""
+    if sh >= x.shape[-1]:
+        return torch.full_like(x, fill)
+    f = x.new_full(x.shape[:-1] + (sh,), fill)
+    if toward_start:
+        return torch.cat([x[..., sh:], f], dim=-1)
+    return torch.cat([f, x[..., :-sh]], dim=-1)
+
+
+def riccati_d_sweep_plain(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K1: ``D_k = kd_k − b2_k/D_{k+1}`` over f64 ``[..., N]``
+    (``b2[..., N−1] = 0``), by the windowed Möbius algorithm of
+    ``btd.py::_riccati_d_xla`` with the diagonal preconditioning of
+    ``pallas_scan.py::_ric_fwd`` (``s = √b2``, else ``|kd| + 1e-300``)."""
+    n = kd.shape[-1]
+    s = torch.where(b2 > 0, torch.sqrt(b2), torch.abs(kd) + 1e-300)
+    s_next = torch.cat([s[..., 1:], torch.ones_like(s[..., :1])], dim=-1)
+    kd_t = kd / s
+    b2_t = b2 / (s * s_next)
+    nb, l = _chunking(n)
+    kdb = _blockify(kd_t, nb, l, 1.0)
+    b2b = _blockify(b2_t, nb, l, 0.0)
+
+    # phase A: each window's Möbius map, right to left
+    w00 = torch.ones_like(kdb[..., 0])
+    w01 = torch.zeros_like(w00)
+    w10 = torch.zeros_like(w00)
+    w11 = torch.ones_like(w00)
+    for i in range(l - 1, -1, -1):
+        p00 = kdb[..., i] * w00 - b2b[..., i] * w10
+        p01 = kdb[..., i] * w01 - b2b[..., i] * w11
+        r = torch.rsqrt(p00**2 + p01**2 + w00**2 + w01**2 + 1e-300)
+        w00, w01, w10, w11 = p00 * r, p01 * r, w00 * r, w01 * r
+
+    # phase B: suffix scan of the window maps (earlier window = left factor)
+    sh = 1
+    while sh < nb:
+        p00 = _shift(w00, sh, 1.0, True)
+        p01 = _shift(w01, sh, 0.0, True)
+        p10 = _shift(w10, sh, 0.0, True)
+        p11 = _shift(w11, sh, 1.0, True)
+        n00 = w00 * p00 + w01 * p10
+        n01 = w00 * p01 + w01 * p11
+        n10 = w10 * p00 + w11 * p10
+        n11 = w10 * p01 + w11 * p11
+        r = torch.rsqrt(n00**2 + n01**2 + n10**2 + n11**2 + 1e-300)
+        w00, w01, w10, w11 = n00 * r, n01 * r, n10 * r, n11 * r
+        sh *= 2
+    # pivot entering each window from the right; the identity past the last
+    # window gives 1/0, replaced by 1 (b2 = 0 at the end resets the sweep)
+    t00 = _shift(w00, 1, 1.0, True)
+    t10 = _shift(w10, 1, 0.0, True)
+    degenerate = t10 == 0
+    d = torch.where(degenerate, torch.ones_like(t00), t00) / torch.where(
+        degenerate, torch.ones_like(t10), t10
+    )
+
+    # phase C: exact recursion inside each window
+    outs = [None] * l
+    for i in range(l - 1, -1, -1):
+        d = kdb[..., i] - b2b[..., i] / d
+        outs[i] = d
+    return _unblockify(torch.stack(outs, dim=-1), n) * s
+
+
+def linear_recurrence_plain(
+    t: torch.Tensor, c: torch.Tensor, x0, reverse: bool = False
+) -> torch.Tensor:
+    """Plain PyTorch K2: ``x_k = t_k·x_{k−1} + c_k`` (``x_{−1} = x0``) or,
+    with ``reverse``, ``x_k = t_k·x_{k+1} + c_k`` (``x_N = x0``), over
+    ``[..., N]`` in the input dtype.  Windows past the end are identity maps."""
+    n = t.shape[-1]
+    x0 = torch.as_tensor(x0, dtype=t.dtype, device=t.device).expand(t.shape[:-1])
+    nb, l = _chunking(n)
+    tb = _blockify(t, nb, l, 1.0)
+    cb = _blockify(c, nb, l, 0.0)
+    order = range(l - 1, -1, -1) if reverse else range(l)
+
+    a = torch.ones_like(tb[..., 0])
+    b = torch.zeros_like(a)
+    for i in order:
+        a = tb[..., i] * a
+        b = tb[..., i] * b + cb[..., i]
+    sh = 1
+    while sh < nb:
+        sa = _shift(a, sh, 1.0, reverse)
+        sb = _shift(b, sh, 0.0, reverse)
+        b = a * sb + b
+        a = a * sa
+        sh *= 2
+    x = _shift(a, 1, 1.0, reverse) * x0[..., None] + _shift(b, 1, 0.0, reverse)
+
+    outs = [None] * l
+    for i in order:
+        x = tb[..., i] * x + cb[..., i]
+        outs[i] = x
+    return _unblockify(torch.stack(outs, dim=-1), n)
+
+
+def dist_q_1d_planes_plain(
+    nat1: torch.Tensor,
+    nat2d: torch.Tensor,
+    nat2s: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
+):
+    """Plain PyTorch K3: f64 naturals → ``(a [N−1], b [N−1], qv [N−1], mu0,
+    p0v, means [N], vars [N])`` in ``out_dtype``, computed in f64 and cast
+    at the end.  ``b = w[1:]`` and the means come from the exact forward
+    solve, as in ``pallas_scan.py::dist_q_1d_planes``."""
+    kd = -2.0 * nat2d
+    ks = -nat2s
+    zero = torch.zeros_like(kd[..., :1])
+    d = riccati_d_sweep_plain(kd, torch.cat([ks**2, zero], dim=-1))
+    u = ks / d[..., 1:]
+    covs = 1.0 / d
+    z = linear_recurrence_plain(torch.cat([-u, zero], dim=-1), nat1, 0.0, reverse=True)
+    w = covs * z
+    means = linear_recurrence_plain(torch.cat([zero, -u], dim=-1), w, 0.0)
+    varis = linear_recurrence_plain(torch.cat([zero, u * u], dim=-1), covs, 0.0)
+    outs = (-u, w[..., 1:], covs[..., 1:], means[..., 0], covs[..., 0], means, varis)
+    return tuple(x.to(out_dtype) for x in outs)
+
+
+# ------------------------------------------------------------------ wrappers
+def _check(name: str, tensors, dtypes) -> None:
+    dev = tensors[0].device
+    for x in tensors:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name}: expected tensors, got {type(x).__name__}")
+        if x.device != dev:
+            raise ValueError(f"{name}: inputs on {dev} and {x.device}")
+        if x.dtype not in dtypes:
+            raise TypeError(f"{name}: dtype {x.dtype} not in {dtypes}")
+        if x.dim() < 1:
+            raise ValueError(f"{name}: inputs must be at least 1-D")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def _batch(x: torch.Tensor) -> int:
+    b = 1
+    for s in x.shape[:-1]:
+        b *= s
+    return b
+
+
+def _launch(name: str, fn, *args) -> None:
+    """Call a C launcher on the current stream and raise on its error code."""
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def _lib():
+    from ._build import load_library
+
+    return load_library()
+
+
+def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def riccati_d_sweep(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """K1: ``D_k = kd_k − b2_k/D_{k+1}`` on f64 ``[..., N]`` with
+    ``b2[..., N−1] = 0``.  Kernel for CUDA tensors, plain version for CPU."""
+    _check("riccati_d_sweep", (kd, b2), (torch.float64,))
+    if kd.shape != b2.shape:
+        raise ValueError(f"riccati_d_sweep: shapes {kd.shape} and {b2.shape}")
+    if kd.shape[-1] and bool(torch.any(b2[..., -1] != 0)):
+        raise ValueError("riccati_d_sweep: b2[..., -1] must be 0")
+    if kd.device.type == "cpu":
+        return riccati_d_sweep_plain(kd, b2)
+    out = torch.empty_like(kd)
+    if out.numel():
+        with torch.cuda.device(kd.device):
+            _launch("riccati_d_sweep", _lib().vidp_riccati_f64, _ptr(kd), _ptr(b2),
+                    _ptr(out), _batch(kd), kd.shape[-1])
+        riccati_d_sweep.launches += 1
+    return out
+
+
+def linear_recurrence(
+    t: torch.Tensor, c: torch.Tensor, x0, reverse: bool = False
+) -> torch.Tensor:
+    """K2: ``x_k = t_k·x_{k−1} + c_k`` (``x_{−1} = x0``), or with ``reverse``
+    ``x_k = t_k·x_{k+1} + c_k`` (``x_N = x0``), over f32 or f64 ``[..., N]``.
+    ``x0`` is a number or a tensor broadcastable to the batch shape."""
+    _check("linear_recurrence", (t, c), (torch.float32, torch.float64))
+    if t.shape != c.shape or t.dtype != c.dtype:
+        raise ValueError("linear_recurrence: t and c differ in shape or dtype")
+    if t.device.type == "cpu":
+        return linear_recurrence_plain(t, c, x0, reverse)
+    x0 = torch.as_tensor(x0, dtype=t.dtype, device=t.device)
+    x0 = x0.expand(t.shape[:-1]).contiguous()
+    out = torch.empty_like(t)
+    if out.numel():
+        lib = _lib()
+        fn = lib.vidp_linrec_f64 if t.dtype == torch.float64 else lib.vidp_linrec_f32
+        with torch.cuda.device(t.device):
+            _launch("linear_recurrence", fn, _ptr(t), _ptr(c), _ptr(x0), _ptr(out),
+                    _batch(t), t.shape[-1], int(bool(reverse)))
+        linear_recurrence.launches += 1
+    return out
+
+
+def dist_q_1d_planes(
+    nat1: torch.Tensor,
+    nat2d: torch.Tensor,
+    nat2s: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
+):
+    """K3: the packed d=1 ``dist_q`` chain.  f64 ``nat1 [..., N]``,
+    ``nat2d [..., N]``, ``nat2s [..., N−1]`` in; ``(a, b, qv, mu0, p0v,
+    means, vars)`` out in ``out_dtype`` (f32 or f64)."""
+    _check("dist_q_1d_planes", (nat1, nat2d, nat2s), (torch.float64,))
+    n = nat1.shape[-1]
+    if nat2d.shape != nat1.shape or nat2s.shape != nat1.shape[:-1] + (n - 1,):
+        raise ValueError("dist_q_1d_planes: expected shapes [..., N], [..., N], [..., N-1]")
+    if n < 2:
+        raise ValueError("dist_q_1d_planes: needs N >= 2")
+    if out_dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dist_q_1d_planes: out_dtype {out_dtype}")
+    if nat1.device.type == "cpu":
+        return dist_q_1d_planes_plain(nat1, nat2d, nat2s, out_dtype)
+    scratch = torch.empty((6,) + nat1.shape, dtype=torch.float64, device=nat1.device)
+    covs, a, w, means, varis = (
+        torch.empty(nat1.shape, dtype=out_dtype, device=nat1.device) for _ in range(5)
+    )
+    batch = _batch(nat1)
+    if batch:
+        lib = _lib()
+        fn = lib.vidp_dist_q_1d_f64 if out_dtype == torch.float64 else lib.vidp_dist_q_1d_f32
+        with torch.cuda.device(nat1.device):
+            _launch("dist_q_1d_planes", fn, _ptr(nat1), _ptr(nat2d), _ptr(nat2s),
+                    _ptr(scratch), _ptr(covs), _ptr(a), _ptr(w), _ptr(means),
+                    _ptr(varis), batch, n)
+        dist_q_1d_planes.launches += 1
+    return (a[..., :-1], w[..., 1:], covs[..., 1:], means[..., 0], covs[..., 0],
+            means, varis)
+
+
+_KERNELS = (riccati_d_sweep, linear_recurrence, dist_q_1d_planes)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in _KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """``{wrapper name: launches}`` since the last reset."""
+    return {fn.__name__: fn.launches for fn in _KERNELS}
+
+
+reset_launch_counts()
