@@ -2,22 +2,30 @@
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure raises and the exit code is not 0:
+Phases, one line or a few each; any failure raises and the exit code is not 0:
 
 1. device: requires CUDA and prints the card's name and power limit;
-2. build: compiles the CUDA kernels from ``vi_diffusion_processes_tpu_torch/csrc``;
-3. kernels: K1, K2 and K3 against their plain PyTorch versions on the card,
-   with max errors and median times over 20 runs;
-4. main path: ``bench.py``'s flagship model (double-well SDE, T = 100,000,
+2. build: compiles the CUDA kernels from ``vi_diffusion_processes_tpu_torch/csrc``
+   and prints ptxas's register counts;
+3. kernels: K1, K2, K3 and K4 against their plain PyTorch versions on the
+   card, with max errors and median times over 20 runs;
+4. adjoints: the backward passes of K1, K2, K3 and K4 at T = 100,000 against
+   autograd through the plain versions on the card; each must launch K2;
+5. main path: ``bench.py``'s flagship model (double-well SDE, T = 100,000,
    float32 model, float64 naturals) built with the port's API, then 32
    ``packed_natgrad_step`` calls; K3 must launch twice per step;
-5. trainer: ``run_cvi_dp`` on the same data (relinearize, unpack, the
+6. trainer: ``run_cvi_dp`` on the same data (relinearize, unpack, the
    generic ``dist_q.marginals()``), which must launch K1 and K2;
-6. reference: the packed step on a small input on the card against the
-   same step on the CPU, in float64.
+7. prior learning: ``run_cvi_dp`` with ``learn_prior_sde=True``, whose
+   ``optimize_prior_sde`` must launch K2 and move ``q_mat``, ``scale``, ``c``;
+8. x64 off: the flagship with the float64 policy off, 32 packed steps that
+   must launch K4 exactly twice per step and K3 never;
+9. reference: on a small float64 input the packed step and the prior
+   gradient on the card against the same on the CPU.
 
-The second-to-last line is a JSON object with each kernel's launches in
-phases 4-5, its max error and times; the last line is
+Launch counts are set to 0 just before each of phases 5-8 and read just
+after.  The second-to-last line is a JSON object with each kernel's
+launches in those phases, its max error, times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
@@ -33,22 +41,33 @@ T_FLAGSHIP = 100_000
 STEPS = 32
 LR = 0.3
 REPS = 20
+#: the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+#: bytes/s, and FLOP/s outside the tensor cores in float64 and float32
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(fn) -> float:
+def median_ms(fn, reps: int = REPS) -> float:
     fn()  # warm-up
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate, and which one it is."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_device() -> str:
@@ -71,6 +90,9 @@ def phase_build() -> None:
     _build.load_library()
     log(f"[build] {_build.build_seconds():.2f} s nvcc, {time.perf_counter() - t0:.2f} s "
         f"to build and load, into {_build.BUILD_DIR}")
+    for line in _build.ptxas_report().splitlines():
+        if "Compiling entry" in line or "registers" in line:
+            log(f"[build] {line.strip()}")
 
 
 def _inputs(n, seed):
@@ -86,12 +108,46 @@ def _inputs(n, seed):
     return kd, b2, t, c, nat1, nat2d, nat2s
 
 
-def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version; returns {name: (err, ms, plain_ms)}."""
-    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import _dist_q_core
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+def _parabolic(n):
+    """A float32 sweep near the parabolic limit (test_pallas_riccati.py:25-36)."""
+    a, qinv = 0.9996, 12500.0
+    kd = np.full(n, qinv * (1 + a * a))
+    kd[-1] = qinv
+    kd[50::500] += 25.0
+    b2 = np.concatenate([np.full(n - 1, (qinv * a) ** 2), [0.0]])
+    return kd, b2
 
-    result = {"riccati_d_sweep": [0.0], "linear_recurrence": [0.0], "dist_q_1d_planes": [0.0]}
+
+def _sequential_sweep(kd, b2):
+    """The pivot recursion in float64, one element after another."""
+    d = np.empty(len(kd))
+    d[-1] = kd[-1]
+    for k in range(len(kd) - 2, -1, -1):
+        d[k] = kd[k] - b2[k] / d[k + 1]
+    return d
+
+
+def phase_kernels(dev) -> dict:
+    """Each kernel against its plain version; returns {name: record}."""
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+    from vi_diffusion_processes_tpu_torch.ops.btd import dist_q_1d_core
+    from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import (
+        riccati_d_sweep_f32,
+        riccati_d_sweep_f32_plain,
+    )
+
+    n = T_FLAGSHIP
+    f64, f32 = torch.float64, torch.float32
+    # bytes: each input read once and each output written once; operations:
+    # those of the sequential recursion (K1, K4: a division and a
+    # subtraction per pivot; K2: one multiply-add; K3: the five recurrences
+    # and the elementwise work between them, 12 per element)
+    result = {
+        "riccati_d_sweep": {"err": 0.0, "bound": bound_ms(3 * 8 * n, 2 * n, f64)},
+        "linear_recurrence": {"err": 0.0, "bound": bound_ms(3 * 8 * n, 2 * n, f64)},
+        "dist_q_1d_planes": {"err": 0.0, "bound": bound_ms(3 * 8 * n + 5 * 4 * n, 12 * n, f64)},
+        "riccati_d_sweep_f32": {"err": 0.0, "bound": bound_ms(3 * 4 * n, 2 * n, f32)},
+    }
     for n in (T_FLAGSHIP, 4097):
         kd, b2, t, c, *_ = (torch.tensor(x, device=dev) for x in _inputs(n, 0))
         got, ref = cs.riccati_d_sweep(kd, b2), cs.riccati_d_sweep_plain(kd, b2)
@@ -100,10 +156,11 @@ def phase_kernels(dev) -> dict:
         log(f"[K1] n={n} f64 max_abs_err={err:.3e} max_rel_err={rel:.3e} (rtol 1e-10)")
         if not rel <= 1e-10:
             raise AssertionError("K1 disagrees with its plain version")
-        result["riccati_d_sweep"][0] = max(result["riccati_d_sweep"][0], err)
+        result["riccati_d_sweep"]["err"] = max(result["riccati_d_sweep"]["err"], err)
         if n == T_FLAGSHIP:
-            result["riccati_d_sweep"] += [median_ms(lambda: cs.riccati_d_sweep(kd, b2)),
-                                          median_ms(lambda: cs.riccati_d_sweep_plain(kd, b2))]
+            result["riccati_d_sweep"]["ms"] = median_ms(lambda: cs.riccati_d_sweep(kd, b2))
+            result["riccati_d_sweep"]["plain_ms"] = median_ms(
+                lambda: cs.riccati_d_sweep_plain(kd, b2))
         for dtype, tol in ((torch.float64, 1e-11), (torch.float32, 2e-6)):
             for reverse in (False, True):
                 tt, cc = t.to(dtype), c.to(dtype)
@@ -115,35 +172,135 @@ def phase_kernels(dev) -> dict:
                     f"max_abs_err={err:.3e} scaled_err={scaled:.3e} (atol {tol:g} x max|x|)")
                 if not scaled <= tol:
                     raise AssertionError("K2 disagrees with its plain version")
-                result["linear_recurrence"][0] = max(result["linear_recurrence"][0], err)
+                rec = result["linear_recurrence"]
+                rec["err"] = max(rec["err"], err)
                 if n == T_FLAGSHIP and dtype == torch.float64 and not reverse:
-                    result["linear_recurrence"] += [
-                        median_ms(lambda: cs.linear_recurrence(tt, cc, 0.7)),
-                        median_ms(lambda: cs.linear_recurrence_plain(tt, cc, 0.7)),
-                    ]
+                    rec["ms"] = median_ms(lambda: cs.linear_recurrence(tt, cc, 0.7))
+                    rec["plain_ms"] = median_ms(lambda: cs.linear_recurrence_plain(tt, cc, 0.7))
+        # K4 on the same inputs in float32: against its plain version to
+        # rtol 1e-4; then on the parabolic case, where float32 is at its
+        # limit, both against the float64 sequential recursion to rtol 2e-3
+        # (test_pallas_riccati.py:25-36)
+        kd4, b24 = kd.float(), b2.float()
+        got, ref = riccati_d_sweep_f32(kd4, b24), riccati_d_sweep_f32_plain(kd4, b24)
+        rel = float(((got - ref).abs() / ref.abs()).max())
+        log(f"[K4] n={n} f32 max_abs_err={float((got - ref).abs().max()):.3e} "
+            f"max_rel_err={rel:.3e} (rtol 1e-4)")
+        if not rel <= 1e-4:
+            raise AssertionError("K4 disagrees with its plain version")
+        rec = result["riccati_d_sweep_f32"]
+        rec["err"] = max(rec["err"], float((got - ref).abs().max()))
+        if n == T_FLAGSHIP:
+            rec["ms"] = median_ms(lambda: riccati_d_sweep_f32(kd4, b24))
+            rec["plain_ms"] = median_ms(lambda: riccati_d_sweep_f32_plain(kd4, b24))
+        kd_p, b2_p = _parabolic(n)
+        oracle = _sequential_sweep(kd_p, b2_p)
+        kd_p, b2_p = (torch.tensor(x, device=dev).float() for x in (kd_p, b2_p))
+        got, ref = riccati_d_sweep_f32(kd_p, b2_p), riccati_d_sweep_f32_plain(kd_p, b2_p)
+        rel_k, rel_p = (float(np.max(np.abs(x.double().cpu().numpy() / oracle - 1.0)))
+                        for x in (got, ref))
+        log(f"[K4] n={n} f32 parabolic: kernel max_rel_err={rel_k:.3e}, plain "
+            f"{rel_p:.3e} against the f64 recursion (rtol 2e-3); min D {float(got.min()):.6g}")
+        if not (rel_k <= 2e-3 and rel_p <= 2e-3 and bool((got > 0).all())):
+            raise AssertionError("K4 is off the float64 recursion on the parabolic case")
     names = ("a", "b", "qv", "mu0", "p0v", "means", "vars")
     for n in (T_FLAGSHIP, 1_048_577):
         *_, nat1, nat2d, nat2s = (torch.tensor(x, device=dev) for x in _inputs(n, 1))
         got = cs.dist_q_1d_planes(nat1, nat2d, nat2s, torch.float32)
         for label, ref in (
             ("plain", cs.dist_q_1d_planes_plain(nat1, nat2d, nat2s, torch.float32)),
-            ("_dist_q_core", _dist_q_core(nat1, nat2d, nat2s, torch.float32)),
+            ("dist_q_1d_core", dist_q_1d_core(nat1, nat2d, nat2s, torch.float32)),
         ):
             err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
             log(f"[K3] n={n} vs {label} max_abs_err={err:.3e} (rtol 2e-4, atol 1e-6)")
             for nm, g, r in zip(names, got, ref):
                 torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-6, msg=f"K3 {nm} vs {label}")
             if label == "plain":
-                result["dist_q_1d_planes"][0] = max(result["dist_q_1d_planes"][0], err)
+                rec = result["dist_q_1d_planes"]
+                rec["err"] = max(rec["err"], err)
         if n == T_FLAGSHIP:
-            result["dist_q_1d_planes"] += [
-                median_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s)),
-                median_ms(lambda: cs.dist_q_1d_planes_plain(nat1, nat2d, nat2s)),
-            ]
-    for name, (err, ms, plain_ms) in result.items():
-        log(f"[kernels] {name} T={T_FLAGSHIP}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"(median of {REPS})")
+            rec = result["dist_q_1d_planes"]
+            rec["ms"] = median_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s))
+            rec["plain_ms"] = median_ms(lambda: cs.dist_q_1d_planes_plain(nat1, nat2d, nat2s))
+    for name, rec in result.items():
+        log(f"[kernels] {name} T={T_FLAGSHIP}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms (median of {REPS}); bound {rec['bound'][0]:.6f} ms "
+            f"({rec['bound'][1]})")
     return result
+
+
+def _vjp(fn, inputs, cotangent):
+    """The gradients of ``fn`` at ``inputs`` against ``cotangent``, and the
+    K2 launches of the backward pass alone."""
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    out = fn(*leaves)
+    before = cs.linear_recurrence.launches
+    grads = torch.autograd.grad(out, leaves, cotangent)
+    return grads, cs.linear_recurrence.launches - before
+
+
+def phase_adjoints(dev) -> None:
+    """Each backward pass on the card against autograd through the plain
+    version on the card, an independent computation of the same gradient."""
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+    from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import (
+        riccati_d_sweep_f32,
+        riccati_d_sweep_f32_plain,
+    )
+
+    n = T_FLAGSHIP
+    kd, b2, t, c, nat1, nat2d, nat2s = (torch.tensor(x, device=dev) for x in _inputs(n, 2))
+    g = torch.tensor(np.random.default_rng(3).normal(size=n), device=dev)
+    x0 = torch.tensor(0.7, dtype=torch.float64, device=dev)
+    # (name, kernel path, plain path, inputs, cotangent, tolerance, operations
+    # per element of forward + backward: the sweeps 2 + 8, K2 2 + 4, K3 12 + 40)
+    cases = [
+        ("K1'", cs.riccati_d_sweep, cs.riccati_d_sweep_plain, (kd, b2), g, 1e-9, 10),
+        ("K4'", riccati_d_sweep_f32, riccati_d_sweep_f32_plain, (kd.float(), b2.float()),
+         g.float(), 1e-3, 10),
+    ]
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        for reverse in (False, True):
+            cases.append((
+                f"K2' {str(dtype)[6:]} {'rev' if reverse else 'fwd'}",
+                lambda tt, cc, xx, r=reverse: cs.linear_recurrence(tt, cc, xx, r),
+                lambda tt, cc, xx, r=reverse: cs.linear_recurrence_plain(tt, cc, xx, r),
+                (t.to(dtype), c.to(dtype), x0.to(dtype)), g.to(dtype), tol, 6,
+            ))
+    cts = [torch.tensor(np.random.default_rng(4).normal(size=s), device=dev, dtype=torch.float32)
+           for s in [(n - 1,)] * 3 + [()] * 2 + [(n,)] * 2]
+    cases.append(("K3'", lambda *a: cs.dist_q_1d_planes(*a, torch.float32),
+                  lambda *a: cs.dist_q_1d_planes_plain(*a, torch.float32),
+                  (nat1, nat2d, nat2s), cts, 1e-3, 52))
+    for name, fn, plain, inputs, ct, tol, ops in cases:
+        got, k2 = _vjp(fn, inputs, ct)
+        ref, _ = _vjp(plain, inputs, ct)
+        # bytes of forward + backward: inputs and cotangents read once, the
+        # forward's outputs and the gradients written once
+        outs = fn(*inputs)
+        tensors = [*inputs, *(ct if isinstance(ct, list) else [ct]), *got,
+                   *(outs if isinstance(outs, tuple) else [outs])]
+        bound = bound_ms(sum(x.numel() * x.element_size() for x in tensors), ops * n,
+                         inputs[0].dtype)
+        worst = 0.0
+        for i, (gv, rv) in enumerate(zip(got, ref)):
+            if name in ("K1'", "K4'") and i == 1:
+                # b2[-1] is the structural zero: autograd through the plain
+                # version's sqrt(b2) gives NaN there, the adjoint formula 0
+                gv, rv = gv[:-1], rv[:-1]
+            scale = float(rv.abs().max().clamp_min(1e-300))
+            worst = max(worst, float((gv - rv).abs().max()) / scale)
+        ms = median_ms(lambda: _vjp(fn, inputs, ct), 5)
+        plain_ms = median_ms(lambda: _vjp(plain, inputs, ct), 5)
+        log(f"[adjoints] {name} T={n}: scaled_err={worst:.3e} (limit {tol:g}), K2 launches "
+            f"in backward {k2}; forward+backward {ms:.4f} ms, through the plain version "
+            f"{plain_ms:.4f} ms (median of 5); bound {bound[0]:.6f} ms ({bound[1]})")
+        if not worst <= tol:
+            raise AssertionError(f"{name} disagrees with autograd through the plain version")
+        if k2 < 1:
+            raise AssertionError(f"{name}'s backward launched no K2")
 
 
 def flagship_model(t_size: int, dtype, dev):
@@ -177,73 +334,140 @@ def flagship_model(t_size: int, dtype, dev):
     return model.set_linearized_prior(), obs_idx, obs_y
 
 
-def phase_main_path(dev, card: str) -> tuple:
+def _packed_steps(model, label: str, card: str):
+    """STEPS flagship packed steps; returns the last ELBO."""
     from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import pack_state, packed_natgrad_step
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
-    model, obs_idx, obs_y = flagship_model(T_FLAGSHIP, torch.float32, dev)
     state = pack_state(model)
     torch.cuda.synchronize()
-    k3_before = cs.dist_q_1d_planes.launches
     t0 = time.perf_counter()
     for _ in range(STEPS):
         state, elbo = packed_natgrad_step(model, state, LR)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     elbo = float(elbo)
-    k3 = cs.dist_q_1d_planes.launches - k3_before
-    log(f"[main] T={T_FLAGSHIP} f32 model, {STEPS} packed_natgrad_step(lr={LR}): "
-        f"ELBO {elbo!r}, {STEPS / seconds:.1f} steps/s on {card} (information only), "
-        f"K3 launches {k3}")
+    log(f"[{label}] T={T_FLAGSHIP} f32 model, {STEPS} packed_natgrad_step(lr={LR}): "
+        f"ELBO {elbo!r}, {STEPS / seconds:.1f} steps/s on {card} (information only)")
     if not np.isfinite(elbo):
-        raise AssertionError("flagship ELBO is not finite")
-    if k3 != 2 * STEPS:
-        raise AssertionError(f"K3 launched {k3} times in {STEPS} steps, expected {2 * STEPS}")
+        raise AssertionError(f"{label}: flagship ELBO is not finite")
     for name in ("fx_mu", "fx_var", "g_nat1"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
-            raise AssertionError(f"state.{name} is not finite")
-    return model, obs_idx, obs_y
+            raise AssertionError(f"{label}: state.{name} is not finite")
+    return elbo
 
 
-def phase_trainer(model, obs_idx, obs_y, dev) -> None:
-    from vi_diffusion_processes_tpu_torch.exp.data import DPDataset
-    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_cvi_dp
+def _counted(phase, *args):
+    """Run a path phase with every launch count set to 0 just before it;
+    returns (its result, the counts just after)."""
     from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    out = phase(*args)
+    torch.cuda.synchronize()
+    counts = cs.launch_counts()
+    log(f"[launches] {phase.__name__}: {json.dumps(counts)}")
+    return out, counts
+
+
+def phase_main_path(dev, card: str):
+    model, obs_idx, obs_y = flagship_model(T_FLAGSHIP, torch.float32, dev)
+    return model, obs_idx, obs_y, _packed_steps(model, "main", card)
+
+
+def flagship_dataset(model, obs_idx, obs_y, dev):
+    """The flagship's observations split 4:1 into train and test."""
+    from vi_diffusion_processes_tpu_torch.exp.data import DPDataset
+
     grid = model.time_grid
-    test = np.arange(len(obs_idx)) % 5 == 0
+    test = torch.tensor(np.arange(len(obs_idx)) % 5 == 0, device=dev)
     y = torch.tensor(obs_y, device=dev)
     idx = torch.tensor(obs_idx, device=dev)
-    dataset = DPDataset(
+    return DPDataset(
         latent_path=torch.zeros_like(grid)[:, None],
         time_grid=grid,
-        obs_times=grid[idx[~torch.tensor(test, device=dev)]],
-        obs_values=y[~torch.tensor(test, device=dev)],
-        test_times=grid[idx[torch.tensor(test, device=dev)]],
-        test_values=y[torch.tensor(test, device=dev)],
+        obs_times=grid[idx[~test]],
+        obs_values=y[~test],
+        test_times=grid[idx[test]],
+        test_values=y[test],
         noise_stddev=0.2,
         x0=torch.zeros(1, device=dev),
     )
-    before = cs.launch_counts()
+
+
+def phase_trainer(dataset) -> None:
+    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_cvi_dp
+
     out = run_cvi_dp(
         ExperimentConfig(prior_sde="dw", q=0.8, max_inner_iters=5, max_outer_iters=2), dataset
     )
-    after = cs.launch_counts()
     log(f"[trainer] run_cvi_dp elbos {out['elbos']!r} nlpd {out['nlpd']!r} "
-        f"rmse {out['rmse']!r}; launches {json.dumps({k: after[k] - before[k] for k in after})}")
+        f"rmse {out['rmse']!r}")
     if not (np.all(np.isfinite(out["elbos"])) and np.isfinite(out["nlpd"])):
         raise AssertionError("trainer ELBOs or metrics not finite")
     if not bool(torch.isfinite(out["posterior_means"]).all()):
         raise AssertionError("posterior means not finite")
-    for name in ("riccati_d_sweep", "linear_recurrence"):
-        if after[name] <= before[name]:
-            raise AssertionError(f"{name} was not launched by the trainer")
+
+
+def phase_prior_learning(dataset) -> None:
+    """Drift learning through ``run_cvi_dp``; ``optimize_prior_sde`` is
+    wrapped here to time it and to count the launches inside it."""
+    from vi_diffusion_processes_tpu_torch import interop
+    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_cvi_dp
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+    from vi_diffusion_processes_tpu_torch.optim.trainers import CVISitesTrainer
+
+    calls = []
+    original = CVISitesTrainer.optimize_prior_sde
+
+    def timed(self):
+        torch.cuda.synchronize()
+        before, t0 = cs.launch_counts(), time.perf_counter()
+        original(self)
+        torch.cuda.synchronize()
+        after = cs.launch_counts()
+        calls.append(((time.perf_counter() - t0) * 1e3, {k: after[k] - before[k] for k in after}))
+
+    CVISitesTrainer.optimize_prior_sde = timed
+    try:
+        out = run_cvi_dp(ExperimentConfig(prior_sde="dw", q=0.8, learn_prior_sde=True,
+                                          max_inner_iters=5, max_outer_iters=2), dataset)
+    finally:
+        CVISitesTrainer.optimize_prior_sde = original
+    learned = interop.sde_params_to_numpy(out["learned_prior_sde"])
+    log(f"[prior] run_cvi_dp(learn_prior_sde=True) elbos {out['elbos']!r}; learned "
+        + ", ".join(f"{k} {v.ravel().tolist()}" for k, v in learned.items()))
+    for ms, counts in calls:
+        log(f"[prior] optimize_prior_sde {ms:.2f} ms, launches inside {json.dumps(counts)}")
+    if not np.all(np.isfinite(out["elbos"])):
+        raise AssertionError("drift learning: ELBOs not finite")
+    for name, start in (("q_mat", 0.8), ("scale", 4.0), ("c", 1.0)):
+        v = learned[name]
+        if not (np.all(np.isfinite(v)) and np.all(v != np.float32(start))):
+            raise AssertionError(f"drift learning: {name} = {v} did not move from {start}")
+    if not calls or any(c["linear_recurrence"] < 1 for _, c in calls):
+        raise AssertionError("optimize_prior_sde did not launch K2")
+
+
+def phase_x64_off(dev, card: str):
+    from vi_diffusion_processes_tpu_torch import config
+
+    with config.enable_x64(False):
+        model, _, _ = flagship_model(T_FLAGSHIP, torch.float32, dev)
+        if model.prior_nats.nat1.dtype != torch.float32:
+            raise AssertionError("x64 off: the prior naturals are not float32")
+        return _packed_steps(model, "x64-off", card)
 
 
 def phase_reference(dev) -> None:
-    """The packed step on the card (kernels) against the CPU (plain
-    versions) on a small float64 input: rtol 1e-9 (association order only)."""
-    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import pack_state, packed_natgrad_step
+    """The packed step and the prior gradient on the card (kernels) against
+    the CPU (plain versions) on a small float64 input: rtol 1e-9
+    (association order only)."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import (
+        pack_state,
+        packed_natgrad_step,
+        unpack_state,
+    )
 
     results = []
     for device in (dev, torch.device("cpu")):
@@ -251,18 +475,25 @@ def phase_reference(dev) -> None:
         state = pack_state(model)
         for _ in range(3):
             state, elbo = packed_natgrad_step(model, state, LR)
-        results.append((float(elbo), state))
-    (e_gpu, s_gpu), (e_cpu, s_cpu) = results
+        # relinearized and re-based first, as the trainer does before it
+        # learns the drift
+        grads = unpack_state(model, state).relinearize().grad_ve_wrt_prior_params()
+        results.append((float(elbo), state, {k: v.cpu() for k, v in grads.items()}))
+    (e_gpu, s_gpu, g_gpu), (e_cpu, s_cpu, g_cpu) = results
     rel = abs(e_gpu / e_cpu - 1.0)
     worst = max(
         float((getattr(s_gpu, f).cpu() - getattr(s_cpu, f)).abs().max()
               / getattr(s_cpu, f).abs().max().clamp_min(1e-300))
         for f in ("g_nat1", "g_nat2d", "g_nat2s", "fx_mu", "fx_var")
     )
+    g_rel = max(float(((g_gpu[k] - g_cpu[k]).abs() / g_cpu[k].abs()).max()) for k in g_cpu)
     log(f"[reference] T=2000 f64, 3 steps: ELBO card {e_gpu!r} cpu {e_cpu!r} "
-        f"rel {rel:.3e}; state scaled err {worst:.3e} (rtol 1e-9)")
+        f"rel {rel:.3e}; state scaled err {worst:.3e}; grad_ve_wrt_prior_params "
+        f"{ {k: v.ravel().tolist() for k, v in g_gpu.items()} } rel err {g_rel:.3e} (rtol 1e-9)")
     if not (rel <= 1e-9 and worst <= 1e-9):
         raise AssertionError("the packed step on the card disagrees with the CPU")
+    if not g_rel <= 1e-9:
+        raise AssertionError("grad_ve_wrt_prior_params on the card disagrees with the CPU")
 
 
 def main() -> None:
@@ -272,28 +503,48 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     kernels = phase_kernels(dev)
+    phase_adjoints(dev)
 
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
-
-    cs.reset_launch_counts()
-    model, obs_idx, obs_y = phase_main_path(dev, card)
-    phase_trainer(model, obs_idx, obs_y, dev)
-    counts = cs.launch_counts()
-    for name, n in counts.items():
+    (model, obs_idx, obs_y, elbo64), main_counts = _counted(phase_main_path, dev, card)
+    if main_counts["dist_q_1d_planes"] != 2 * STEPS:
+        raise AssertionError(f"K3 launched {main_counts['dist_q_1d_planes']} times in "
+                             f"{STEPS} steps, expected {2 * STEPS}")
+    dataset = flagship_dataset(model, obs_idx, obs_y, dev)
+    _, trainer_counts = _counted(phase_trainer, dataset)
+    for name in ("riccati_d_sweep", "linear_recurrence"):
+        if trainer_counts[name] == 0:
+            raise AssertionError(f"{name} was not launched by the trainer")
+    _, prior_counts = _counted(phase_prior_learning, dataset)
+    if prior_counts["riccati_d_sweep"] == 0:
+        raise AssertionError("drift learning did not launch K1")
+    elbo32, x64_off_counts = _counted(phase_x64_off, dev, card)
+    log(f"[x64-off] ELBO {elbo32!r} beside the float64-naturals ELBO {elbo64!r} of the main path")
+    if x64_off_counts["riccati_d_sweep_f32"] != 2 * STEPS or x64_off_counts["dist_q_1d_planes"]:
+        raise AssertionError(f"x64 off: K4 launched {x64_off_counts['riccati_d_sweep_f32']} "
+                             f"times (expected {2 * STEPS}) and K3 "
+                             f"{x64_off_counts['dist_q_1d_planes']} (expected 0)")
+    paths = (main_counts, trainer_counts, prior_counts, x64_off_counts)
+    launches = {name: sum(c[name] for c in paths) for name in kernels}
+    for name, n in launches.items():
         if n == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
+            raise AssertionError(f"{name} was never launched on the main paths")
     phase_reference(dev)
 
-    source = "vi_diffusion_processes_tpu_torch/csrc/cuda_scan.cu"
+    csrc = "vi_diffusion_processes_tpu_torch/csrc/"
+    pallas = "vi_diffusion_processes_tpu/ops/"
+    source = {"riccati_d_sweep_f32": csrc + "cuda_riccati.cu"}
     replaces = {
-        "riccati_d_sweep": "vi_diffusion_processes_tpu/ops/pallas_scan.py:257",
-        "linear_recurrence": "vi_diffusion_processes_tpu/ops/pallas_scan.py:394",
-        "dist_q_1d_planes": "vi_diffusion_processes_tpu/ops/pallas_scan.py:551",
+        "riccati_d_sweep": pallas + "pallas_scan.py:257",
+        "linear_recurrence": pallas + "pallas_scan.py:394",
+        "dist_q_1d_planes": pallas + "pallas_scan.py:551",
+        "riccati_d_sweep_f32": pallas + "pallas_riccati.py:42 and :69",
     }
     log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces[name],
-         "launches": counts[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, (err, ms, plain_ms) in kernels.items()
+        {"name": name, "route": "cuda", "source": source.get(name, csrc + "cuda_scan.cu"),
+         "replaces": replaces[name], "launches": launches[name], "max_abs_err": rec["err"],
+         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
+         "bound_by": rec["bound"][1], "library_ms": None}
+        for name, rec in kernels.items()
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

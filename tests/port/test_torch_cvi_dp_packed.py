@@ -54,8 +54,9 @@ def _port_model(jmodel):
     tree = to_np(jmodel)
     return interop.cvi_dp_from_numpy(
         tree,
-        interop.sde_from_numpy("DoubleWellSDE", tree["prior_sde"]),
-        interop.likelihood_from_numpy(tree["likelihood"]),
+        interop.sde_from_numpy("DoubleWellSDE", tree["prior_sde"], device="cpu"),
+        interop.likelihood_from_numpy(tree["likelihood"], device="cpu"),
+        device="cpu",
     )
 
 
@@ -125,5 +126,3 @@ def test_generic_update_rules_raise_naming_their_slice(models):
     _, _, tmodel = models
     with pytest.raises(NotImplementedError, match="slice E"):
         tmodel.update_data_sites(0.1)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        tmodel.grad_kl_wrt_prior_params()

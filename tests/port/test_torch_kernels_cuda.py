@@ -1,4 +1,5 @@
-"""The CUDA kernels K1–K3 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1–K4 and their backward passes against their plain
+PyTorch versions, on the card.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device.  The file imports no JAX, so it also runs on a machine without
@@ -7,14 +8,21 @@ it, as the README says:
     python -m pytest tests/port/test_torch_kernels_cuda.py --confcutdir=tests/port -m cuda
 
 Tolerances: f64 kernels to 1e-10 relative (pivots) or 1e-11 of the scale
-(recurrences), f32 recurrences to 2e-6 of the scale, and the f32
-``dist_q`` planes to the TPU kernel's contract (rtol 2e-4, atol 1e-6).
+(recurrences), f32 recurrences to 2e-6 of the scale, the f32 pivot sweep K4
+to 1e-4 relative, and the f32 ``dist_q`` planes to the TPU kernel's
+contract (rtol 2e-4, atol 1e-6).  Each backward pass on the card is held
+against autograd through the plain version on the card: 1e-9 of the
+gradient's scale in f64, 1e-3 in f32 (and for K3, whose marginals are f32).
 """
 import numpy as np
 import pytest
 import torch
 
 from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import (
+    riccati_d_sweep_f32,
+    riccati_d_sweep_f32_plain,
+)
 
 from .helpers import affine_inputs, assert_close_scaled, naturals, riccati_inputs
 
@@ -33,6 +41,61 @@ def test_riccati_kernel_matches_plain(cuda_device, n):
     assert cs.riccati_d_sweep.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), cs.riccati_d_sweep_plain(kd, b2).cpu().numpy(),
                                rtol=1e-10)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_riccati_f32_kernel_matches_plain(cuda_device, n):
+    kd, b2 = (torch.tensor(v, device=cuda_device, dtype=torch.float32)
+              for v in riccati_inputs(np.random.default_rng(n), n, (2,)))
+    before = riccati_d_sweep_f32.launches
+    got = riccati_d_sweep_f32(kd, b2)
+    assert riccati_d_sweep_f32.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), riccati_d_sweep_f32_plain(kd, b2).cpu().numpy(),
+                               rtol=1e-4)
+
+
+def _adjoint_case(name, dev, n):
+    """(kernel fn, plain fn, inputs, cotangent, tol, mask of b2's last entry)."""
+    rng = np.random.default_rng(n)
+    kd, b2 = (torch.tensor(v, device=dev) for v in riccati_inputs(rng, n))
+    t, c = (torch.tensor(v, device=dev) for v in affine_inputs(rng, n))
+    g = torch.tensor(rng.normal(size=n), device=dev)
+    if name == "K1":
+        return cs.riccati_d_sweep, cs.riccati_d_sweep_plain, (kd, b2), g, 1e-9
+    if name == "K4":
+        return (riccati_d_sweep_f32, riccati_d_sweep_f32_plain, (kd.float(), b2.float()),
+                g.float(), 1e-3)
+    if name == "K3":
+        nat = [torch.tensor(v, device=dev) for v in naturals(rng, n)]
+        cts = [torch.tensor(rng.normal(size=s), device=dev, dtype=torch.float32)
+               for s in [(n - 1,)] * 3 + [()] * 2 + [(n,)] * 2]
+        return (lambda *a: cs.dist_q_1d_planes(*a, torch.float32),
+                lambda *a: cs.dist_q_1d_planes_plain(*a, torch.float32), nat, cts, 1e-3)
+    _, dtype, direction = name.split("-")
+    dt, rev = getattr(torch, dtype), direction == "rev"
+    x0 = torch.tensor(0.7, dtype=dt, device=dev)
+    return (lambda *a: cs.linear_recurrence(*a, rev), lambda *a: cs.linear_recurrence_plain(*a, rev),
+            (t.to(dt), c.to(dt), x0), g.to(dt), 1e-9 if dt == torch.float64 else 1e-3)
+
+
+@pytest.mark.parametrize("name", ["K1", "K2-float64-fwd", "K2-float64-rev", "K2-float32-fwd",
+                                  "K2-float32-rev", "K3", "K4"])
+def test_backward_matches_autograd_through_plain(cuda_device, name):
+    fn, plain, inputs, ct, tol = _adjoint_case(name, cuda_device, 100_000)
+    grads = []
+    for f in (fn, plain):
+        leaves = [x.detach().clone().requires_grad_() for x in inputs]
+        out = f(*leaves)
+        before = cs.linear_recurrence.launches
+        grads.append(torch.autograd.grad(out, leaves, ct))
+        if f is fn:
+            assert cs.linear_recurrence.launches > before  # the backward ran on K2
+    for i, (g, r) in enumerate(zip(*grads)):
+        if name in ("K1", "K4") and i == 1:
+            # b2[-1] is the structural zero: autograd through the plain
+            # version's sqrt(b2) gives NaN there, the adjoint formula 0
+            g, r = g[:-1], r[:-1]
+        assert_close_scaled(g.cpu(), r.cpu(), tol, err_msg=f"{name} input {i}")
 
 
 @pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])

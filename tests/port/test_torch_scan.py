@@ -21,6 +21,7 @@ from vi_diffusion_processes_tpu.models.cvi_dp_packed import _dist_q_core as jax_
 from vi_diffusion_processes_tpu.ops.btd import riccati_d_scalar as jax_riccati
 from vi_diffusion_processes_tpu.ops.btd import scalar_affine_all as jax_affine
 from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import riccati_d_sweep_f32
 
 from .helpers import affine_inputs, assert_close_scaled, naturals, riccati_inputs
 
@@ -106,6 +107,8 @@ def test_cpu_tensors_never_count_a_launch(rng):
     cs.riccati_d_sweep(kd, b2)
     cs.linear_recurrence(kd, b2, 0.0)
     cs.dist_q_1d_planes(kd, kd, b2[:-1].contiguous())
+    riccati_d_sweep_f32(kd.float(), b2.float())
     assert cs.launch_counts() == {
-        "riccati_d_sweep": 0, "linear_recurrence": 0, "dist_q_1d_planes": 0
+        "riccati_d_sweep": 0, "linear_recurrence": 0, "dist_q_1d_planes": 0,
+        "riccati_d_sweep_f32": 0,
     }

@@ -56,7 +56,7 @@ def test_mvnquad_matches_jax(rng, d):
 
 def _dw_pair():
     jsde = JDoubleWell(q_mat=jnp.asarray([[0.8]]))
-    return jsde, interop.sde_from_numpy("DoubleWellSDE", to_np(jsde))
+    return jsde, interop.sde_from_numpy("DoubleWellSDE", to_np(jsde), device="cpu")
 
 
 def test_linearize_sde_matches_jax(rng):

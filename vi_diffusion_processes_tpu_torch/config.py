@@ -1,17 +1,78 @@
-"""Global numerical constants (vi_diffusion_processes_tpu/config.py:48-58).
+"""Global numerical policy (vi_diffusion_processes_tpu/config.py:33-58).
 
-The JAX package switches its float policy with ``jax_enable_x64``.  The
-port has no such switch: every tensor carries its dtype, and the CVI
-natural-parameter algebra is always float64 (models/cvi_dp.py).  The
-jitter therefore follows the reference's x64-on value.
+The JAX package switches its float policy with ``jax_enable_x64``, which
+every entry point of that package turns on.  The port carries the same
+switch as a module flag, on by default:
+
+* on: the CVI natural-parameter algebra runs in float64 whatever the model
+  dtype, and the jitter is 1e-10;
+* off: the naturals keep the model dtype (float32 on the flagship), so the
+  pivot sweep runs in float32 (kernel K4), and the jitter is 1e-6.
+
+It also decides the device of the entry points that build tensors: CUDA
+unless the caller names another device.
 """
 from __future__ import annotations
+
+import contextlib
+
+import torch
+
+__all__ = [
+    "x64_enabled",
+    "set_x64_enabled",
+    "enable_x64",
+    "default_float",
+    "default_jitter",
+    "resolve_device",
+    "APPROX_INF",
+]
+
+_X64 = [True]
+
+
+def x64_enabled() -> bool:
+    """Whether the float64 policy is on (``jax.config.jax_enable_x64``)."""
+    return _X64[0]
+
+
+def set_x64_enabled(enabled: bool) -> None:
+    """Turn the float64 policy on or off for the whole process."""
+    _X64[0] = bool(enabled)
+
+
+@contextlib.contextmanager
+def enable_x64(enabled: bool = True):
+    """Set the float64 policy inside a ``with`` block (``jax.enable_x64``)."""
+    before = x64_enabled()
+    set_x64_enabled(enabled)
+    try:
+        yield
+    finally:
+        set_x64_enabled(before)
+
+
+def default_float() -> torch.dtype:
+    """float64 under the x64 policy, else float32 (config.py:33-40)."""
+    return torch.float64 if x64_enabled() else torch.float32
 
 
 def default_jitter() -> float:
     """Diagonal jitter used when factorizing near-singular covariances
-    (the JAX package's value with x64 enabled)."""
-    return 1e-10
+    (config.py:48-54)."""
+    return 1e-10 if default_float() == torch.float64 else 1e-6
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA card when none is given.  Raises without a
+    card rather than falling back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 #: Large-but-finite stand-in for infinity, mirroring markovflow/base.py:46.

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..config import resolve_device
 from ..sde import zoo
 
 __all__ = ["DPDataset", "build_prior_sde"]
@@ -29,7 +30,8 @@ class DPDataset(NamedTuple):
 
 def build_prior_sde(name: str, dtype=torch.float64, q: float = 1.0, device=None, **kwargs):
     """Prior SDE by the reference's config name (exp/data.py:85-113); the
-    d = 1 members of this slice only."""
+    d = 1 members of this slice only.  Built on ``device``: the CUDA card
+    unless the caller names another device."""
     q1 = [[q]]
     if name == "ou":
         sde = zoo.OrnsteinUhlenbeckSDE(decay=kwargs.get("decay", 1.0), q=q1, dtype=dtype)
@@ -41,4 +43,4 @@ def build_prior_sde(name: str, dtype=torch.float64, q: float = 1.0, device=None,
         raise NotImplementedError(
             f"prior sde {name!r} is not ported yet (slices C, E and H of ROADMAP.md)"
         )
-    return sde.to(device) if device is not None else sde
+    return sde.to(resolve_device(device))

@@ -2,9 +2,10 @@
 
 Each converter takes numpy arrays keyed by the JAX package's field names
 (nested dicts for nested dataclasses and named tuples) and builds the
-port's object on ``device``.  The port imports no JAX: the caller does the
-``np.asarray`` on every leaf, so the same model, weights and state can be
-fed to both implementations.
+port's object on ``device``: the CUDA card unless the caller names another
+device (``device="cpu"`` on a machine without one).  The port imports no
+JAX: the caller does the ``np.asarray`` on every leaf, so the same model,
+weights and state can be fed to both implementations.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from .config import resolve_device
 from .exp.data import DPDataset
 from .likelihoods.gaussian import Gaussian as GaussianLikelihood
 from .models.cvi_dp import CVISitesSDE, DataSites
@@ -28,6 +30,7 @@ __all__ = [
     "cvi_dp_from_numpy",
     "packed_state_from_numpy",
     "dataset_from_numpy",
+    "sde_params_to_numpy",
 ]
 
 
@@ -45,14 +48,14 @@ def sde_from_numpy(name: str, leaves: Mapping, device=None):
         sde = zoo.OrnsteinUhlenbeckSDE(decay=leaves["decay"], q=q, dtype=torch.as_tensor(q).dtype)
     else:
         raise NotImplementedError(f"SDE {name!r} is not ported yet")
-    return sde.to(device) if device is not None else sde
+    return sde.to(resolve_device(device))
 
 
 def likelihood_from_numpy(leaves: Mapping, device=None) -> GaussianLikelihood:
     """Gaussian likelihood from its JAX leaves (``variance``)."""
     variance = np.asarray(leaves["variance"])
     lik = GaussianLikelihood(variance, dtype=torch.as_tensor(variance).dtype)
-    return lik.to(device) if device is not None else lik
+    return lik.to(resolve_device(device))
 
 
 def _ssm(tree: Mapping, device) -> StateSpaceModel:
@@ -76,6 +79,7 @@ def _nats(tree: Optional[Mapping], device) -> Optional[BTDNaturals]:
 def cvi_dp_from_numpy(tree: Mapping, prior_sde, likelihood, device=None) -> CVISitesSDE:
     """``CVISitesSDE`` from the JAX model's fields.  ``prior_sde`` and
     ``likelihood`` are port objects (see :func:`sde_from_numpy`)."""
+    device = resolve_device(device)
     return CVISitesSDE(
         dist_p=None if tree["dist_p"] is None else _ssm(tree["dist_p"], device),
         likelihood=likelihood,
@@ -102,6 +106,7 @@ def cvi_dp_from_numpy(tree: Mapping, prior_sde, likelihood, device=None) -> CVIS
 
 def packed_state_from_numpy(tree: Mapping, device=None) -> PackedCVIState:
     """``PackedCVIState`` from the JAX state's fields."""
+    device = resolve_device(device)
     return PackedCVIState(
         **{f.name: _t(tree[f.name], device) for f in dataclasses.fields(PackedCVIState)}
     )
@@ -109,9 +114,16 @@ def packed_state_from_numpy(tree: Mapping, device=None) -> PackedCVIState:
 
 def dataset_from_numpy(tree: Mapping, device=None) -> DPDataset:
     """``DPDataset`` from the JAX dataset's fields (exp/data.py:30)."""
+    device = resolve_device(device)
     return DPDataset(
         **{
             k: float(tree[k]) if k == "noise_stddev" else _t(tree[k], device)
             for k in DPDataset._fields
         }
     )
+
+
+def sde_params_to_numpy(sde) -> dict:
+    """``{parameter name: numpy array}`` of an SDE's ``nn.Parameter``s, the
+    JAX pytree's leaf names (``q_mat``, ``scale``, ``c`` for the double well)."""
+    return {name: p.detach().cpu().numpy() for name, p in sde.named_parameters()}

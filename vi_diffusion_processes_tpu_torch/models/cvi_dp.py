@@ -8,22 +8,35 @@ natural form.  ``dist_q`` sums them and recovers an SSM by the UDU'
 factorization.  Models are frozen dataclasses of tensors; every update
 returns a new model through :meth:`replace`.
 
-This slice ports construction, linearization, ``full_sites`` and
-``dist_q``.  The generic (unpacked) update rules and KL terms raise: the
-d = 1 site loop runs on :mod:`.cvi_dp_packed`, and the generic route is
-slice E of ROADMAP.md (d >= 2), prior learning slice B.
+Ported: construction, linearization, ``full_sites``, ``dist_q``, the
+variational expectation, the SDE prior's ``kl_q_p`` and the two gradients
+that drift learning takes with respect to the SDE's parameters, which flow
+through the pivot sweep and the recurrences by their custom backward
+passes.  The generic (unpacked) update rules and the SSM prior's KL raise:
+the d = 1 site loop runs on :mod:`.cvi_dp_packed`, and the generic route is
+slice E of ROADMAP.md (d >= 2).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
+from ..config import x64_enabled
 from ..sde.base import SDE
-from ..sde.utils import BTDNaturals, Gaussian, linearize_sde, ssm_to_btd_nat, transform_girsanov_sites
+from ..sde.utils import (
+    BTDNaturals,
+    Gaussian,
+    linearize_sde,
+    ssm_kl_along_gaussian_path,
+    ssm_to_btd_nat,
+    transform_girsanov_sites,
+)
 from ..ssm.state_space_model import StateSpaceModel
 from ..ssm.transforms import naturals_to_ssm
+from ..utils.linalg import chol_psd, gaussian_kl
 
 __all__ = ["CVISitesSSM", "CVISitesSDE", "DataSites"]
 
@@ -42,8 +55,17 @@ def _scatter_rows(values: torch.Tensor, indices: torch.Tensor, length: int) -> t
 
 
 def _prior_nats_f64(dist_p: StateSpaceModel) -> BTDNaturals:
-    """Prior SSM → naturals, always in float64 (cvi_dp.py:61-65)."""
-    return ssm_to_btd_nat(dist_p.astype(torch.float64))
+    """Prior SSM → naturals in the precision dtype: float64 under the x64
+    policy, else the prior's own dtype (cvi_dp.py:61-65)."""
+    dtype = torch.float64 if x64_enabled() else dist_p.initial_mean.dtype
+    return ssm_to_btd_nat(dist_p.astype(dtype))
+
+
+def _param_grads(loss: torch.Tensor, module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``{name: ∂loss/∂parameter}`` for every ``nn.Parameter`` of ``module``."""
+    names, params = zip(*module.named_parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
 
 
 def _not_in_slice(name: str, slice_: str) -> NotImplementedError:
@@ -66,7 +88,8 @@ class CVISitesSSM:
     prior_initial_state: Gaussian
     fx_mus: torch.Tensor  # cached posterior path means [T, d]
     fx_covs: torch.Tensor  # cached posterior path covs [T, d, d]
-    # float64 prior-as-naturals cache; dist_p only changes at linearization
+    # prior-as-naturals cache (float64 under the x64 policy); dist_p only
+    # changes at linearization
     prior_nats: Optional[BTDNaturals] = None
 
     def replace(self, **updates):
@@ -138,28 +161,43 @@ class CVISitesSSM:
         return self.time_grid[1] - self.time_grid[0]
 
     def full_sites(self) -> BTDNaturals:
-        """prior-as-nats + Girsanov sites + scattered data sites, in float64
-        regardless of the model dtype (cvi_dp.py:151-177): in float32 the
-        naturals→SSM round trip puts the ELBO off by O(10)."""
+        """prior-as-nats + Girsanov sites + scattered data sites, in the prior
+        naturals' dtype (cvi_dp.py:151-177): float64 under the x64 policy
+        whatever the model dtype, since in float32 the naturals→SSM round
+        trip puts the ELBO off by O(10)."""
         t = self.time_grid.shape[0]
         p = self.prior_nats if self.prior_nats is not None else _prior_nats_f64(self.dist_p)
-        f64 = torch.float64
-        data_nat1 = _scatter_rows(self.data_sites.nat1, self.obs_indices, t).to(f64)
-        data_nat2 = _scatter_rows(self.data_sites.nat2, self.obs_indices, t).to(f64)
+        nat_dtype = p.nat1.dtype
+        data_nat1 = _scatter_rows(self.data_sites.nat1, self.obs_indices, t).to(nat_dtype)
+        data_nat2 = _scatter_rows(self.data_sites.nat2, self.obs_indices, t).to(nat_dtype)
         g = self.girsanov_sites
         return BTDNaturals(
-            nat1=p.nat1 + g.nat1.to(f64) + data_nat1,
-            nat2_diag=p.nat2_diag + g.nat2_diag.to(f64) + data_nat2,
-            nat2_sub=p.nat2_sub + g.nat2_sub.to(f64),
+            nat1=p.nat1 + g.nat1.to(nat_dtype) + data_nat1,
+            nat2_diag=p.nat2_diag + g.nat2_diag.to(nat_dtype) + data_nat2,
+            nat2_sub=p.nat2_sub + g.nat2_sub.to(nat_dtype),
         )
 
     @property
     def dist_q(self) -> StateSpaceModel:
         """Posterior SSM from the summed naturals (cvi_dp.py:179-191),
-        factorized in float64 and cast back to the model dtype."""
+        factorized in the naturals' dtype and cast back to the model dtype."""
         sites = self.full_sites()
         ssm64 = naturals_to_ssm(sites.nat1, sites.nat2_diag, sites.nat2_sub)
         return ssm64.astype(self.time_grid.dtype)
+
+    # ------------------------------------------------------------------ terms
+    def _obs_moments(self, fx_mus, fx_covs):
+        """Marginals at the observation grid points (cvi_dp.py:194-197)."""
+        return (fx_mus.index_select(-2, self.obs_indices),
+                fx_covs.index_select(-3, self.obs_indices))
+
+    def variational_expectation(self, fx_mus=None, fx_covs=None) -> torch.Tensor:
+        """E_q[log p(Y|X)] (cvi_dp.py:215-221)."""
+        if fx_mus is None or fx_covs is None:
+            fx_mus, fx_covs = self.dist_q.marginals()
+        m, s = self._obs_moments(fx_mus, fx_covs)
+        var = torch.diagonal(s, dim1=-2, dim2=-1)
+        return torch.sum(self.likelihood.variational_expectations(m, var, self.observations))
 
     # ------------------------------------------- generic route (later slices)
     def kl_q_p(self):
@@ -208,7 +246,8 @@ class CVISitesSDE(CVISitesSSM):
         if prior_initial_state is None:
             prior_initial_state = Gaussian(
                 mu=torch.zeros((d,), dtype=observations.dtype, device=observations.device),
-                cov=torch.broadcast_to(prior_sde.q.detach(), (d, d)).to(observations.dtype),
+                # a copy: the optimizer updates the SDE's parameters in place
+                cov=torch.broadcast_to(prior_sde.q.detach(), (d, d)).to(observations.dtype).clone(),
             )
         model = cls.initialize(
             prior_ssm=None,
@@ -225,10 +264,13 @@ class CVISitesSDE(CVISitesSSM):
 
     @torch.no_grad()
     def set_linearized_prior(self) -> "CVISitesSDE":
-        """Linearize the SDE on the cached posterior path (cvi_dp.py:346-362).
+        """Linearize the SDE on the cached posterior path (cvi_dp.py:346-362),
+        without autograd: the trainer's twin of :meth:`_linearized_prior`."""
+        return self._linearized_prior()
 
-        Runs without autograd: no gradient flows into the prior in this
-        slice (prior learning is slice B)."""
+    def _linearized_prior(self) -> "CVISitesSDE":
+        """:meth:`set_linearized_prior`, differentiable in the SDE's
+        parameters (``grad_ve_wrt_prior_params``)."""
         path = Gaussian(mu=self.fx_mus[1:], cov=self.fx_covs[1:])
         lin = linearize_sde(
             self.prior_sde,
@@ -253,8 +295,49 @@ class CVISitesSDE(CVISitesSSM):
         new_sites = transform_girsanov_sites(model.girsanov_sites, old_prior, model.dist_p)
         return model.replace(girsanov_sites=new_sites)
 
-    def grad_kl_wrt_prior_params(self):
-        raise _not_in_slice("grad_kl_wrt_prior_params", "B")
+    def kl_q_p(self) -> torch.Tensor:
+        """KL[q ‖ SDE prior] with the Euler p-forward ``x + dt·f_p(x)``
+        (cvi_dp.py:375-407); q's forward map carries no gradient."""
+        dist_q = self.dist_q
+        means, covs = dist_q.marginals()
+        a_q, b_q = dist_q.state_transitions, dist_q.state_offsets
+        dt = self.dt
+        q = self.prior_sde.q
 
-    def grad_ve_wrt_prior_params(self):
-        raise _not_in_slice("grad_ve_wrt_prior_params", "B")
+        def func_q(x):
+            return (torch.einsum("nij,npj->npi", a_q, x) + b_q[:, None, :]).detach()
+
+        def func_p(x):
+            return x + dt * self.prior_sde.drift(x)
+
+        p_cov = torch.broadcast_to(q, (a_q.shape[0],) + tuple(q.shape)) * dt
+        kl_path = ssm_kl_along_gaussian_path(
+            func_q=func_q,
+            func_p=func_p,
+            ssm_q_process_covar=dist_q.process_covariances,
+            ssm_p_process_covar=p_cov.to(means.dtype),
+            ssm_q_marginals_mean=means,
+            ssm_q_marginals_covar=covs,
+        )
+        kl_0 = gaussian_kl(
+            dist_q.initial_mean,
+            dist_q.chol_initial_covariance,
+            self.prior_initial_state.mu,
+            chol_psd(self.prior_initial_state.cov),
+        )
+        return kl_path + kl_0
+
+    def grad_kl_wrt_prior_params(self) -> Dict[str, torch.Tensor]:
+        """``∂KL/∂θ_p`` for drift learning (cvi_dp.py:415-420): one gradient
+        per ``nn.Parameter`` of the SDE (``q_mat`` included), keyed by name."""
+        with torch.enable_grad():
+            return _param_grads(self.kl_q_p(), self.prior_sde)
+
+    def grad_ve_wrt_prior_params(self) -> Dict[str, torch.Tensor]:
+        """``∂(−VE)/∂θ_p`` through the re-linearized prior (cvi_dp.py:422-430):
+        linearization, the naturals→SSM factorization (K1 and K2) and the
+        marginals (K2), differentiated by their backward passes."""
+        with torch.enable_grad():
+            model = self._linearized_prior()
+            fx_mus, fx_covs = model.dist_q.marginals()
+            return _param_grads(-model.variational_expectation(fx_mus, fx_covs), self.prior_sde)

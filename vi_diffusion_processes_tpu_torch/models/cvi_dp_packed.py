@@ -5,8 +5,9 @@ The whole per-step state is packed into rank-1 ``[T]`` tensors and one
 natgrad step — data-site update, Girsanov-site update, classic ELBO — runs
 on that layout.  The naturals→SSM→marginals chain (``_dist_q_1d``) is one
 launch of kernel K3 per call on CUDA (twice per step, once per
-``packed_elbo``).  Dtype boundaries follow the reference: float64 naturals,
-model dtype (float32 on the flagship) for everything else.
+``packed_elbo``), or with the x64 policy off one K4 and four K2 launches.
+Dtype boundaries follow the reference: float64 naturals under the x64
+policy, model dtype (float32 on the flagship) for everything else.
 
 The reference's two ``jax.grad`` calls differentiate cheap elementwise
 functions of marginals that are already computed; here they are
@@ -23,7 +24,7 @@ from typing import Tuple
 import torch
 
 from ..config import default_jitter
-from ..ops.btd import riccati_d_scalar, scalar_affine_all
+from ..ops.btd import dist_q_1d_core
 from ..ops.cuda_scan import dist_q_1d_planes
 from ..ops.quadrature import gauss_hermite_grid
 from ..sde.utils import BTDNaturals
@@ -42,7 +43,8 @@ __all__ = [
 class PackedCVIState:
     """All mutable per-step CVI-DP state as rank-1 tensors
     (cvi_dp_packed.py:41-61).  Naturals follow :class:`BTDNaturals`; the
-    prior channels are the float64 prior-as-naturals cache."""
+    prior channels are the prior-as-naturals cache, float64 under the x64
+    policy."""
 
     g_nat1: torch.Tensor  # [T]   girsanov sites, model dtype
     g_nat2d: torch.Tensor  # [T]
@@ -51,7 +53,7 @@ class PackedCVIState:
     d_nat2: torch.Tensor  # [T]
     fx_mu: torch.Tensor  # [T]   cached posterior marginals, model dtype
     fx_var: torch.Tensor  # [T]
-    p_nat1: torch.Tensor  # [T]   prior-as-naturals, float64
+    p_nat1: torch.Tensor  # [T]   prior-as-naturals (float64 under x64)
     p_nat2d: torch.Tensor  # [T]
     p_nat2s: torch.Tensor  # [T-1]
     obs_mask: torch.Tensor  # [T]  1.0 at observation grid points
@@ -113,53 +115,20 @@ def unpack_state(model: CVISitesSDE, state: PackedCVIState) -> CVISitesSDE:
     )
 
 
-def _naturals_to_ssm_1d(nat1, nat2d, nat2s):
-    """Scalar-channel ``naturals_to_ssm_params`` (cvi_dp_packed.py:125-145):
-    ``(a, b, qv, mu0, p0v, mu)`` in the input dtype, through K1 and K2."""
-    kd = -2.0 * nat2d
-    ks = -nat2s
-    b2 = torch.cat([ks**2, torch.zeros_like(kd[:1])])
-    d_blocks = riccati_d_scalar(kd, b2)
-    u = ks / d_blocks[1:]
-    a = -u
-    covs = 1.0 / d_blocks
-    # means: U z = θ (backward), w = D⁻¹ z, Uᵀ μ = w (forward)
-    z_rest = scalar_affine_all(-u, nat1[:-1], nat1[-1], reverse=True)
-    z = torch.cat([z_rest, nat1[-1:]])
-    w = covs * z
-    mu_rest = scalar_affine_all(-u, w[1:], w[0])
-    mu = torch.cat([w[:1], mu_rest])
-    b = mu[1:] - a * mu[:-1]
-    return a, b, covs[1:], mu[0], covs[0], mu
-
-
-def _marginals_1d(a, b, qv, mu0, p0v):
-    """Scalar marginal means/vars (cvi_dp_packed.py:148-177): the two
-    recurrences ``m_k = a_k m_{k−1} + b_k`` and ``v_k = a_k² v_{k−1} + qv_k``
-    through K2."""
-    m_rest = scalar_affine_all(a, b, mu0)
-    v_rest = scalar_affine_all(a * a, qv, p0v)
-    return torch.cat([mu0[None], m_rest]), torch.cat([p0v[None], v_rest])
-
-
-def _dist_q_core(nat1, nat2d, nat2s, compute_dtype):
-    """naturals → SSM params + marginals as a composition of K1 and K2
-    (cvi_dp_packed.py:187-197): float64 algebra, marginals in
-    ``compute_dtype``.  The reference K3 is held against."""
-    a, b, qv, mu0, p0v, _ = _naturals_to_ssm_1d(nat1, nat2d, nat2s)
-    a, b, qv, mu0, p0v = (x.to(compute_dtype) for x in (a, b, qv, mu0, p0v))
-    means, varis = _marginals_1d(a, b, qv, mu0, p0v)
-    return a, b, qv, mu0, p0v, means, varis
-
-
 def _dist_q_1d(state: PackedCVIState, compute_dtype):
     """``full_sites`` + ``naturals_to_ssm`` + ``marginals`` on scalar
-    channels (cvi_dp_packed.py:228-248): one K3 launch on CUDA."""
-    f64 = state.p_nat1.dtype
-    nat1 = state.p_nat1 + state.g_nat1.to(f64) + state.d_nat1.to(f64)
-    nat2d = state.p_nat2d + state.g_nat2d.to(f64) + state.d_nat2.to(f64)
-    nat2s = state.p_nat2s + state.g_nat2s.to(f64)
-    a, b, qv, mu0, p0v, means, varis = dist_q_1d_planes(nat1, nat2d, nat2s, compute_dtype)
+    channels (cvi_dp_packed.py:228-248).  float64 naturals (the x64 policy)
+    take one K3 launch on CUDA; float32 naturals (x64 off) take the
+    composition: one K4 and four float32 K2 launches."""
+    nat_dtype = state.p_nat1.dtype
+    nat1 = state.p_nat1 + state.g_nat1.to(nat_dtype) + state.d_nat1.to(nat_dtype)
+    nat2d = state.p_nat2d + state.g_nat2d.to(nat_dtype) + state.d_nat2.to(nat_dtype)
+    nat2s = state.p_nat2s + state.g_nat2s.to(nat_dtype)
+    if nat_dtype == torch.float64:
+        out = dist_q_1d_planes(nat1, nat2d, nat2s, compute_dtype)
+    else:
+        out = dist_q_1d_core(nat1, nat2d, nat2s, compute_dtype)
+    a, b, qv, mu0, p0v, means, varis = out
     return (a, b, qv, mu0, p0v), means, varis
 
 

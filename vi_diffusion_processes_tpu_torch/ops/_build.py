@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` into a shared library
-with a plain C interface, loaded with :mod:`ctypes`.  The library lands in
-``build/cuda/`` at the repository root, under a file name that carries a
-hash of the sources and flags, so an edited source rebuilds.  ``nvcc`` is
-taken from ``PATH``, else from ``$CUDA_HOME/bin``, else from the CUDA
-toolkit that PyTorch detected; without one the build raises.
+The sources are compiled at first use with ``nvcc``, one process per
+source started together, and linked into a shared library with a plain C
+interface, loaded with :mod:`ctypes`.  The library lands in ``build/cuda/``
+at the repository root, under a file name that carries a hash of the
+sources and flags, so an edited source rebuilds; ptxas's register report
+(``-Xptxas -v``) is kept beside it.  ``nvcc`` is taken from ``PATH``, else
+from ``$CUDA_HOME/bin``, else from the CUDA toolkit that PyTorch detected;
+without one the build raises.
 """
 from __future__ import annotations
 
@@ -18,20 +20,21 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_seconds", "CSRC_DIR", "BUILD_DIR"]
+__all__ = ["load_library", "build_seconds", "ptxas_report", "CSRC_DIR", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
-#: argtypes of every launcher in csrc/cuda_scan.cu; each returns a cudaError_t
+#: argtypes of every launcher in csrc/*.cu; each returns a cudaError_t
 _SIGNATURES = {
     "vidp_riccati_f64": [_vp, _vp, _vp, _int, _int, _vp],
+    "vidp_riccati_f32": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
     "vidp_linrec_f64": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     "vidp_linrec_f32": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     "vidp_dist_q_1d_f32": [_vp] * 9 + [_int, _int, _vp],
@@ -74,20 +77,34 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libvidp_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands side by side; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return outs
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile (if needed) and load the kernels' shared library."""
     so = _library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        nvcc = _find_nvcc()
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+        outs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                     for src, o in zip(_sources(), objs)])
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        for o in objs:
+            o.unlink()
+        so.with_suffix(".ptxas.txt").write_text("".join(outs))
         os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
         _last_build_seconds[0] = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
@@ -101,3 +118,9 @@ def load_library() -> ctypes.CDLL:
 def build_seconds() -> float:
     """Seconds the last compile in this process took (0.0 if it was cached)."""
     return _last_build_seconds[0]
+
+
+def ptxas_report() -> str:
+    """ptxas's per-kernel register and shared-memory lines of the last build."""
+    path = _library_path().with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""

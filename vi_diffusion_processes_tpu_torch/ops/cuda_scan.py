@@ -24,6 +24,12 @@ anything else.  The plain versions run the same windowed algorithm in
 PyTorch (sequential over the window length, vectorised over windows, a
 Hillis–Steele scan across windows), on any device.  Each wrapper carries a
 plain-int ``launches`` count, raised by one where it launches its kernel.
+
+Each wrapper is a ``torch.autograd.Function`` with the JAX package's
+adjoint as its backward: K1's and K2's backward passes are K2 launches
+(``_ric_bwd``, ``_linrec_bwd``), and K3's is the VJP of the K1 + K2
+composition.  The same backward formulas run on the plain versions for
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ __all__ = [
     "riccati_d_sweep_plain",
     "linear_recurrence_plain",
     "dist_q_1d_planes_plain",
+    "sweep_adjoint",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -234,14 +241,7 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
 
-def riccati_d_sweep(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """K1: ``D_k = kd_k − b2_k/D_{k+1}`` on f64 ``[..., N]`` with
-    ``b2[..., N−1] = 0``.  Kernel for CUDA tensors, plain version for CPU."""
-    _check("riccati_d_sweep", (kd, b2), (torch.float64,))
-    if kd.shape != b2.shape:
-        raise ValueError(f"riccati_d_sweep: shapes {kd.shape} and {b2.shape}")
-    if kd.shape[-1] and bool(torch.any(b2[..., -1] != 0)):
-        raise ValueError("riccati_d_sweep: b2[..., -1] must be 0")
+def _riccati_forward(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     if kd.device.type == "cpu":
         return riccati_d_sweep_plain(kd, b2)
     out = torch.empty_like(kd)
@@ -253,49 +253,122 @@ def riccati_d_sweep(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def linear_recurrence(
-    t: torch.Tensor, c: torch.Tensor, x0, reverse: bool = False
-) -> torch.Tensor:
-    """K2: ``x_k = t_k·x_{k−1} + c_k`` (``x_{−1} = x0``), or with ``reverse``
-    ``x_k = t_k·x_{k+1} + c_k`` (``x_N = x0``), over f32 or f64 ``[..., N]``.
-    ``x0`` is a number or a tensor broadcastable to the batch shape."""
-    _check("linear_recurrence", (t, c), (torch.float32, torch.float64))
-    if t.shape != c.shape or t.dtype != c.dtype:
-        raise ValueError("linear_recurrence: t and c differ in shape or dtype")
+def sweep_adjoint(b2: torch.Tensor, d: torch.Tensor, g: torch.Tensor, floor: float):
+    """VJP of the pivot sweep, shared by K1 and K4 (``pallas_scan.py::_ric_bwd``
+    :377-387, ``pallas_riccati.py::_riccati_bwd`` :164-177).
+
+    With cotangent ``g`` of ``D``: ``ĝ_k = g_k + ĝ_{k−1}·b2_{k−1}/D_k²``, a
+    forward affine recurrence run on K2; then ``k̄d = ĝ`` and
+    ``b̄2_k = −ĝ_k/D_{k+1}`` (0 at the end).  ``floor`` clamps ``D²`` from
+    below: 1e-300 for K1, 1e-30 for K4, as in the JAX package."""
+    g = g.contiguous()
+    if d.shape[-1] > 1:
+        coeff = b2[..., :-1] / torch.clamp(d[..., 1:] ** 2, min=floor)
+        ghat_rest = linear_recurrence(coeff.contiguous(), g[..., 1:].contiguous(), g[..., 0])
+        ghat = torch.cat([g[..., :1], ghat_rest], dim=-1)
+    else:
+        ghat = g
+    d_next = torch.cat([d[..., 1:], torch.ones_like(d[..., :1])], dim=-1)
+    b2_bar = -ghat / torch.where(d_next == 0, torch.ones_like(d_next), d_next)
+    b2_bar = torch.cat([b2_bar[..., :-1], torch.zeros_like(b2_bar[..., :1])], dim=-1)
+    return ghat, b2_bar
+
+
+class _RiccatiSweep(torch.autograd.Function):
+    """K1 with its adjoint ``_ric_bwd``, which launches K2."""
+
+    @staticmethod
+    def forward(ctx, kd, b2):
+        d = _riccati_forward(kd, b2)
+        ctx.save_for_backward(b2, d)
+        return d
+
+    @staticmethod
+    def backward(ctx, g):
+        b2, d = ctx.saved_tensors
+        return sweep_adjoint(b2, d, g, 1e-300)
+
+
+def riccati_d_sweep(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """K1: ``D_k = kd_k − b2_k/D_{k+1}`` on f64 ``[..., N]`` with
+    ``b2[..., N−1] = 0``.  Kernel for CUDA tensors, plain version for CPU;
+    differentiable in ``kd`` and ``b2``."""
+    _check("riccati_d_sweep", (kd, b2), (torch.float64,))
+    if kd.shape != b2.shape:
+        raise ValueError(f"riccati_d_sweep: shapes {kd.shape} and {b2.shape}")
+    if kd.shape[-1] and bool(torch.any(b2[..., -1] != 0)):
+        raise ValueError("riccati_d_sweep: b2[..., -1] must be 0")
+    return _RiccatiSweep.apply(kd, b2)
+
+
+def _linrec_forward(t: torch.Tensor, c: torch.Tensor, x0: torch.Tensor, reverse: bool):
     if t.device.type == "cpu":
         return linear_recurrence_plain(t, c, x0, reverse)
-    x0 = torch.as_tensor(x0, dtype=t.dtype, device=t.device)
-    x0 = x0.expand(t.shape[:-1]).contiguous()
+    x0 = x0.contiguous()
     out = torch.empty_like(t)
     if out.numel():
         lib = _lib()
         fn = lib.vidp_linrec_f64 if t.dtype == torch.float64 else lib.vidp_linrec_f32
         with torch.cuda.device(t.device):
             _launch("linear_recurrence", fn, _ptr(t), _ptr(c), _ptr(x0), _ptr(out),
-                    _batch(t), t.shape[-1], int(bool(reverse)))
+                    _batch(t), t.shape[-1], int(reverse))
         linear_recurrence.launches += 1
     return out
 
 
-def dist_q_1d_planes(
-    nat1: torch.Tensor,
-    nat2d: torch.Tensor,
-    nat2s: torch.Tensor,
-    out_dtype: torch.dtype = torch.float32,
-):
-    """K3: the packed d=1 ``dist_q`` chain.  f64 ``nat1 [..., N]``,
-    ``nat2d [..., N]``, ``nat2s [..., N−1]`` in; ``(a, b, qv, mu0, p0v,
-    means, vars)`` out in ``out_dtype`` (f32 or f64)."""
-    _check("dist_q_1d_planes", (nat1, nat2d, nat2s), (torch.float64,))
-    n = nat1.shape[-1]
-    if nat2d.shape != nat1.shape or nat2s.shape != nat1.shape[:-1] + (n - 1,):
-        raise ValueError("dist_q_1d_planes: expected shapes [..., N], [..., N], [..., N-1]")
-    if n < 2:
-        raise ValueError("dist_q_1d_planes: needs N >= 2")
-    if out_dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dist_q_1d_planes: out_dtype {out_dtype}")
+class _LinearRecurrence(torch.autograd.Function):
+    """K2 with its adjoint ``_linrec_bwd``: the transposed recurrence in the
+    opposite direction, again a K2 launch."""
+
+    @staticmethod
+    def forward(ctx, t, c, x0, reverse):
+        x0_b = torch.as_tensor(x0, dtype=t.dtype, device=t.device).expand(t.shape[:-1])
+        out = _linrec_forward(t, c, x0_b, reverse)
+        ctx.reverse = reverse
+        ctx.x0_like = (x0.shape, x0.dtype) if isinstance(x0, torch.Tensor) else None
+        ctx.save_for_backward(t, out, x0_b)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        t, x, x0 = ctx.saved_tensors
+        g = g.contiguous()
+        zero = torch.zeros_like(t[..., :1])
+        if ctx.reverse:
+            # x_k = t_k x_{k+1} + c_k:  ĝ_k = g_k + t_{k−1} ĝ_{k−1}
+            ghat = linear_recurrence(torch.cat([zero, t[..., :-1]], dim=-1), g, 0.0)
+            t_bar = ghat * torch.cat([x[..., 1:], x0[..., None]], dim=-1)
+            x0_bar = t[..., -1] * ghat[..., -1]
+        else:
+            # x_k = t_k x_{k−1} + c_k:  ĝ_k = g_k + t_{k+1} ĝ_{k+1}
+            ghat = linear_recurrence(torch.cat([t[..., 1:], zero], dim=-1), g, 0.0, True)
+            t_bar = ghat * torch.cat([x0[..., None], x[..., :-1]], dim=-1)
+            x0_bar = t[..., 0] * ghat[..., 0]
+        if ctx.needs_input_grad[2]:
+            shape, dtype = ctx.x0_like
+            x0_bar = x0_bar.sum_to_size(shape).to(dtype)  # back to x0's own shape
+        else:
+            x0_bar = None
+        return t_bar, ghat, x0_bar, None
+
+
+def linear_recurrence(
+    t: torch.Tensor, c: torch.Tensor, x0, reverse: bool = False
+) -> torch.Tensor:
+    """K2: ``x_k = t_k·x_{k−1} + c_k`` (``x_{−1} = x0``), or with ``reverse``
+    ``x_k = t_k·x_{k+1} + c_k`` (``x_N = x0``), over f32 or f64 ``[..., N]``.
+    ``x0`` is a number or a tensor broadcastable to the batch shape; as a
+    tensor it receives its gradient in its own shape."""
+    _check("linear_recurrence", (t, c), (torch.float32, torch.float64))
+    if t.shape != c.shape or t.dtype != c.dtype:
+        raise ValueError("linear_recurrence: t and c differ in shape or dtype")
+    return _LinearRecurrence.apply(t, c, x0, bool(reverse))
+
+
+def _dist_q_forward(nat1, nat2d, nat2s, out_dtype):
     if nat1.device.type == "cpu":
         return dist_q_1d_planes_plain(nat1, nat2d, nat2s, out_dtype)
+    n = nat1.shape[-1]
     scratch = torch.empty((6,) + nat1.shape, dtype=torch.float64, device=nat1.device)
     covs, a, w, means, varis = (
         torch.empty(nat1.shape, dtype=out_dtype, device=nat1.device) for _ in range(5)
@@ -313,18 +386,63 @@ def dist_q_1d_planes(
             means, varis)
 
 
-_KERNELS = (riccati_d_sweep, linear_recurrence, dist_q_1d_planes)
+class _DistQ(torch.autograd.Function):
+    """K3 with the backward of ``cvi_dp_packed.py::_dist_q_fused_bwd``
+    (:215-222): the VJP of the K1 + K2 composition, recomputed with
+    gradients on, so on the card it runs K1 and K2 and their adjoints."""
+
+    @staticmethod
+    def forward(ctx, nat1, nat2d, nat2s, out_dtype):
+        ctx.out_dtype = out_dtype
+        ctx.save_for_backward(nat1, nat2d, nat2s)
+        return _dist_q_forward(nat1, nat2d, nat2s, out_dtype)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .btd import dist_q_1d_core  # btd builds on this module
+
+        inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = dist_q_1d_core(*inputs, ctx.out_dtype)
+        return (*torch.autograd.grad(outs, inputs, grads, allow_unused=True), None)
+
+
+def dist_q_1d_planes(
+    nat1: torch.Tensor,
+    nat2d: torch.Tensor,
+    nat2s: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
+):
+    """K3: the packed d=1 ``dist_q`` chain.  f64 ``nat1 [..., N]``,
+    ``nat2d [..., N]``, ``nat2s [..., N−1]`` in; ``(a, b, qv, mu0, p0v,
+    means, vars)`` out in ``out_dtype`` (f32 or f64); differentiable in the
+    three naturals."""
+    _check("dist_q_1d_planes", (nat1, nat2d, nat2s), (torch.float64,))
+    n = nat1.shape[-1]
+    if nat2d.shape != nat1.shape or nat2s.shape != nat1.shape[:-1] + (n - 1,):
+        raise ValueError("dist_q_1d_planes: expected shapes [..., N], [..., N], [..., N-1]")
+    if n < 2:
+        raise ValueError("dist_q_1d_planes: needs N >= 2")
+    if out_dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dist_q_1d_planes: out_dtype {out_dtype}")
+    return _DistQ.apply(nat1, nat2d, nat2s, out_dtype)
+
+
+def _kernels():
+    from .cuda_riccati import riccati_d_sweep_f32  # K4 builds on this module
+
+    return (riccati_d_sweep, linear_recurrence, dist_q_1d_planes, riccati_d_sweep_f32)
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for fn in _KERNELS:
+    """Set every kernel's launch count to 0 (K1–K4)."""
+    for fn in _kernels():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    """``{wrapper name: launches}`` since the last reset."""
-    return {fn.__name__: fn.launches for fn in _KERNELS}
+    """``{wrapper name: launches}`` of K1–K4 since the last reset."""
+    return {fn.__name__: fn.launches for fn in _kernels()}
 
 
-reset_launch_counts()
+riccati_d_sweep.launches = linear_recurrence.launches = dist_q_1d_planes.launches = 0

@@ -1,7 +1,8 @@
 """CVI-DP training loop (vi_diffusion_processes_tpu/optim/trainers.py:29-162).
 
 The packed d = 1 route only: site updates with learning-rate decay on an
-ELBO decrease, re-linearization of the prior between inner loops, and
+ELBO decrease, re-linearization of the prior between inner loops, drift
+learning (Adam on the SDE's parameters after each outer iteration), and
 zigzag detection.  The control flow is plain Python, as in the reference.
 """
 from __future__ import annotations
@@ -9,6 +10,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 from typing import List
+
+import torch
 
 from ..models.cvi_dp import CVISitesSDE, CVISitesSSM
 
@@ -32,10 +35,6 @@ class CVISitesTrainer:
     elbo_trace: List[float] = field(default_factory=list)
 
     def __post_init__(self):
-        if self.learn_prior_sde:
-            raise NotImplementedError(
-                "learn_prior_sde=True: prior learning belongs to slice B of ROADMAP.md"
-            )
         if not (
             self.use_packed
             and isinstance(self.model, CVISitesSDE)
@@ -44,6 +43,11 @@ class CVISitesTrainer:
             raise NotImplementedError(
                 "only the packed d=1 CVISitesSDE route is ported: the generic "
                 "route and d>=2 (cvi_dp_packed_ch) belong to slices B and E of ROADMAP.md"
+            )
+        if self.learn_prior_sde:
+            # the reference's Adam defaults (b1 0.9, b2 0.999, eps 1e-8) are torch's
+            self._prior_opt = torch.optim.Adam(
+                self.model.prior_sde.parameters(), lr=self.prior_sde_lr
             )
 
     def optimize_sites(self) -> float:
@@ -83,11 +87,25 @@ class CVISitesTrainer:
         self.model = self.model.relinearize()
         return elbo
 
+    def optimize_prior_sde(self) -> None:
+        """One Adam step on ``∇(KL + −VE)`` with respect to the SDE's
+        parameters, then re-linearize (trainers.py:135-146)."""
+        g_kl = self.model.grad_kl_wrt_prior_params()
+        g_ve = self.model.grad_ve_wrt_prior_params()
+        for name, p in self.model.prior_sde.named_parameters():
+            p.grad = g_kl[name] + g_ve[name]
+        self._prior_opt.step()
+        self.model = self.model.set_linearized_prior()
+
     def optimize(self) -> List[float]:
-        """Outer loop with zigzag detection (trainers.py:148-162)."""
+        """Alternate inference and, with ``learn_prior_sde``, drift learning,
+        with zigzag detection (trainers.py:148-162)."""
         elbos = []
         for _ in range(self.max_outer_iters):
-            elbos.append(self.perform_inference())
+            elbo = self.perform_inference()
+            if self.learn_prior_sde:
+                self.optimize_prior_sde()
+            elbos.append(elbo)
             if len(elbos) >= 3:
                 d1, d2 = elbos[-1] - elbos[-2], elbos[-2] - elbos[-3]
                 if abs(d1) < self.elbo_tol and abs(d2) < self.elbo_tol:
