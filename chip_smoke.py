@@ -8,7 +8,11 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
 2. build: compiles the CUDA kernels from ``vi_diffusion_processes_tpu_torch/csrc``
    and prints ptxas's register counts;
 3. kernels: K1, K2, K3 and K4 against their plain PyTorch versions on the
-   card, with max errors and median times over 20 runs;
+   card, K2 and K3 also at their edge sizes (N = 2, a last tile one element
+   long, a batch of 8); each kernel's host-clock median over 20 calls
+   and its device time per launch from ``torch.profiler`` (which must count
+   one launch per call); the grid, blocks per sequence and threads per
+   block that K2 and K3 take at T = 100,000;
 4. adjoints: the backward passes of K1, K2, K3 and K4 at T = 100,000 against
    autograd through the plain versions on the card; each must launch K2;
 5. main path: ``bench.py``'s flagship model (double-well SDE, T = 100,000,
@@ -25,7 +29,8 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
 
 Launch counts are set to 0 just before each of phases 5-8 and read just
 after.  The second-to-last line is a JSON object with each kernel's
-launches in those phases, its max error, times and bound; the last line is
+launches in those phases, its max error, times (host clock ``ms``, device
+``device_ms``) and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
@@ -61,6 +66,25 @@ def median_ms(fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, calls: int = REPS) -> float:
+    """Device time per launch of the CUDA kernel whose name contains
+    ``kernel``, over ``calls`` calls of ``fn`` after one warm-up, read with
+    ``torch.profiler``; fails unless each call launched it exactly once."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    launches = sum(e.count for e in events)
+    if launches != calls:
+        raise AssertionError(f"{kernel}: {launches} launches in {calls} calls, expected one each")
+    return sum(e.self_device_time_total for e in events) / 1e3 / launches
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -149,7 +173,7 @@ def phase_kernels(dev) -> dict:
         "riccati_d_sweep_f32": {"err": 0.0, "bound": bound_ms(3 * 4 * n, 2 * n, f32)},
     }
     for n in (T_FLAGSHIP, 4097):
-        kd, b2, t, c, *_ = (torch.tensor(x, device=dev) for x in _inputs(n, 0))
+        kd, b2, *_ = (torch.tensor(x, device=dev) for x in _inputs(n, 0))
         got, ref = cs.riccati_d_sweep(kd, b2), cs.riccati_d_sweep_plain(kd, b2)
         err = float((got - ref).abs().max())
         rel = float(((got - ref).abs() / ref.abs()).max())
@@ -158,25 +182,10 @@ def phase_kernels(dev) -> dict:
             raise AssertionError("K1 disagrees with its plain version")
         result["riccati_d_sweep"]["err"] = max(result["riccati_d_sweep"]["err"], err)
         if n == T_FLAGSHIP:
-            result["riccati_d_sweep"]["ms"] = median_ms(lambda: cs.riccati_d_sweep(kd, b2))
-            result["riccati_d_sweep"]["plain_ms"] = median_ms(
-                lambda: cs.riccati_d_sweep_plain(kd, b2))
-        for dtype, tol in ((torch.float64, 1e-11), (torch.float32, 2e-6)):
-            for reverse in (False, True):
-                tt, cc = t.to(dtype), c.to(dtype)
-                got = cs.linear_recurrence(tt, cc, 0.7, reverse)
-                ref = cs.linear_recurrence_plain(tt, cc, 0.7, reverse)
-                err = float((got - ref).abs().max())
-                scaled = err / float(ref.abs().max())
-                log(f"[K2] n={n} {str(dtype)[6:]} {'rev' if reverse else 'fwd'} "
-                    f"max_abs_err={err:.3e} scaled_err={scaled:.3e} (atol {tol:g} x max|x|)")
-                if not scaled <= tol:
-                    raise AssertionError("K2 disagrees with its plain version")
-                rec = result["linear_recurrence"]
-                rec["err"] = max(rec["err"], err)
-                if n == T_FLAGSHIP and dtype == torch.float64 and not reverse:
-                    rec["ms"] = median_ms(lambda: cs.linear_recurrence(tt, cc, 0.7))
-                    rec["plain_ms"] = median_ms(lambda: cs.linear_recurrence_plain(tt, cc, 0.7))
+            rec = result["riccati_d_sweep"]
+            rec["ms"] = median_ms(lambda: cs.riccati_d_sweep(kd, b2))
+            rec["device_ms"] = device_ms(lambda: cs.riccati_d_sweep(kd, b2), "riccati_kernel")
+            rec["plain_ms"] = median_ms(lambda: cs.riccati_d_sweep_plain(kd, b2))
         # K4 on the same inputs in float32: against its plain version to
         # rtol 1e-4; then on the parabolic case, where float32 is at its
         # limit, both against the float64 sequential recursion to rtol 2e-3
@@ -192,6 +201,8 @@ def phase_kernels(dev) -> dict:
         rec["err"] = max(rec["err"], float((got - ref).abs().max()))
         if n == T_FLAGSHIP:
             rec["ms"] = median_ms(lambda: riccati_d_sweep_f32(kd4, b24))
+            rec["device_ms"] = device_ms(lambda: riccati_d_sweep_f32(kd4, b24),
+                                         "riccati_f32_kernel")
             rec["plain_ms"] = median_ms(lambda: riccati_d_sweep_f32_plain(kd4, b24))
         kd_p, b2_p = _parabolic(n)
         oracle = _sequential_sweep(kd_p, b2_p)
@@ -203,29 +214,75 @@ def phase_kernels(dev) -> dict:
             f"{rel_p:.3e} against the f64 recursion (rtol 2e-3); min D {float(got.min()):.6g}")
         if not (rel_k <= 2e-3 and rel_p <= 2e-3 and bool((got > 0).all())):
             raise AssertionError("K4 is off the float64 recursion on the parabolic case")
-    names = ("a", "b", "qv", "mu0", "p0v", "means", "vars")
-    for n in (T_FLAGSHIP, 1_048_577):
-        *_, nat1, nat2d, nat2s = (torch.tensor(x, device=dev) for x in _inputs(n, 1))
-        got = cs.dist_q_1d_planes(nat1, nat2d, nat2s, torch.float32)
-        for label, ref in (
-            ("plain", cs.dist_q_1d_planes_plain(nat1, nat2d, nat2s, torch.float32)),
-            ("dist_q_1d_core", dist_q_1d_core(nat1, nat2d, nat2s, torch.float32)),
-        ):
-            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-            log(f"[K3] n={n} vs {label} max_abs_err={err:.3e} (rtol 2e-4, atol 1e-6)")
-            for nm, g, r in zip(names, got, ref):
-                torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-6, msg=f"K3 {nm} vs {label}")
-            if label == "plain":
-                rec = result["dist_q_1d_planes"]
+
+    # K2 and K3: the main sizes, then the edges of the tiling (N = 2, a last
+    # tile one element long, a batch of 8)
+    ragged = 195 * cs.TILE + 1
+    cases = [(n, 1) for n in (T_FLAGSHIP, 4097, 1_048_577, 2, ragged)] + [(ragged, 8)]
+    for n, batch in cases:
+        _, _, t, c, *_ = _inputs(n * batch, 0)
+        t, c = (torch.tensor(x, device=dev).reshape(batch, n) for x in (t, c))
+        x0 = torch.linspace(-0.5, 0.7, batch, device=dev, dtype=torch.float64)
+        for dtype, tol in ((torch.float64, 1e-11), (torch.float32, 2e-6)):
+            for reverse in (False, True):
+                tt, cc, xx = t.to(dtype), c.to(dtype), x0.to(dtype)
+                got = cs.linear_recurrence(tt, cc, xx, reverse)
+                ref = cs.linear_recurrence_plain(tt, cc, xx, reverse)
+                err = float((got - ref).abs().max())
+                scaled = err / float(ref.abs().max())
+                log(f"[K2] n={n} batch={batch} {str(dtype)[6:]} {'rev' if reverse else 'fwd'} "
+                    f"max_abs_err={err:.3e} scaled_err={scaled:.3e} (atol {tol:g} x max|x|)")
+                if not scaled <= tol:
+                    raise AssertionError("K2 disagrees with its plain version")
+                rec = result["linear_recurrence"]
                 rec["err"] = max(rec["err"], err)
-        if n == T_FLAGSHIP:
+                if (n, batch, reverse) == (T_FLAGSHIP, 1, False):
+                    tt1, cc1 = tt[0], cc[0]
+                    dev_ms = device_ms(lambda: cs.linear_recurrence(tt1, cc1, 0.7),
+                                       "linrec_kernel")
+                    log(f"[K2] n={n} {str(dtype)[6:]} fwd device time {dev_ms:.5f} ms per launch")
+                    if dtype == torch.float64:
+                        rec["ms"] = median_ms(lambda: cs.linear_recurrence(tt1, cc1, 0.7))
+                        rec["device_ms"] = dev_ms
+                        rec["plain_ms"] = median_ms(
+                            lambda: cs.linear_recurrence_plain(tt1, cc1, 0.7))
+    names = ("a", "b", "qv", "mu0", "p0v", "means", "vars")
+    for n, batch in cases:
+        rows = [_inputs(n, 1 + r)[4:] for r in range(batch)]
+        nat1, nat2d, nat2s = (torch.tensor(np.stack(x), device=dev) for x in zip(*rows))
+        for out_dtype in (torch.float32, torch.float64):
+            got = cs.dist_q_1d_planes(nat1, nat2d, nat2s, out_dtype)
+            refs = [("plain", cs.dist_q_1d_planes_plain(nat1, nat2d, nat2s, out_dtype))]
+            if batch == 1 and n > 2:
+                refs.append(("dist_q_1d_core", dist_q_1d_core(nat1, nat2d, nat2s, out_dtype)))
+            for label, ref in refs:
+                err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                log(f"[K3] n={n} batch={batch} {str(out_dtype)[6:]} out vs {label} "
+                    f"max_abs_err={err:.3e} (rtol 2e-4, atol 1e-6)")
+                for nm, g, r in zip(names, got, ref):
+                    torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-6,
+                                               msg=f"K3 {nm} vs {label}")
+                if label == "plain":
+                    rec = result["dist_q_1d_planes"]
+                    rec["err"] = max(rec["err"], err)
+        if (n, batch) == (T_FLAGSHIP, 1):
             rec = result["dist_q_1d_planes"]
             rec["ms"] = median_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s))
+            rec["device_ms"] = device_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s),
+                                         "dist_q_kernel")
             rec["plain_ms"] = median_ms(lambda: cs.dist_q_1d_planes_plain(nat1, nat2d, nat2s))
+    for name, dtype in (("linear_recurrence", torch.float64), ("linear_recurrence", torch.float32),
+                        ("dist_q_1d_planes", torch.float32)):
+        shape = cs.launch_shape(name, dtype, 1, T_FLAGSHIP, dev)
+        log(f"[launch] {name} ({str(dtype)[6:]}) batch 1 T={T_FLAGSHIP}: grid {shape['grid']}, "
+            f"{shape['blocks_per_sequence']} blocks per sequence, {shape['threads_per_block']} "
+            f"threads per block, tiles of {shape['tile']} elements")
+        if not (shape["grid"] > 1 and shape["blocks_per_sequence"] > 1):
+            raise AssertionError(f"{name} runs one sequence on one block")
     for name, rec in result.items():
-        log(f"[kernels] {name} T={T_FLAGSHIP}: kernel {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.4f} ms (median of {REPS}); bound {rec['bound'][0]:.6f} ms "
-            f"({rec['bound'][1]})")
+        log(f"[kernels] {name} T={T_FLAGSHIP}: kernel {rec['ms']:.4f} ms host clock, "
+            f"{rec['device_ms']:.5f} ms device per launch, plain {rec['plain_ms']:.4f} ms "
+            f"(median of {REPS}); bound {rec['bound'][0]:.6f} ms ({rec['bound'][1]})")
     return result
 
 
@@ -542,7 +599,8 @@ def main() -> None:
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source.get(name, csrc + "cuda_scan.cu"),
          "replaces": replaces[name], "launches": launches[name], "max_abs_err": rec["err"],
-         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
+         "ms": rec["ms"], "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+         "bound_ms": rec["bound"][0],
          "bound_by": rec["bound"][1], "library_ms": None}
         for name, rec in kernels.items()
     ]}))

@@ -8,9 +8,13 @@ Builds ``bench.py``'s flagship (double-well SDE, T = 100,000, float32
 model, lr 0.3) with the port's API, takes 5 warm-up steps, then times 7
 runs of 32 ``packed_natgrad_step`` calls (median steps/s), then profiles 8
 steps with ``torch.profiler``: device busy time per step, its share of the
-wall time, and the kernels that take the most device time.  ``--x64-off``
+wall time, and the kernels that take the most device time, with their
+launches per step.  ``--x64-off``
 runs the flagship with the float64 policy off (float32 naturals, kernel K4).
-Prints the card's name and power limit, then one JSON line.
+Last, the device time per launch of K1 (``riccati_d_sweep``, off the packed
+step) over 20 calls at T = 100,000, so that trees which share K1's source
+can be compared.  Prints the card's name and power limit, then one JSON
+line.
 """
 import argparse
 import json
@@ -47,6 +51,25 @@ def flagship(dev):
         prior_sde=DoubleWellSDE(q=[[0.8]], dtype=torch.float32).to(dev),
     )
     return model.set_linearized_prior()
+
+
+def k1_device_ms(dev) -> float:
+    """K1's device time per launch over 20 calls on random f64 inputs."""
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
+    rng = np.random.default_rng(0)
+    kd = torch.tensor(rng.uniform(2.0, 3.0, T), device=dev)
+    b2 = torch.tensor(np.append(0.2 * rng.uniform(0.5, 1.0, T - 1), 0.0), device=dev)
+    cs.riccati_d_sweep(kd, b2)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(20):
+            cs.riccati_d_sweep(kd, b2)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "riccati_kernel" in e.key]
+    return sum(e.self_device_time_total for e in events) / 1e3 / sum(e.count for e in events)
 
 
 def main() -> None:
@@ -88,6 +111,7 @@ def main() -> None:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 8
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    k1_ms = k1_device_ms(dev)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / 8
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     print(json.dumps({
@@ -97,6 +121,8 @@ def main() -> None:
         "device_busy_ms_per_step": busy_ms, "device_busy_share": busy_ms / wall_ms,
         "launches_per_step": sum(e.count for e in events) / 8,
         "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / 8 for e in top},
+        "top_kernels_launches_per_step": {e.key[:60]: e.count / 8 for e in top},
+        "k1_device_ms_per_launch": k1_ms,
     }), flush=True)
 
 

@@ -30,6 +30,11 @@ pytestmark = pytest.mark.cuda
 
 SIZES = [4097, 100_000]
 NAMES = ["a", "b", "qv", "mu0", "p0v", "means", "vars"]
+#: K2's and K3's edges: the shortest sequences, one tile of 512 elements
+#: either side of full (1023 = 2 tiles, 1025 = 3 with one element in the
+#: last), a last tile one element long at T ~ 100k, and T ~ 1M
+EDGE_SIZES = [2, 3, 1023, 1025, 195 * cs.TILE + 1, 1_048_577]
+BATCHES = [1, 2, 8]
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -120,6 +125,50 @@ def test_dist_q_kernel_matches_plain(cuda_device, n, out_dtype):
     for nm, g, r in zip(NAMES, got, ref):
         assert g.dtype == out_dtype, nm
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=2e-4, atol=1e-6, err_msg=nm)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("n", EDGE_SIZES)
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_linear_recurrence_kernel_edge_sizes(cuda_device, dtype, reverse, n, batch):
+    t, c = (torch.tensor(v, device=cuda_device, dtype=dtype)
+            for v in affine_inputs(np.random.default_rng(n + batch), n, (batch,)))
+    x0 = torch.linspace(-0.5, 0.7, batch, device=cuda_device, dtype=dtype)
+    before = cs.linear_recurrence.launches
+    got = cs.linear_recurrence(t, c, x0, reverse)
+    assert cs.linear_recurrence.launches == before + 1
+    ref = cs.linear_recurrence_plain(t, c, x0, reverse)
+    assert_close_scaled(got.cpu(), ref.cpu(), 1e-11 if dtype == torch.float64 else 2e-6)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("n", EDGE_SIZES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_dist_q_kernel_edge_sizes(cuda_device, out_dtype, n, batch):
+    nat = [torch.tensor(v, device=cuda_device)
+           for v in naturals(np.random.default_rng(n + batch), n, (batch,))]
+    before = cs.dist_q_1d_planes.launches
+    got = cs.dist_q_1d_planes(*nat, out_dtype)
+    assert cs.dist_q_1d_planes.launches == before + 1
+    ref = cs.dist_q_1d_planes_plain(*nat, out_dtype)
+    for nm, g, r in zip(NAMES, got, ref):
+        assert g.dtype == out_dtype, nm
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=2e-4, atol=1e-6, err_msg=nm)
+
+
+@pytest.mark.parametrize("name, dtype", [("linear_recurrence", torch.float32),
+                                         ("linear_recurrence", torch.float64),
+                                         ("dist_q_1d_planes", torch.float32),
+                                         ("dist_q_1d_planes", torch.float64)])
+def test_launch_shape_spreads_one_sequence(cuda_device, name, dtype):
+    """One sequence of 100,000 takes many blocks; a batch too large for two
+    blocks a sequence takes one block each, with no grid sync."""
+    one = cs.launch_shape(name, dtype, 1, 100_000, cuda_device)
+    assert one["blocks_per_sequence"] > 1 and one["grid"] == one["blocks_per_sequence"]
+    assert one["blocks_per_sequence"] <= -(-100_000 // one["tile"])
+    many = cs.launch_shape(name, dtype, 100_000, 100_000, cuda_device)
+    assert many == {**many, "grid": 100_000, "blocks_per_sequence": 1}
 
 
 def test_packed_step_on_card_matches_cpu(cuda_device):

@@ -70,6 +70,52 @@ def test_dist_q_plain_matches_jax(rng, n):
                 np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4, atol=1e-6, err_msg=nm)
 
 
+def _windows(n, kind):
+    """Window counts that reach the edges of the kernels' decomposition: one
+    or two elements a window, more windows than elements (the trailing ones
+    empty, as the last tile's threads past N), and a few long windows."""
+    return {"one": n, "two": -(-n // 2), "more": n + 37, "few": 3}[kind]
+
+
+WINDOWS = ["one", "two", "more", "few"]
+
+
+@pytest.mark.parametrize("windows", WINDOWS)
+@pytest.mark.parametrize("n", SIZES)
+def test_riccati_plain_windows_match_jax(rng, n, windows):
+    kd, b2 = riccati_inputs(rng, n)
+    ref = np.asarray(_jax_riccati(jnp.asarray(kd), jnp.asarray(b2)))
+    got = cs.riccati_d_sweep_plain(torch.tensor(kd), torch.tensor(b2), windows=_windows(n, windows))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12)
+
+
+@pytest.mark.parametrize("windows", WINDOWS)
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n", SIZES)
+def test_linear_recurrence_plain_windows_match_jax(rng, n, dtype, reverse, windows):
+    t, c = affine_inputs(rng, n)
+    t, c = t.astype(dtype), c.astype(dtype)
+    ref = np.asarray(_jax_affine(jnp.asarray(t), jnp.asarray(c), 0.7, reverse=reverse))
+    got = cs.linear_recurrence_plain(torch.tensor(t), torch.tensor(c), 0.7, reverse,
+                                     windows=_windows(n, windows))
+    assert got.dtype == getattr(torch, dtype)
+    assert_close_scaled(got.numpy(), ref, 1e-11 if dtype == "float64" else 2e-6)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_plain_default_windows_unchanged(rng, n):
+    """Without ``windows`` the plain versions keep their 1024-window split."""
+    kd, b2 = (torch.tensor(v) for v in riccati_inputs(rng, n))
+    nb, _ = cs._chunking(n)
+    assert torch.equal(cs.riccati_d_sweep_plain(kd, b2), cs.riccati_d_sweep_plain(kd, b2, windows=nb))
+    t, c = (torch.tensor(v) for v in affine_inputs(rng, n))
+    assert torch.equal(cs.linear_recurrence_plain(t, c, 0.3, True),
+                       cs.linear_recurrence_plain(t, c, 0.3, True, windows=nb))
+    with pytest.raises(ValueError, match="windows"):
+        cs.linear_recurrence_plain(t, c, 0.3, windows=0)
+
+
 def test_batched_plain_matches_per_sequence(rng):
     """A leading batch dimension is a stack of independent sequences."""
     n = 1500

@@ -14,36 +14,61 @@
 // not bytes.  At T = 100k every f64 plane is 0.8 MB, which the card streams in
 // well under a microsecond; the chain is T dependent divisions and FMAs.
 //
-// What the design does about it: one thread block per sequence (gridDim.x is
-// the batch) of 1024 threads.  Thread j owns the contiguous chunk
-// [j*l, (j+1)*l), l = ceil(N/1024), and the recursion runs in the TPU
-// kernel's three phases:
-//   A. each thread composes its chunk's map sequentially (an affine map for
-//      the linear recurrences, a normalised 2x2 Moebius map for the sweep);
-//   B. a Hillis-Steele inclusive scan of the 1024 maps in shared memory, in
-//      window order (suffix for reverse recurrences and the sweep, prefix
-//      for forward ones);
-//   C. each thread re-runs its chunk exactly from its boundary value.
-// The sequential depth drops from N to about 2*l + 2*log2(1024).
+// K1 runs one 1024-thread block per sequence: thread j composes the map of
+// its chunk [j*l, (j+1)*l), l = ceil(N/1024), a Hillis-Steele scan of the
+// 1024 maps in shared memory gives each chunk its boundary value, and each
+// thread re-runs its chunk exactly (the TPU kernel's phases A/B/C).  One SM
+// does the work; its redesign is later work.
+//
+// K2 and K3 spread one sequence over many SMs, in one launch:
+//   * the sequence is cut into tiles of kTile = 256 threads x kChunk = 2
+//     elements; thread j of a tile owns the contiguous pair [2j, 2j+2), so
+//     neighbouring threads touch neighbouring addresses and a warp's two
+//     loads of a plane read one contiguous run of 64 elements;
+//   * a block owns a contiguous run of tiles; the launcher picks blocks per
+//     sequence (bps) from the batch, the SM count and the kernel's occupancy
+//     (queried once per device and cached), up to one block per tile;
+//   * within a tile, each thread composes its pair's map (affine x -> a*x+b,
+//     or a normalised 2x2 Moebius map for the pivot sweep); a warp-shuffle
+//     scan and a pass over the 8 warp totals give every thread the map of
+//     all earlier pairs, in the recurrence's order (suffix for reverse
+//     recurrences and the sweep, prefix for forward ones); the tile's total
+//     carries the boundary value to the block's next tile;
+//   * across blocks: when bps > 1 the kernel is a cooperative launch.  Each
+//     block publishes its run's aggregate map to a small global array, waits
+//     at cooperative_groups::this_grid().sync(), and one warp composes the
+//     aggregates of the blocks before it into its entry value.  K2 needs one
+//     such grid sync; K3 three (after the sweep R; after Z and V's
+//     aggregates; after M's).  When bps = 1 (large batch) the launch is an
+//     ordinary one with one block per sequence and no grid sync.
+// The sequential depth drops from N to a few tiles per block, each a pair
+// of dependent steps and two log-depth scans, plus the grid syncs.
 // Everything is native f64 (Hopper has FP64 units), so the TPU's
-// double-float (hi, lo) f32 arithmetic is not carried over.
+// double-float (hi, lo) f32 arithmetic is not carried over; K2's f32 scans
+// stay f32.  The Moebius maps are normalised after every product, which
+// keeps a tree scan of them exact enough in f64 (only the f32 sweep, K4 in
+// cuda_riccati.cu, must stay in sequential order).
 //
-// Known costs, left for later work: a thread walks its own chunk, so the
-// loads and stores of a warp are strided and uncoalesced; one block per
-// sequence keeps a single SM busy.  Coalescing through shared memory,
-// multi-block decoupled look-back and CUDA graphs are the next steps.
-//
-// Interface: plain C launchers that return cudaGetLastError() as an int.
-// They launch on the given stream, never synchronise and allocate nothing:
-// outputs and scratch come from the caller.
+// Interface: plain C launchers that return a cudaError_t as an int.  They
+// launch on the given stream, never synchronise and allocate nothing:
+// outputs and scratch come from the caller, which sizes the aggregate
+// scratch with vidp_scan_shape.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <utility>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 1024;
 
-// This thread's chunk [start, end) of a length-n sequence.
+// This thread's chunk [start, end) of a length-n sequence (K1).
 __device__ __forceinline__ void chunk_of(int n, int& start, int& end) {
   const int l = (n + kThreads - 1) / kThreads;
   start = min(static_cast<int>(threadIdx.x) * l, n);
@@ -57,40 +82,11 @@ __device__ __forceinline__ double precond(double kd, double b2) {
   return b2 > 0.0 ? sqrt(b2) : fabs(kd) + 1e-300;
 }
 
-// Phase B for affine maps x -> a*x + b.  Scans the block's window maps
-// (prefix, or suffix when reverse) and returns the value entering this
-// thread's chunk, given the boundary value x0 of the whole sequence.
-// sA and sB are kThreads-long shared arrays; they are free again on return.
-template <typename T>
-__device__ T affine_entry(T a, T b, T x0, T* sA, T* sB, bool reverse) {
-  const int j = threadIdx.x;
-  sA[j] = a;
-  sB[j] = b;
-  __syncthreads();
-  for (int sh = 1; sh < kThreads; sh <<= 1) {
-    const int src = reverse ? j + sh : j - sh;
-    const bool ok = reverse ? src < kThreads : src >= 0;
-    const T pa = ok ? sA[src] : T(1);
-    const T pb = ok ? sB[src] : T(0);
-    __syncthreads();
-    b = a * pb + b;  // this window's map applied after the earlier ones
-    a = a * pa;
-    sA[j] = a;
-    sB[j] = b;
-    __syncthreads();
-  }
-  const int prev = reverse ? j + 1 : j - 1;
-  const bool has_prev = reverse ? prev < kThreads : prev >= 0;
-  const T x = has_prev ? sA[prev] * x0 + sB[prev] : x0;
-  __syncthreads();
-  return x;
-}
-
-// Phase B for the sweep: suffix scan of 2x2 Moebius maps (earlier window is
-// the left factor), normalised after every product.  Returns the pivot D_t
-// entering this thread's chunk from the right: the first-column ratio of the
-// next window's suffix map.  Past the last window the map is the identity,
-// whose ratio 1/0 is replaced by 1; b2 = 0 at the final element resets the
+// Phase B of K1: suffix scan of 2x2 Moebius maps (earlier window is the left
+// factor), normalised after every product.  Returns the pivot D_t entering
+// this thread's chunk from the right: the first-column ratio of the next
+// window's suffix map.  Past the last window the map is the identity, whose
+// ratio 1/0 is replaced by 1; b2 = 0 at the final element resets the
 // recursion there, so that placeholder never reaches a real pivot
 // (pallas_scan.py:312-321).  s holds 4*kThreads doubles.
 __device__ double mobius_entry(double w00, double w01, double w10, double w11,
@@ -135,7 +131,7 @@ __device__ double mobius_entry(double w00, double w01, double w10, double w11,
   return t10 == 0.0 ? 1.0 : t00 / t10;
 }
 
-// Phase A of the sweep: W <- M_i W over the chunk, right to left, with
+// One element of the sweep: W <- M_i W, right to left, with
 // M_i = [[kd_i, -b2_i], [1, 0]] on preconditioned channels; the new bottom
 // row is the old top row, and the map is renormalised every step.
 __device__ __forceinline__ void mobius_step(double kdt, double nb2t, double& w00,
@@ -181,185 +177,576 @@ riccati_kernel(const double* __restrict__ kd, const double* __restrict__ b2,
   }
 }
 
-// ---------------------------------------------------------------- K2
+// ------------------------------------------- multi-block scans (K2, K3)
+constexpr int kScanThreads = 256;
+constexpr int kWarps = kScanThreads / 32;
+constexpr int kChunk = 2;
+constexpr int kTile = kScanThreads * kChunk;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Affine map x -> a*x + b.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct Aff {
+  T a, b;
+};
+// Moebius map on (numerator, denominator) columns, kept normalised.
+struct Mob {
+  double w00, w01, w10, w11;
+};
+
+template <typename T>
+__device__ __forceinline__ Aff<T> identity(Aff<T>) { return {T(1), T(0)}; }
+__device__ __forceinline__ Mob identity(Mob) { return {1.0, 0.0, 0.0, 1.0}; }
+
+// The map that applies `first`, then `second`.
+template <typename T>
+__device__ __forceinline__ Aff<T> compose(Aff<T> first, Aff<T> second) {
+  return {second.a * first.a, second.a * first.b + second.b};
+}
+__device__ __forceinline__ Mob compose(Mob f, Mob g) {
+  const double n00 = g.w00 * f.w00 + g.w01 * f.w10;
+  const double n01 = g.w00 * f.w01 + g.w01 * f.w11;
+  const double n10 = g.w10 * f.w00 + g.w11 * f.w10;
+  const double n11 = g.w10 * f.w01 + g.w11 * f.w11;
+  const double r = rsqrt(n00 * n00 + n01 * n01 + n10 * n10 + n11 * n11 + 1e-300);
+  return {n00 * r, n01 * r, n10 * r, n11 * r};
+}
+
+// The map of the lane d places earlier in scan order (lower lanes for a
+// prefix scan, higher for a suffix scan); every lane of the warp calls it.
+template <typename T>
+__device__ __forceinline__ T shfl_earlier(T v, int d, bool suffix) {
+  return suffix ? __shfl_down_sync(kFull, v, d) : __shfl_up_sync(kFull, v, d);
+}
+template <typename T>
+__device__ __forceinline__ Aff<T> shfl_earlier(Aff<T> m, int d, bool suffix) {
+  return {shfl_earlier(m.a, d, suffix), shfl_earlier(m.b, d, suffix)};
+}
+__device__ __forceinline__ Mob shfl_earlier(Mob m, int d, bool suffix) {
+  return {shfl_earlier(m.w00, d, suffix), shfl_earlier(m.w01, d, suffix),
+          shfl_earlier(m.w10, d, suffix), shfl_earlier(m.w11, d, suffix)};
+}
+
+// Global loads that bypass L1: the aggregates and K3's scratch planes are
+// written by other blocks in the same launch.
+template <typename T>
+__device__ __forceinline__ Aff<T> load_cg(const Aff<T>* p) {
+  return {__ldcg(&p->a), __ldcg(&p->b)};
+}
+__device__ __forceinline__ Mob load_cg(const Mob* p) {
+  return {__ldcg(&p->w00), __ldcg(&p->w01), __ldcg(&p->w10), __ldcg(&p->w11)};
+}
+
+// Inclusive scan over the warp's lanes, in scan order.
+template <typename M>
+__device__ __forceinline__ M warp_scan(M x, bool suffix) {
+  const int lane = threadIdx.x & 31;
+  for (int d = 1; d < 32; d <<= 1) {
+    const M y = shfl_earlier(x, d, suffix);
+    if (suffix ? lane + d < 32 : lane >= d) x = compose(y, x);
+  }
+  return x;
+}
+
+// Scan of the block's per-thread maps in scan order (suffix: higher threads
+// first).  excl is the composition of the maps of every earlier thread,
+// total that of all threads (the same in every thread).  tot is a kWarps
+// array in shared memory; all threads of the block call this.
+template <typename M>
+__device__ void block_scan(M x, bool suffix, M* tot, M& excl, M& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const M inc = warp_scan(x, suffix);
+  M ex = shfl_earlier(inc, 1, suffix);
+  if (lane == (suffix ? 31 : 0)) ex = identity(x);
+  if (lane == (suffix ? 0 : 31)) tot[warp] = inc;
+  __syncthreads();
+  M before = identity(x);
+  total = identity(x);
+  for (int k = 0; k < kWarps; ++k) {
+    const int wk = suffix ? kWarps - 1 - k : k;
+    if (wk == warp) before = total;
+    total = compose(total, tot[wk]);
+  }
+  __syncthreads();
+  excl = compose(before, ex);
+}
+
+template <typename M>
+__device__ __forceinline__ M block_total(M x, bool suffix, M* tot) {
+  M excl, total;
+  block_scan(x, suffix, tot, excl, total);
+  return total;
+}
+
+// The composition, in scan order, of the aggregates of the blocks of this
+// sequence that come before block blk; block p's aggregate lies `stride`
+// bytes after block p-1's.  One warp composes contiguous runs of them and
+// reduces the runs with shuffles; slot is one map in shared memory.  All
+// threads of the block call this.
+template <typename M>
+__device__ M blocks_before(const M* agg, int stride, int bps, int blk, bool suffix,
+                           M* slot) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int mine = suffix ? bps - 1 - blk : blk;  // this block's place in scan order
+    const int per = (mine + 31) / 32;
+    const char* base = reinterpret_cast<const char*>(agg);
+    M acc = identity(M{});
+    for (int p = lane * per; p < min((lane + 1) * per, mine); ++p) {
+      const long long b = suffix ? bps - 1 - p : p;
+      acc = compose(acc, load_cg(reinterpret_cast<const M*>(base + b * stride)));
+    }
+    acc = warp_scan(acc, false);
+    if (lane == 31) *slot = acc;
+  }
+  __syncthreads();
+  const M r = *slot;
+  __syncthreads();
+  return r;
+}
+
+// Wait for every block of the launch (bps > 1: a cooperative launch) or of
+// the block (bps = 1); global writes before it are visible after it.
+__device__ __forceinline__ void sync_sequence(int bps) {
+  if (bps > 1) {
+    cg::this_grid().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// The tiles [lo, hi) of block blk of bps, for a sequence of n elements.
+__device__ __forceinline__ void tiles_of(int n, int bps, int blk, int& lo, int& hi) {
+  const int ntiles = (n + kTile - 1) / kTile;
+  const int per = (ntiles + bps - 1) / bps;
+  lo = min(blk * per, ntiles);
+  hi = min(lo + per, ntiles);
+}
+
+// The k-th tile of [lo, hi) in scan order.
+__device__ __forceinline__ int tile_at(int lo, int hi, int k, bool suffix) {
+  return suffix ? hi - 1 - k : lo + k;
+}
+
+// The k-th element of this thread's pair of tile `tile`, in scan order.
+__device__ __forceinline__ int elem_at(int tile, int k, bool suffix) {
+  const int base = tile * kTile + static_cast<int>(threadIdx.x) * kChunk;
+  return suffix ? base + kChunk - 1 - k : base + k;
+}
+
+// ---------------------------------------------------------------- K2
+// agg holds one Aff<T> per block (used when bps > 1).
+template <typename T>
+__global__ void __launch_bounds__(kScanThreads)
 linrec_kernel(const T* __restrict__ t, const T* __restrict__ c,
-              const T* __restrict__ x0, T* __restrict__ out, int n, int reverse) {
-  __shared__ T sA[kThreads];
-  __shared__ T sB[kThreads];
-  const long long off = static_cast<long long>(blockIdx.x) * n;
+              const T* __restrict__ x0, T* __restrict__ out, Aff<T>* agg, int n,
+              int bps, int reverse) {
+  __shared__ Aff<T> tot[kWarps];
+  __shared__ Aff<T> slot;
+  const bool suffix = reverse != 0;
+  const int seq = blockIdx.x / bps;
+  const int blk = blockIdx.x % bps;
+  const long long off = static_cast<long long>(seq) * n;
   t += off;
   c += off;
   out += off;
-  int start, end;
-  chunk_of(n, start, end);
+  int lo, hi;
+  tiles_of(n, bps, blk, lo, hi);
+  const Aff<T> id = {T(1), T(0)};
+  T x = x0[seq];
 
-  T a = T(1), b = T(0);
-  if (reverse) {
-    for (int i = end - 1; i >= start; --i) {
-      a = t[i] * a;
-      b = t[i] * b + c[i];
+  if (bps > 1) {
+    // the block's aggregate map, published for the blocks after it
+    Aff<T> mine = id;
+    for (int k = 0; k < hi - lo; ++k) {
+      const int tile = tile_at(lo, hi, k, suffix);
+      Aff<T> m = id;
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) {
+        const int i = elem_at(tile, e, suffix);
+        if (i < n) m = compose(m, Aff<T>{t[i], c[i]});
+      }
+      mine = compose(mine, block_total(m, suffix, tot));
     }
-  } else {
-    for (int i = start; i < end; ++i) {
-      a = t[i] * a;
-      b = t[i] * b + c[i];
-    }
+    if (threadIdx.x == 0) agg[blockIdx.x] = mine;
+    sync_sequence(bps);
+    const Aff<T> before = blocks_before(agg + seq * bps, sizeof(Aff<T>), bps, blk, suffix, &slot);
+    x = before.a * x + before.b;
   }
-  T x = affine_entry<T>(a, b, x0[blockIdx.x], sA, sB, reverse != 0);
-  if (reverse) {
-    for (int i = end - 1; i >= start; --i) {
-      x = t[i] * x + c[i];
-      out[i] = x;
+
+  for (int k = 0; k < hi - lo; ++k) {
+    const int tile = tile_at(lo, hi, k, suffix);
+    T tv[kChunk], cv[kChunk];
+    Aff<T> m = id;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = elem_at(tile, e, suffix);
+      tv[e] = i < n ? t[i] : T(1);
+      cv[e] = i < n ? c[i] : T(0);
+      m = compose(m, Aff<T>{tv[e], cv[e]});
     }
-  } else {
-    for (int i = start; i < end; ++i) {
-      x = t[i] * x + c[i];
-      out[i] = x;
+    Aff<T> excl, total;
+    block_scan(m, suffix, tot, excl, total);
+    T y = excl.a * x + excl.b;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = elem_at(tile, e, suffix);
+      y = tv[e] * y + cv[e];
+      if (i < n) out[i] = y;
     }
+    x = total.a * x + total.b;
   }
 }
 
 // ---------------------------------------------------------------- K3
-// Phases 0 -> R -> Z -> M -> V of pallas_scan.py::_dist_q_kernel, in f64.
-// scratch is [6, B, n] f64: s, kd_t, -b2_t, u, covs, w.  A chunk's first
-// element reads u of the previous chunk's last element from the u plane
-// after a barrier (global writes before __syncthreads are visible to the
-// whole block after it).  Outputs are cast to TO at the store.
+// Phases R -> Z -> M, V of pallas_scan.py::_dist_q_kernel, in f64.
+// scratch is [3, B, n] f64 (u, covs, w) followed by one KAgg per block.
+struct KAgg {
+  Mob r;
+  Aff<double> z, v, m;
+};
+
+// kd = -2*nat2d and ks = -nat2s, zero past the last element
+__device__ __forceinline__ double ks_at(const double* nat2s, int i, int n) {
+  return i < n - 1 ? -nat2s[i] : 0.0;
+}
+__device__ __forceinline__ double s_at(const double* nat2d, const double* nat2s, int i,
+                                       int n) {
+  if (i >= n) return 1.0;
+  const double ks = ks_at(nat2s, i, n);
+  return precond(-2.0 * nat2d[i], ks * ks);
+}
+
+// The preconditioned sweep inputs of this thread's pair in tile `tile`,
+// right to left (k = 0 is the right element): kd~, -b2~, s, ks; s_after is
+// s of the element after the pair.  Elements past n are (1, 0, 1, 0).
+__device__ __forceinline__ void sweep_pair(const double* nat2d, const double* nat2s,
+                                           int tile, int n, double* kdt, double* nb2t,
+                                           double* s, double* ks, double& s_after) {
+  s_after = s_at(nat2d, nat2s, elem_at(tile, 0, true) + 1, n);
+  double s_next = s_after;
+#pragma unroll
+  for (int e = 0; e < kChunk; ++e) {
+    const int i = elem_at(tile, e, true);
+    if (i < n) {
+      ks[e] = ks_at(nat2s, i, n);
+      const double kd = -2.0 * nat2d[i];
+      s[e] = precond(kd, ks[e] * ks[e]);
+      kdt[e] = kd / s[e];
+      nb2t[e] = -(ks[e] * ks[e]) / (s[e] * s_next);
+      s_next = s[e];
+    } else {
+      kdt[e] = 1.0;
+      nb2t[e] = 0.0;
+      s[e] = 1.0;
+      ks[e] = 0.0;
+    }
+  }
+}
+
 template <typename TO>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kScanThreads)
 dist_q_kernel(const double* __restrict__ nat1, const double* __restrict__ nat2d,
               const double* __restrict__ nat2s, double* __restrict__ scratch,
               TO* __restrict__ covs_o, TO* __restrict__ a_o, TO* __restrict__ w_o,
-              TO* __restrict__ mu_o, TO* __restrict__ v_o, int n) {
-  __shared__ double smem[4 * kThreads];
-  const long long bidx = blockIdx.x;
-  const long long plane = static_cast<long long>(gridDim.x) * n;
-  const long long off = bidx * n;
+              TO* __restrict__ mu_o, TO* __restrict__ v_o, int n, int bps) {
+  __shared__ Mob tot_r[kWarps];
+  __shared__ Aff<double> tot_a[kWarps];
+  __shared__ Mob slot_r;
+  __shared__ Aff<double> slot_a;
+  const int seq = blockIdx.x / bps;
+  const int blk = blockIdx.x % bps;
+  const long long plane = static_cast<long long>(gridDim.x / bps) * n;
+  const long long off = static_cast<long long>(seq) * n;
+  KAgg* agg = reinterpret_cast<KAgg*>(scratch + 3 * plane);
+  KAgg* agg_seq = agg + seq * bps;
   nat1 += off;
   nat2d += off;
-  nat2s += bidx * (n - 1);
+  nat2s += static_cast<long long>(seq) * (n - 1);
   covs_o += off;
   a_o += off;
   w_o += off;
   mu_o += off;
   v_o += off;
-  double* s_p = scratch + off;
-  double* kdt_p = s_p + plane;
-  double* nb2t_p = kdt_p + plane;
-  double* u_p = nb2t_p + plane;
+  double* u_p = scratch + off;
   double* cov_p = u_p + plane;
   double* w_p = cov_p + plane;
-  int start, end;
-  chunk_of(n, start, end);
+  int lo, hi;
+  tiles_of(n, bps, blk, lo, hi);
+  const int ntl = hi - lo;
+  const Mob mob_id = {1.0, 0.0, 0.0, 1.0};
+  const Aff<double> aff_id = {1.0, 0.0};
+  double kdt[kChunk], nb2t[kChunk], s[kChunk], ks[kChunk], s_after;
 
-  // 0: preconditioner s, then kd_t = kd/s and -b2_t = -ks^2/(s*s_next);
-  // kd = -2*nat2d and ks = -nat2s, zero past the last element.
-  for (int i = start; i < end; ++i) {
-    const double ks = i < n - 1 ? -nat2s[i] : 0.0;
-    s_p[i] = precond(-2.0 * nat2d[i], ks * ks);
-  }
-  __syncthreads();
-  for (int i = start; i < end; ++i) {
-    const double ks = i < n - 1 ? -nat2s[i] : 0.0;
-    const double s_next = i + 1 < n ? s_p[i + 1] : 1.0;
-    kdt_p[i] = -2.0 * nat2d[i] / s_p[i];
-    nb2t_p[i] = -(ks * ks) / (s_p[i] * s_next);
+  // R, aggregate: the block's suffix Moebius map
+  Mob carry_r = mob_id;
+  if (bps > 1) {
+    Mob mine = mob_id;
+    for (int k = 0; k < ntl; ++k) {
+      const int tile = tile_at(lo, hi, k, true);
+      sweep_pair(nat2d, nat2s, tile, n, kdt, nb2t, s, ks, s_after);
+      Mob w = mob_id;
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) {
+        if (elem_at(tile, e, true) < n) mobius_step(kdt[e], nb2t[e], w.w00, w.w01, w.w10, w.w11);
+      }
+      mine = compose(mine, block_total(w, true, tot_r));
+    }
+    if (threadIdx.x == 0) agg[blockIdx.x].r = mine;
+    sync_sequence(bps);
+    carry_r = blocks_before(&agg_seq->r, sizeof(KAgg), bps, blk, true, &slot_r);
   }
 
-  // R: pivot sweep, emitting u = ks/D_{k+1} (a = -u) and covs = 1/D
-  double w00 = 1.0, w01 = 0.0, w10 = 0.0, w11 = 1.0;
-  for (int i = end - 1; i >= start; --i) {
-    mobius_step(kdt_p[i], nb2t_p[i], w00, w01, w10, w11);
-  }
-  const double d_entry = mobius_entry(w00, w01, w10, w11, smem);
-  {
-    double rec = 1.0 / d_entry;  // 1/D_t of the element to the right
-    double s_next = end < n ? s_p[end] : 1.0;
-    for (int i = end - 1; i >= start; --i) {
-      const double ks = i < n - 1 ? -nat2s[i] : 0.0;
-      const double u = ks * (rec / s_next);
+  // R, exact: u = ks/D_{k+1} (a = -u) and covs = 1/D from the pivot
+  // entering each pair; with it the aggregates of Z (suffix) and V (prefix)
+  Aff<double> mine_z = aff_id, mine_v = aff_id;
+  for (int k = 0; k < ntl; ++k) {
+    const int tile = tile_at(lo, hi, k, true);
+    sweep_pair(nat2d, nat2s, tile, n, kdt, nb2t, s, ks, s_after);
+    Mob w = mob_id;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      if (elem_at(tile, e, true) < n) mobius_step(kdt[e], nb2t[e], w.w00, w.w01, w.w10, w.w11);
+    }
+    Mob excl, total;
+    block_scan(w, true, tot_r, excl, total);
+    const Mob entry = compose(carry_r, excl);
+    // the pivot D~ entering the pair: the first-column ratio of the map of
+    // everything to its right; 1/0 (nothing there) is replaced by 1
+    double rec = 1.0 / (entry.w10 == 0.0 ? 1.0 : entry.w00 / entry.w10);
+    carry_r = compose(carry_r, total);
+    double s_next = s_after;
+    Aff<double> mz = aff_id, mv = aff_id;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = elem_at(tile, e, true);
+      if (i >= n) continue;
+      const double u = ks[e] * (rec / s_next);
+      rec = 1.0 / (kdt[e] + nb2t[e] * rec);
+      const double cov = rec / s[e];
       u_p[i] = u;
-      a_o[i] = static_cast<TO>(-u);
-      rec = 1.0 / (kdt_p[i] + nb2t_p[i] * rec);
-      const double cov = rec / s_p[i];
       cov_p[i] = cov;
+      a_o[i] = static_cast<TO>(-u);
       covs_o[i] = static_cast<TO>(cov);
-      s_next = s_p[i];
+      s_next = s[e];
+      // z_i = -u_i z_{i+1} + nat1_i; v_i = u_{i-1}^2 v_{i-1} + covs_i with
+      // u_{i-1} = ks_{i-1}/D_i = ks_{i-1} covs_i
+      mz = compose(mz, Aff<double>{-u, nat1[i]});
+      const double up = i > 0 ? -nat2s[i - 1] * cov : 0.0;
+      mv = compose(Aff<double>{up * up, cov}, mv);
     }
+    mine_z = compose(mine_z, block_total(mz, true, tot_a));
+    mine_v = compose(block_total(mv, false, tot_a), mine_v);
+  }
+  double carry_z = 0.0, carry_v = 0.0;
+  if (threadIdx.x == 0 && bps > 1) {
+    agg[blockIdx.x].z = mine_z;
+    agg[blockIdx.x].v = mine_v;
+  }
+  sync_sequence(bps);
+  if (bps > 1) {
+    carry_z = blocks_before(&agg_seq->z, sizeof(KAgg), bps, blk, true, &slot_a).b;
+    carry_v = blocks_before(&agg_seq->v, sizeof(KAgg), bps, blk, false, &slot_a).b;
   }
 
-  // Z: reverse solve z_k = -u_k z_{k+1} + theta_k; w = covs * z
-  {
-    double a = 1.0, b = 0.0;
-    for (int i = end - 1; i >= start; --i) {
-      const double t = -u_p[i];
-      a = t * a;
-      b = t * b + nat1[i];
+  // Z, exact: w = covs * z; with it the aggregate of M (prefix)
+  Aff<double> mine_m = aff_id;
+  for (int k = 0; k < ntl; ++k) {
+    const int tile = tile_at(lo, hi, k, true);
+    double uv[kChunk], cv[kChunk], th[kChunk];
+    Aff<double> mz = aff_id;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = elem_at(tile, e, true);
+      uv[e] = i < n ? __ldcg(u_p + i) : 0.0;
+      cv[e] = i < n ? __ldcg(cov_p + i) : 0.0;
+      th[e] = i < n ? nat1[i] : 0.0;
+      if (i < n) mz = compose(mz, Aff<double>{-uv[e], th[e]});
     }
-    double x = affine_entry<double>(a, b, 0.0, smem, smem + kThreads, true);
-    for (int i = end - 1; i >= start; --i) {
-      x = -u_p[i] * x + nat1[i];
-      const double w = cov_p[i] * x;
+    Aff<double> excl, total;
+    block_scan(mz, true, tot_a, excl, total);
+    double z = excl.a * carry_z + excl.b;
+    carry_z = total.a * carry_z + total.b;
+    Aff<double> mm = aff_id;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = elem_at(tile, e, true);
+      if (i >= n) continue;
+      z = -uv[e] * z + th[e];
+      const double w = cv[e] * z;
       w_p[i] = w;
       w_o[i] = static_cast<TO>(w);
+      const double tm = i > 0 ? -__ldcg(u_p + i - 1) : 0.0;  // mu_i = -u_{i-1} mu_{i-1} + w_i
+      mm = compose(Aff<double>{tm, w}, mm);
+    }
+    mine_m = compose(block_total(mm, false, tot_a), mine_m);
+  }
+
+  // V, exact: v_i = u_{i-1}^2 v_{i-1} + covs_i, left to right
+  for (int k = 0; k < ntl; ++k) {
+    const int tile = tile_at(lo, hi, k, false);
+    double tv[kChunk], cv[kChunk];
+    Aff<double> mv = aff_id;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = elem_at(tile, e, false);
+      const double up = (i > 0 && i < n) ? __ldcg(u_p + i - 1) : 0.0;
+      tv[e] = i < n ? up * up : 1.0;
+      cv[e] = i < n ? __ldcg(cov_p + i) : 0.0;
+      mv = compose(mv, Aff<double>{tv[e], cv[e]});
+    }
+    Aff<double> excl, total;
+    block_scan(mv, false, tot_a, excl, total);
+    double v = excl.a * carry_v + excl.b;
+    carry_v = total.a * carry_v + total.b;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = elem_at(tile, e, false);
+      v = tv[e] * v + cv[e];
+      if (i < n) v_o[i] = static_cast<TO>(v);
     }
   }
 
-  // M: forward mean mu_k = -u_{k-1} mu_{k-1} + w_k (mu_0 = w_0)
-  {
-    double a = 1.0, b = 0.0;
-    for (int i = start; i < end; ++i) {
-      const double t = i > 0 ? -u_p[i - 1] : 0.0;
-      a = t * a;
-      b = t * b + w_p[i];
-    }
-    double x = affine_entry<double>(a, b, 0.0, smem, smem + kThreads, false);
-    for (int i = start; i < end; ++i) {
-      const double t = i > 0 ? -u_p[i - 1] : 0.0;
-      x = t * x + w_p[i];
-      mu_o[i] = static_cast<TO>(x);
-    }
-  }
+  double carry_m = 0.0;
+  if (threadIdx.x == 0 && bps > 1) agg[blockIdx.x].m = mine_m;
+  sync_sequence(bps);
+  if (bps > 1) carry_m = blocks_before(&agg_seq->m, sizeof(KAgg), bps, blk, false, &slot_a).b;
 
-  // V: forward variance v_k = u_{k-1}^2 v_{k-1} + covs_k (v_0 = covs_0)
-  {
-    double a = 1.0, b = 0.0;
-    for (int i = start; i < end; ++i) {
-      const double up = i > 0 ? u_p[i - 1] : 0.0;
-      a = up * up * a;
-      b = up * up * b + cov_p[i];
+  // M, exact: mu_i = -u_{i-1} mu_{i-1} + w_i (mu_0 = w_0), left to right
+  for (int k = 0; k < ntl; ++k) {
+    const int tile = tile_at(lo, hi, k, false);
+    double tv[kChunk], wv[kChunk];
+    Aff<double> mm = aff_id;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = elem_at(tile, e, false);
+      tv[e] = i >= n ? 1.0 : (i > 0 ? -__ldcg(u_p + i - 1) : 0.0);
+      wv[e] = i < n ? __ldcg(w_p + i) : 0.0;
+      mm = compose(mm, Aff<double>{tv[e], wv[e]});
     }
-    double x = affine_entry<double>(a, b, 0.0, smem, smem + kThreads, false);
-    for (int i = start; i < end; ++i) {
-      const double up = i > 0 ? u_p[i - 1] : 0.0;
-      x = up * up * x + cov_p[i];
-      v_o[i] = static_cast<TO>(x);
+    Aff<double> excl, total;
+    block_scan(mm, false, tot_a, excl, total);
+    double mu = excl.a * carry_m + excl.b;
+    carry_m = total.a * carry_m + total.b;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = elem_at(tile, e, false);
+      mu = tv[e] * mu + wv[e];
+      if (i < n) mu_o[i] = static_cast<TO>(mu);
     }
   }
+}
+
+// ------------------------------------------------------------ launching
+// Blocks of kScanThreads that fit on the current device at once for this
+// kernel: SM count times occupancy, queried once per (kernel, device).
+cudaError_t coresident_blocks(const void* kernel, int& out) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(kernel, dev);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    out = it->second;
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kScanThreads, 0);
+  if (err != cudaSuccess) return err;
+  out = cache[key] = sms * per_sm;
+  return cudaSuccess;
+}
+
+struct Shape {
+  int grid, bps;
+};
+
+// Blocks per sequence: as many as fit on the card beside the batch's other
+// sequences, at most one per tile; 1 (no grid sync) when fewer than 2 fit.
+cudaError_t plan(const void* kernel, int batch, int n, Shape& shape) {
+  int cap = 0;
+  const cudaError_t err = coresident_blocks(kernel, cap);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (n + kTile - 1) / kTile;
+  int bps = std::min(cap / std::max(batch, 1), ntiles);
+  if (bps < 2) bps = 1;
+  shape = {batch * bps, bps};
+  return cudaSuccess;
+}
+
+// An ordinary launch for bps = 1, a cooperative one otherwise; args are
+// pointers to the kernel's arguments in order.
+int launch(const void* kernel, Shape shape, void** args, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      shape.bps > 1
+          ? cudaLaunchCooperativeKernel(kernel, shape.grid, kScanThreads, args, 0, st)
+          : cudaLaunchKernel(kernel, shape.grid, kScanThreads, args, 0, st);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+template <typename T>
+int launch_linrec(const T* t, const T* c, const T* x0, T* out, void* agg, int batch,
+                  int n, int reverse, void* stream) {
+  const void* kernel = reinterpret_cast<const void*>(&linrec_kernel<T>);
+  Shape shape;
+  const cudaError_t err = plan(kernel, batch, n, shape);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Aff<T>* a = static_cast<Aff<T>*>(agg);
+  void* args[] = {&t, &c, &x0, &out, &a, &n, &shape.bps, &reverse};
+  return launch(kernel, shape, args, stream);
 }
 
 template <typename TO>
 int launch_dist_q(const double* nat1, const double* nat2d, const double* nat2s,
-                  double* scratch, TO* covs, TO* a, TO* w, TO* mu, TO* v,
-                  int batch, int n, void* stream) {
-  dist_q_kernel<TO><<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nat1, nat2d, nat2s, scratch, covs, a, w, mu, v, n);
-  return static_cast<int>(cudaGetLastError());
+                  double* scratch, TO* covs, TO* a, TO* w, TO* mu, TO* v, int batch,
+                  int n, void* stream) {
+  const void* kernel = reinterpret_cast<const void*>(&dist_q_kernel<TO>);
+  Shape shape;
+  const cudaError_t err = plan(kernel, batch, n, shape);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&nat1, &nat2d, &nat2s, &scratch, &covs, &a, &w, &mu, &v, &n, &shape.bps};
+  return launch(kernel, shape, args, stream);
 }
 
-template <typename T>
-int launch_linrec(const T* t, const T* c, const T* x0, T* out, int batch, int n,
-                  int reverse, void* stream) {
-  linrec_kernel<T><<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      t, c, x0, out, n, reverse);
-  return static_cast<int>(cudaGetLastError());
+const void* scan_kernel(int which) {
+  switch (which) {
+    case 0: return reinterpret_cast<const void*>(&linrec_kernel<float>);
+    case 1: return reinterpret_cast<const void*>(&linrec_kernel<double>);
+    case 2: return reinterpret_cast<const void*>(&dist_q_kernel<float>);
+    case 3: return reinterpret_cast<const void*>(&dist_q_kernel<double>);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
 extern "C" {
+
+// The launch shape of K2 (which = 0 f32, 1 f64) or K3 (2 f32 out, 3 f64
+// out) for this batch and length on the current device: out[0] the grid,
+// out[1] blocks per sequence, out[2] threads per block, out[3] elements per
+// tile, out[4] doubles of aggregate scratch per block.
+int vidp_scan_shape(int which, int batch, int n, int* out) {
+  const void* kernel = scan_kernel(which);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Shape shape;
+  const cudaError_t err = plan(kernel, batch, n, shape);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = shape.grid;
+  out[1] = shape.bps;
+  out[2] = kScanThreads;
+  out[3] = kTile;
+  out[4] = which < 2 ? 2 : static_cast<int>(sizeof(KAgg) / sizeof(double));
+  return 0;
+}
 
 int vidp_riccati_f64(const double* kd, const double* b2, double* out, int batch,
                      int n, void* stream) {
@@ -369,13 +756,14 @@ int vidp_riccati_f64(const double* kd, const double* b2, double* out, int batch,
 }
 
 int vidp_linrec_f64(const double* t, const double* c, const double* x0,
-                    double* out, int batch, int n, int reverse, void* stream) {
-  return launch_linrec<double>(t, c, x0, out, batch, n, reverse, stream);
+                    double* out, double* agg, int batch, int n, int reverse,
+                    void* stream) {
+  return launch_linrec<double>(t, c, x0, out, agg, batch, n, reverse, stream);
 }
 
 int vidp_linrec_f32(const float* t, const float* c, const float* x0, float* out,
-                    int batch, int n, int reverse, void* stream) {
-  return launch_linrec<float>(t, c, x0, out, batch, n, reverse, stream);
+                    float* agg, int batch, int n, int reverse, void* stream) {
+  return launch_linrec<float>(t, c, x0, out, agg, batch, n, reverse, stream);
 }
 
 int vidp_dist_q_1d_f32(const double* nat1, const double* nat2d,

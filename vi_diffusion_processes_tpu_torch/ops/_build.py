@@ -35,8 +35,9 @@ _int = ctypes.c_int
 _SIGNATURES = {
     "vidp_riccati_f64": [_vp, _vp, _vp, _int, _int, _vp],
     "vidp_riccati_f32": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
-    "vidp_linrec_f64": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
-    "vidp_linrec_f32": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    "vidp_scan_shape": [_int, _int, _int, _vp],
+    "vidp_linrec_f64": [_vp] * 5 + [_int, _int, _int, _vp],
+    "vidp_linrec_f32": [_vp] * 5 + [_int, _int, _int, _vp],
     "vidp_dist_q_1d_f32": [_vp] * 9 + [_int, _int, _vp],
     "vidp_dist_q_1d_f64": [_vp] * 9 + [_int, _int, _vp],
 }

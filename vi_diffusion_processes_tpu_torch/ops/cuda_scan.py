@@ -11,19 +11,30 @@ kernels, written by hand for Hopper in ``csrc/cuda_scan.cu``:
   (``_dist_q_kernel``): naturals → SSM params → marginals in one launch.
 
 What bounds them on the card is the latency of a sequential dependency
-chain, not bytes: at T = 100k an f64 plane is 0.8 MB.  The kernels cut the
-chain's depth from N to about ``2·ceil(N/1024) + 20`` with one 1024-thread
-block per sequence: per-thread chunk maps, a block-wide scan of the maps in
-shared memory, then the exact recursion from each chunk's boundary value
-(the TPU kernel's phases A/B/C).  The strided chunk loads and the single
-busy SM are known costs (see the source note in the ``.cu`` file).
+chain, not bytes: at T = 100k an f64 plane is 0.8 MB.  Every kernel splits
+the chain into chunks: each thread composes its chunk's map, a scan of the
+maps gives every chunk its boundary value, and the chunk is re-run exactly
+from it (the TPU kernel's phases A/B/C).
+
+* K1 runs one 1024-thread block per sequence, chunks of ``ceil(N/1024)``,
+  and a Hillis–Steele scan in shared memory: one SM does the work.
+* K2 and K3 spread one sequence over many SMs in one launch: tiles of
+  256 threads × 2 contiguous elements (coalesced loads), warp-shuffle scans
+  inside a tile, and, when a sequence has several blocks, a cooperative
+  launch whose blocks exchange their aggregate maps across a grid sync
+  (one for K2, three for K3).  :func:`launch_shape` gives the grid the
+  launcher picks from the batch, the SM count and the kernel's occupancy;
+  at a batch too large for two blocks a sequence, it is one block each.
 
 Each wrapper checks device, dtype, shape and contiguity, launches its kernel
 for CUDA tensors and calls the plain version for CPU tensors; it raises on
-anything else.  The plain versions run the same windowed algorithm in
-PyTorch (sequential over the window length, vectorised over windows, a
-Hillis–Steele scan across windows), on any device.  Each wrapper carries a
-plain-int ``launches`` count, raised by one where it launches its kernel.
+anything else, a refused launch included.  The plain versions run the same
+windowed algorithm in PyTorch (sequential over the window length,
+vectorised over windows, a Hillis–Steele scan across windows), on any
+device; ``windows=`` sets their window count, so that the CPU tests can
+reach the kernels' edge cases (windows of one or two elements, empty
+trailing windows).  Each wrapper carries a plain-int ``launches`` count,
+raised by one where it launches its kernel.
 
 Each wrapper is a ``torch.autograd.Function`` with the JAX package's
 adjoint as its backward: K1's and K2's backward passes are K2 launches
@@ -34,7 +45,8 @@ CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -48,15 +60,24 @@ __all__ = [
     "sweep_adjoint",
     "launch_counts",
     "reset_launch_counts",
+    "launch_shape",
 ]
 
-#: threads per block of the CUDA kernels = windows of the plain versions
+#: threads per block of K1 = default windows of the plain versions
 THREADS = 1024
+#: elements per tile of K2 and K3 (csrc/cuda_scan.cu: kTile)
+TILE = 512
 
 
 # ----------------------------------------------------------- plain versions
-def _chunking(n: int) -> Tuple[int, int]:
-    """(nb, l): nb ≤ THREADS windows of length l = ceil(n / THREADS)."""
+def _chunking(n: int, windows: Optional[int] = None) -> Tuple[int, int]:
+    """(nb, l): by default nb ≤ THREADS windows of length l = ceil(n / THREADS);
+    with ``windows``, exactly that many windows of l = ceil(n / windows), the
+    trailing ones padded with identity maps (empty when windows > n)."""
+    if windows is not None:
+        if windows < 1:
+            raise ValueError(f"windows must be at least 1, got {windows}")
+        return windows, max(1, -(-n // windows))
     l = -(-n // THREADS)
     return -(-n // l), l
 
@@ -84,17 +105,20 @@ def _shift(x: torch.Tensor, sh: int, fill: float, toward_start: bool) -> torch.T
     return torch.cat([f, x[..., :-sh]], dim=-1)
 
 
-def riccati_d_sweep_plain(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+def riccati_d_sweep_plain(
+    kd: torch.Tensor, b2: torch.Tensor, *, windows: Optional[int] = None
+) -> torch.Tensor:
     """Plain PyTorch K1: ``D_k = kd_k − b2_k/D_{k+1}`` over f64 ``[..., N]``
     (``b2[..., N−1] = 0``), by the windowed Möbius algorithm of
     ``btd.py::_riccati_d_xla`` with the diagonal preconditioning of
-    ``pallas_scan.py::_ric_fwd`` (``s = √b2``, else ``|kd| + 1e-300``)."""
+    ``pallas_scan.py::_ric_fwd`` (``s = √b2``, else ``|kd| + 1e-300``).
+    ``windows`` sets the window count (see :func:`_chunking`)."""
     n = kd.shape[-1]
     s = torch.where(b2 > 0, torch.sqrt(b2), torch.abs(kd) + 1e-300)
     s_next = torch.cat([s[..., 1:], torch.ones_like(s[..., :1])], dim=-1)
     kd_t = kd / s
     b2_t = b2 / (s * s_next)
-    nb, l = _chunking(n)
+    nb, l = _chunking(n, windows)
     kdb = _blockify(kd_t, nb, l, 1.0)
     b2b = _blockify(b2_t, nb, l, 0.0)
 
@@ -141,14 +165,16 @@ def riccati_d_sweep_plain(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
 
 
 def linear_recurrence_plain(
-    t: torch.Tensor, c: torch.Tensor, x0, reverse: bool = False
+    t: torch.Tensor, c: torch.Tensor, x0, reverse: bool = False, *,
+    windows: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch K2: ``x_k = t_k·x_{k−1} + c_k`` (``x_{−1} = x0``) or,
     with ``reverse``, ``x_k = t_k·x_{k+1} + c_k`` (``x_N = x0``), over
-    ``[..., N]`` in the input dtype.  Windows past the end are identity maps."""
+    ``[..., N]`` in the input dtype.  Windows past the end are identity maps;
+    ``windows`` sets the window count (see :func:`_chunking`)."""
     n = t.shape[-1]
     x0 = torch.as_tensor(x0, dtype=t.dtype, device=t.device).expand(t.shape[:-1])
-    nb, l = _chunking(n)
+    nb, l = _chunking(n, windows)
     tb = _blockify(t, nb, l, 1.0)
     cb = _blockify(c, nb, l, 0.0)
     order = range(l - 1, -1, -1) if reverse else range(l)
@@ -241,6 +267,36 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
 
+#: kernel index of ``vidp_scan_shape``: (K2 f32, K2 f64, K3 f32 out, K3 f64 out)
+_SCAN_KERNELS = {("linear_recurrence", torch.float32): 0,
+                 ("linear_recurrence", torch.float64): 1,
+                 ("dist_q_1d_planes", torch.float32): 2,
+                 ("dist_q_1d_planes", torch.float64): 3}
+
+
+@functools.lru_cache(maxsize=256)
+def _scan_shape(which: int, device: int, batch: int, n: int) -> Tuple[int, ...]:
+    """(grid, blocks per sequence, threads per block, tile, doubles of
+    aggregate scratch per block) that the launcher of K2 or K3 picks."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = _lib().vidp_scan_shape(which, batch, n, out)
+    if err != 0:
+        raise RuntimeError(f"vidp_scan_shape failed with cudaError_t {err}")
+    return tuple(out)
+
+
+def launch_shape(name: str, dtype: torch.dtype, batch: int, n: int, device=0) -> dict:
+    """The launch that K2 (``name="linear_recurrence"``, ``dtype`` of the
+    data) or K3 (``"dist_q_1d_planes"``, ``dtype`` of the outputs) makes for
+    ``batch`` sequences of ``n`` elements on a CUDA ``device``."""
+    dev = torch.device("cuda", device) if isinstance(device, int) else torch.device(device)
+    grid, bps, threads, tile, _ = _scan_shape(_SCAN_KERNELS[name, dtype], dev.index or 0,
+                                              batch, n)
+    return {"grid": grid, "blocks_per_sequence": bps, "threads_per_block": threads,
+            "tile": tile}
+
+
 def _riccati_forward(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     if kd.device.type == "cpu":
         return riccati_d_sweep_plain(kd, b2)
@@ -309,9 +365,13 @@ def _linrec_forward(t: torch.Tensor, c: torch.Tensor, x0: torch.Tensor, reverse:
     if out.numel():
         lib = _lib()
         fn = lib.vidp_linrec_f64 if t.dtype == torch.float64 else lib.vidp_linrec_f32
+        batch, n = _batch(t), t.shape[-1]
+        grid, *_, per_block = _scan_shape(_SCAN_KERNELS["linear_recurrence", t.dtype],
+                                          t.device.index, batch, n)
+        agg = torch.empty(grid * per_block, dtype=t.dtype, device=t.device)
         with torch.cuda.device(t.device):
             _launch("linear_recurrence", fn, _ptr(t), _ptr(c), _ptr(x0), _ptr(out),
-                    _batch(t), t.shape[-1], int(reverse))
+                    _ptr(agg), batch, n, int(reverse))
         linear_recurrence.launches += 1
     return out
 
@@ -369,12 +429,16 @@ def _dist_q_forward(nat1, nat2d, nat2s, out_dtype):
     if nat1.device.type == "cpu":
         return dist_q_1d_planes_plain(nat1, nat2d, nat2s, out_dtype)
     n = nat1.shape[-1]
-    scratch = torch.empty((6,) + nat1.shape, dtype=torch.float64, device=nat1.device)
     covs, a, w, means, varis = (
         torch.empty(nat1.shape, dtype=out_dtype, device=nat1.device) for _ in range(5)
     )
     batch = _batch(nat1)
     if batch:
+        # u, covs and w in f64, then the blocks' aggregate maps
+        grid, *_, per_block = _scan_shape(_SCAN_KERNELS["dist_q_1d_planes", out_dtype],
+                                          nat1.device.index, batch, n)
+        scratch = torch.empty(3 * batch * n + grid * per_block, dtype=torch.float64,
+                              device=nat1.device)
         lib = _lib()
         fn = lib.vidp_dist_q_1d_f64 if out_dtype == torch.float64 else lib.vidp_dist_q_1d_f32
         with torch.cuda.device(nat1.device):
