@@ -8,11 +8,13 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
 2. build: compiles the CUDA kernels from ``vi_diffusion_processes_tpu_torch/csrc``
    and prints ptxas's register counts;
 3. kernels: K1, K2, K3 and K4 against their plain PyTorch versions on the
-   card, K2 and K3 also at their edge sizes (N = 2, a last tile one element
-   long, a batch of 8); each kernel's host-clock median over 20 calls
-   and its device time per launch from ``torch.profiler`` (which must count
-   one launch per call); the grid, blocks per sequence and threads per
-   block that K2 and K3 take at T = 100,000;
+   card, also at their edge sizes (N = 1 for the sweeps, N = 2, a last tile
+   or window one element long, N = 1,048,577, a batch of 8), and K4 on a
+   near-parabolic case against the float64 recursion; each kernel's
+   host-clock median over 20 calls and its device time per launch from
+   ``torch.profiler`` (which must count one launch per call); the grid,
+   blocks per sequence and threads per block that each kernel takes at
+   T = 100,000, where every one must spread the sequence over several blocks;
 4. adjoints: the backward passes of K1, K2, K3 and K4 at T = 100,000 against
    autograd through the plain versions on the card; each must launch K2;
 5. main path: ``bench.py``'s flagship model (double-well SDE, T = 100,000,
@@ -153,11 +155,13 @@ def _sequential_sweep(kd, b2):
 
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version; returns {name: record}."""
+    from vi_diffusion_processes_tpu_torch.ops import cuda_riccati
     from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
     from vi_diffusion_processes_tpu_torch.ops.btd import dist_q_1d_core
     from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import (
         riccati_d_sweep_f32,
         riccati_d_sweep_f32_plain,
+        window_shape,
     )
 
     n = T_FLAGSHIP
@@ -172,38 +176,51 @@ def phase_kernels(dev) -> dict:
         "dist_q_1d_planes": {"err": 0.0, "bound": bound_ms(3 * 8 * n + 5 * 4 * n, 12 * n, f64)},
         "riccati_d_sweep_f32": {"err": 0.0, "bound": bound_ms(3 * 4 * n, 2 * n, f32)},
     }
-    for n in (T_FLAGSHIP, 4097):
-        kd, b2, *_ = (torch.tensor(x, device=dev) for x in _inputs(n, 0))
+    # the main sizes, then the edges of the tiling and the windows: N = 2, a
+    # last tile (K1-K3) or window (K4) one element long, a batch of 8, and
+    # for the sweeps N = 1, where D = kd
+    ragged = 195 * cs.TILE + 1
+    ragged_window = next(m for m in range(T_FLAGSHIP, 0, -1)
+                         if (m - 1) % window_shape(m)[1] == 0)
+    cases = [(n, 1) for n in (T_FLAGSHIP, 4097, 1_048_577, 2, ragged)] + [(ragged, 8)]
+    for n, batch in cases + [(1, 1), (ragged_window, 1), (ragged_window, 8)]:
+        kd, b2 = (torch.tensor(x, device=dev).reshape(batch, n)
+                  for x in _inputs(n * batch, 0)[:2])
+        b2[:, -1] = 0.0
         got, ref = cs.riccati_d_sweep(kd, b2), cs.riccati_d_sweep_plain(kd, b2)
         err = float((got - ref).abs().max())
         rel = float(((got - ref).abs() / ref.abs()).max())
-        log(f"[K1] n={n} f64 max_abs_err={err:.3e} max_rel_err={rel:.3e} (rtol 1e-10)")
+        log(f"[K1] n={n} batch={batch} f64 max_abs_err={err:.3e} max_rel_err={rel:.3e} "
+            f"(rtol 1e-10)")
         if not rel <= 1e-10:
             raise AssertionError("K1 disagrees with its plain version")
         result["riccati_d_sweep"]["err"] = max(result["riccati_d_sweep"]["err"], err)
-        if n == T_FLAGSHIP:
-            rec = result["riccati_d_sweep"]
-            rec["ms"] = median_ms(lambda: cs.riccati_d_sweep(kd, b2))
-            rec["device_ms"] = device_ms(lambda: cs.riccati_d_sweep(kd, b2), "riccati_kernel")
-            rec["plain_ms"] = median_ms(lambda: cs.riccati_d_sweep_plain(kd, b2))
-        # K4 on the same inputs in float32: against its plain version to
-        # rtol 1e-4; then on the parabolic case, where float32 is at its
-        # limit, both against the float64 sequential recursion to rtol 2e-3
-        # (test_pallas_riccati.py:25-36)
-        kd4, b24 = kd.float(), b2.float()
-        got, ref = riccati_d_sweep_f32(kd4, b24), riccati_d_sweep_f32_plain(kd4, b24)
+        # K4 on the same inputs in float32, against its plain version with
+        # the kernel's windows to rtol 1e-4
+        kd4, b24, windows = kd.float(), b2.float(), window_shape(n)
+        got = riccati_d_sweep_f32(kd4, b24)
+        ref = riccati_d_sweep_f32_plain(kd4, b24, windows=windows)
         rel = float(((got - ref).abs() / ref.abs()).max())
-        log(f"[K4] n={n} f32 max_abs_err={float((got - ref).abs().max()):.3e} "
-            f"max_rel_err={rel:.3e} (rtol 1e-4)")
+        log(f"[K4] n={n} batch={batch} f32 windows={windows} "
+            f"max_abs_err={float((got - ref).abs().max()):.3e} max_rel_err={rel:.3e} (rtol 1e-4)")
         if not rel <= 1e-4:
             raise AssertionError("K4 disagrees with its plain version")
         rec = result["riccati_d_sweep_f32"]
         rec["err"] = max(rec["err"], float((got - ref).abs().max()))
-        if n == T_FLAGSHIP:
+        if (n, batch) == (T_FLAGSHIP, 1):
+            kd, b2, kd4, b24 = kd[0], b2[0], kd4[0], b24[0]
             rec["ms"] = median_ms(lambda: riccati_d_sweep_f32(kd4, b24))
             rec["device_ms"] = device_ms(lambda: riccati_d_sweep_f32(kd4, b24),
                                          "riccati_f32_kernel")
             rec["plain_ms"] = median_ms(lambda: riccati_d_sweep_f32_plain(kd4, b24))
+            rec = result["riccati_d_sweep"]
+            rec["ms"] = median_ms(lambda: cs.riccati_d_sweep(kd, b2))
+            rec["device_ms"] = device_ms(lambda: cs.riccati_d_sweep(kd, b2), "riccati_kernel")
+            rec["plain_ms"] = median_ms(lambda: cs.riccati_d_sweep_plain(kd, b2))
+    # K4 on the parabolic case, where float32 is at its limit: kernel and
+    # plain version against the float64 sequential recursion to rtol 2e-3,
+    # every pivot positive (test_pallas_riccati.py:25-36)
+    for n in (T_FLAGSHIP, 4097):
         kd_p, b2_p = _parabolic(n)
         oracle = _sequential_sweep(kd_p, b2_p)
         kd_p, b2_p = (torch.tensor(x, device=dev).float() for x in (kd_p, b2_p))
@@ -215,10 +232,7 @@ def phase_kernels(dev) -> dict:
         if not (rel_k <= 2e-3 and rel_p <= 2e-3 and bool((got > 0).all())):
             raise AssertionError("K4 is off the float64 recursion on the parabolic case")
 
-    # K2 and K3: the main sizes, then the edges of the tiling (N = 2, a last
-    # tile one element long, a batch of 8)
-    ragged = 195 * cs.TILE + 1
-    cases = [(n, 1) for n in (T_FLAGSHIP, 4097, 1_048_577, 2, ragged)] + [(ragged, 8)]
+    # K2 and K3 at the same sizes
     for n, batch in cases:
         _, _, t, c, *_ = _inputs(n * batch, 0)
         t, c = (torch.tensor(x, device=dev).reshape(batch, n) for x in (t, c))
@@ -271,14 +285,22 @@ def phase_kernels(dev) -> dict:
             rec["device_ms"] = device_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s),
                                          "dist_q_kernel")
             rec["plain_ms"] = median_ms(lambda: cs.dist_q_1d_planes_plain(nat1, nat2d, nat2s))
-    for name, dtype in (("linear_recurrence", torch.float64), ("linear_recurrence", torch.float32),
-                        ("dist_q_1d_planes", torch.float32)):
+    for name, dtype in (("riccati_d_sweep", torch.float64), ("linear_recurrence", torch.float64),
+                        ("linear_recurrence", torch.float32), ("dist_q_1d_planes", torch.float32)):
         shape = cs.launch_shape(name, dtype, 1, T_FLAGSHIP, dev)
         log(f"[launch] {name} ({str(dtype)[6:]}) batch 1 T={T_FLAGSHIP}: grid {shape['grid']}, "
             f"{shape['blocks_per_sequence']} blocks per sequence, {shape['threads_per_block']} "
             f"threads per block, tiles of {shape['tile']} elements")
         if not (shape["grid"] > 1 and shape["blocks_per_sequence"] > 1):
             raise AssertionError(f"{name} runs one sequence on one block")
+    shape = cuda_riccati.launch_shape(1, T_FLAGSHIP, dev)
+    log(f"[launch] riccati_d_sweep_f32 (float32) batch 1 T={T_FLAGSHIP}: grid {shape['grid']}, "
+        f"{shape['blocks_per_sequence']} blocks per sequence, {shape['threads_per_block']} "
+        f"threads per block, {shape['windows']} windows of {shape['window_length']} elements, "
+        f"{shape['windows_per_block']} a block in chunks of {shape['windows_per_chunk']}, "
+        f"{shape['shared_memory_bytes']} bytes of dynamic shared memory")
+    if not (shape["grid"] > 1 and shape["blocks_per_sequence"] > 1):
+        raise AssertionError("riccati_d_sweep_f32 runs one sequence on one block")
     for name, rec in result.items():
         log(f"[kernels] {name} T={T_FLAGSHIP}: kernel {rec['ms']:.4f} ms host clock, "
             f"{rec['device_ms']:.5f} ms device per launch, plain {rec['plain_ms']:.4f} ms "
@@ -466,9 +488,10 @@ def phase_trainer(dataset) -> None:
         raise AssertionError("posterior means not finite")
 
 
-def phase_prior_learning(dataset) -> None:
+def phase_prior_learning(dataset) -> list:
     """Drift learning through ``run_cvi_dp``; ``optimize_prior_sde`` is
-    wrapped here to time it and to count the launches inside it."""
+    wrapped here to time it and to count the launches inside it.  Returns
+    the milliseconds of each call."""
     from vi_diffusion_processes_tpu_torch import interop
     from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_cvi_dp
     from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
@@ -504,6 +527,7 @@ def phase_prior_learning(dataset) -> None:
             raise AssertionError(f"drift learning: {name} = {v} did not move from {start}")
     if not calls or any(c["linear_recurrence"] < 1 for _, c in calls):
         raise AssertionError("optimize_prior_sde did not launch K2")
+    return [ms for ms, _ in calls]
 
 
 def phase_x64_off(dev, card: str):

@@ -35,6 +35,6 @@ def test_importing_every_module_loads_no_jax():
 def test_no_source_file_names_jax(word):
     for root, _, files in os.walk(os.path.join(REPO, PKG)):
         for f in files:
-            if f.endswith((".py", ".cu")):
+            if f.endswith((".py", ".cu", ".cuh")):
                 with open(os.path.join(root, f), encoding="utf-8") as fh:
                     assert word not in fh.read(), os.path.join(root, f)

@@ -7,6 +7,9 @@ it, as the README says:
 
     python -m pytest tests/port/test_torch_kernels_cuda.py --confcutdir=tests/port -m cuda
 
+The sweeps K1 and K4 also run at N = 1, at a last window one element long,
+on runs larger than the shared memory and near the parabolic limit.
+
 Tolerances: f64 kernels to 1e-10 relative (pivots) or 1e-11 of the scale
 (recurrences), f32 recurrences to 2e-6 of the scale, the f32 pivot sweep K4
 to 1e-4 relative, and the f32 ``dist_q`` planes to the TPU kernel's
@@ -18,10 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+from vi_diffusion_processes_tpu_torch.ops import cuda_riccati
 from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import (
     riccati_d_sweep_f32,
     riccati_d_sweep_f32_plain,
+    window_shape,
 )
 
 from .helpers import affine_inputs, assert_close_scaled, naturals, riccati_inputs
@@ -30,10 +35,13 @@ pytestmark = pytest.mark.cuda
 
 SIZES = [4097, 100_000]
 NAMES = ["a", "b", "qv", "mu0", "p0v", "means", "vars"]
-#: K2's and K3's edges: the shortest sequences, one tile of 512 elements
+#: The tiled kernels' edges: the shortest sequences, one tile of 512 elements
 #: either side of full (1023 = 2 tiles, 1025 = 3 with one element in the
 #: last), a last tile one element long at T ~ 100k, and T ~ 1M
 EDGE_SIZES = [2, 3, 1023, 1025, 195 * cs.TILE + 1, 1_048_577]
+#: The sweeps' edges: N = 1 (D = kd) and, for K4, a last window one element
+#: long at T ~ 100k (99,876 = 425 windows of 235 and one element)
+SWEEP_EDGE_SIZES = [1] + EDGE_SIZES + [99_876]
 BATCHES = [1, 2, 8]
 
 
@@ -57,6 +65,88 @@ def test_riccati_f32_kernel_matches_plain(cuda_device, n):
     assert riccati_d_sweep_f32.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), riccati_d_sweep_f32_plain(kd, b2).cpu().numpy(),
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("n", SWEEP_EDGE_SIZES)
+def test_riccati_kernel_edge_sizes(cuda_device, n, batch):
+    kd, b2 = (torch.tensor(v, device=cuda_device)
+              for v in riccati_inputs(np.random.default_rng(n + batch), n, (batch,)))
+    before = cs.riccati_d_sweep.launches
+    got = cs.riccati_d_sweep(kd, b2)
+    assert cs.riccati_d_sweep.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), cs.riccati_d_sweep_plain(kd, b2).cpu().numpy(),
+                               rtol=1e-10)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("n", SWEEP_EDGE_SIZES)
+def test_riccati_f32_kernel_edge_sizes(cuda_device, n, batch):
+    kd, b2 = (torch.tensor(v, device=cuda_device, dtype=torch.float32)
+              for v in riccati_inputs(np.random.default_rng(n + batch), n, (batch,)))
+    before = riccati_d_sweep_f32.launches
+    got = riccati_d_sweep_f32(kd, b2)
+    assert riccati_d_sweep_f32.launches == before + 1
+    ref = riccati_d_sweep_f32_plain(kd, b2, windows=window_shape(n))
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("n, batch, windows", [
+    (100_000, 200, None),         # one block a sequence, its windows in several chunks
+    (1_048_577, 8, None),         # several blocks a sequence, each run in several chunks
+    (50_000, 1, (25, 2001)),      # long windows, one a block
+    (4097, 1, (4097 + 5, 1)),     # more windows than elements
+])
+def test_riccati_f32_kernel_chunked_runs_and_explicit_windows(cuda_device, n, batch, windows):
+    """The path that loads a block's run again for the exact recursion
+    (a run larger than the shared memory) and windows other than the
+    default, against the resident path or the plain version."""
+    kd, b2 = (torch.tensor(v, device=cuda_device, dtype=torch.float32)
+              for v in riccati_inputs(np.random.default_rng(n), n, (batch,)))
+    shape = cuda_riccati.launch_shape(batch, n, cuda_device, windows)
+    if windows is None:
+        assert shape["windows_per_chunk"] < shape["windows_per_block"]
+    got = cuda_riccati._forward(kd, b2, windows)
+    if batch > 8:  # the plain version is slow at this batch: one sequence alone is resident
+        ref = cuda_riccati._forward(kd[:1].contiguous(), b2[:1].contiguous(), windows)
+        got = got[:1]
+    else:
+        ref = riccati_d_sweep_f32_plain(kd, b2, windows=windows)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4)
+
+
+def test_riccati_f32_kernel_parabolic_case(cuda_device):
+    """Near the parabolic limit at T = 100,000: within 2e-3 of the float64
+    recursion, every pivot positive (test_pallas_riccati.py:25-36)."""
+    n, a, qinv = 100_000, 0.9996, 12500.0
+    kd = np.full(n, qinv * (1 + a * a))
+    kd[-1] = qinv
+    kd[50::500] += 25.0
+    b2 = np.concatenate([np.full(n - 1, (qinv * a) ** 2), [0.0]])
+    want = kd.copy()
+    for k in range(n - 2, -1, -1):
+        want[k] = kd[k] - b2[k] / want[k + 1]
+    got = riccati_d_sweep_f32(torch.tensor(kd, device=cuda_device, dtype=torch.float32),
+                              torch.tensor(b2, device=cuda_device, dtype=torch.float32))
+    assert bool((got > 0).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-3)
+
+
+def test_riccati_d_scalar_on_card_skips_the_b2_check(cuda_device):
+    """The port's own sweeps reach the kernels without the host-side read of
+    ``b2[..., -1]``; the public wrappers still raise."""
+    from vi_diffusion_processes_tpu_torch.ops.btd import riccati_d_scalar
+
+    for dtype, public in ((torch.float64, cs.riccati_d_sweep), (torch.float32, riccati_d_sweep_f32)):
+        kd, b2 = (torch.tensor(v, device=cuda_device, dtype=dtype)
+                  for v in riccati_inputs(np.random.default_rng(0), 4097))
+        bad = b2.clone()
+        bad[-1] = 0.5
+        before = public.launches
+        assert bool(torch.isfinite(riccati_d_scalar(kd, bad)).all())
+        assert public.launches == before + 1
+        with pytest.raises(ValueError, match="b2"):
+            public(kd, bad)
 
 
 def _adjoint_case(name, dev, n):
@@ -157,7 +247,20 @@ def test_dist_q_kernel_edge_sizes(cuda_device, out_dtype, n, batch):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=2e-4, atol=1e-6, err_msg=nm)
 
 
-@pytest.mark.parametrize("name, dtype", [("linear_recurrence", torch.float32),
+def test_riccati_f32_launch_shape_spreads_one_sequence(cuda_device):
+    """One sequence of 100,000 takes many blocks, its run resident in shared
+    memory; a batch too large for two blocks a sequence takes one block each."""
+    one = cuda_riccati.launch_shape(1, 100_000, cuda_device)
+    assert (one["windows"], one["window_length"]) == window_shape(100_000)
+    assert one["blocks_per_sequence"] > 1 and one["grid"] == one["blocks_per_sequence"]
+    assert one["windows_per_chunk"] == one["windows_per_block"]
+    assert one["blocks_per_sequence"] * one["windows_per_block"] >= one["windows"]
+    many = cuda_riccati.launch_shape(100_000, 100_000, cuda_device)
+    assert many["grid"] == 100_000 and many["blocks_per_sequence"] == 1
+
+
+@pytest.mark.parametrize("name, dtype", [("riccati_d_sweep", torch.float64),
+                                         ("linear_recurrence", torch.float32),
                                          ("linear_recurrence", torch.float64),
                                          ("dist_q_1d_planes", torch.float32),
                                          ("dist_q_1d_planes", torch.float64)])

@@ -3,9 +3,11 @@
 Two JAX references on the same numpy-seeded float32 inputs:
 ``ops/btd.py::riccati_d_scalar``, which on the CPU runs ``_riccati_d_xla``
 (windows of 512), and ``ops/pallas_riccati.py::riccati_d_sweep`` itself in
-interpret mode, as ``tests/unit/test_pallas_riccati.py`` runs it (the same
-windows as the port).  N stays at or below 5000: the interpret-mode kernel
-is unrolled over the window length.
+interpret mode, as ``tests/unit/test_pallas_riccati.py`` runs it.  The
+port's windows are its own (``window_shape``: ``l`` odd, near √(0.55·N));
+explicit shapes reach the edges of the kernel's decomposition.  N stays at
+or below 5000 against the interpret-mode kernel, which is unrolled over the
+window length.
 
 Tolerances are those of ``test_pallas_riccati.py``: rtol 2e-5 on easy
 inputs (:18-22), where both sides are float32 sweeps that differ only in
@@ -76,6 +78,51 @@ def test_plain_matches_the_pallas_kernel(rng, n):
     np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5)
 
 
+def _shape(n, kind):
+    """Window shapes ``(nb, l)`` that reach the edges of the kernel's
+    decomposition: one or two elements a window, more windows than elements
+    (``nb > N``, the trailing ones all padding), a last window one element
+    long behind empty ones, a few long windows, and the kernel's own rule."""
+    return {"one": (n, 1), "two": (-(-n // 2), 2), "more": (n + 37, 1),
+            "ragged": (-(-n // 7) + 3, 7),
+            "few": (3, -(-n // 3)), "rule": window_shape(n)}[kind]
+
+
+SHAPES = ["one", "two", "more", "ragged", "few", "rule"]
+
+
+@pytest.mark.parametrize("kind", SHAPES)
+@pytest.mark.parametrize("n", [1499, 5000])
+def test_plain_windows_match_jax(rng, n, kind):
+    """Every window shape gives the JAX package's float32 sweep (1499 = 7·214
+    + 1: with l = 7 the last real window holds one element)."""
+    kd, b2 = easy(rng, n)
+    ref = np.asarray(_jax_riccati(jnp.asarray(kd), jnp.asarray(b2)))
+    got = riccati_d_sweep_f32_plain(torch.tensor(kd), torch.tensor(b2), windows=_shape(n, kind))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_plain_tiny_sizes(rng, n):
+    """N = 1 gives D = kd; N = 2 and 3 the recursion written out."""
+    kd, b2 = easy(rng, n)
+    want = oracle(kd.astype(np.float64), b2.astype(np.float64))
+    for windows in (None, (1, n), (n, 1), (n + 2, 1), (2, 2)):
+        if windows is not None and windows[0] * windows[1] < n:
+            continue
+        got = riccati_d_sweep_f32_plain(torch.tensor(kd), torch.tensor(b2), windows=windows)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, err_msg=str(windows))
+    np.testing.assert_allclose(riccati_d_sweep_f32(torch.tensor(kd), torch.tensor(b2)).numpy(),
+                               want, rtol=2e-6)
+
+
+def test_plain_rejects_windows_that_do_not_cover(rng):
+    kd, b2 = (torch.tensor(v) for v in easy(rng, 100))
+    with pytest.raises(ValueError, match="windows"):
+        riccati_d_sweep_f32_plain(kd, b2, windows=(9, 11))
+
+
 def test_parabolic_case_stays_positive_and_accurate():
     kd, b2 = parabolic(5000)
     got = riccati_d_sweep_f32(torch.tensor(kd, dtype=torch.float32),
@@ -84,17 +131,51 @@ def test_parabolic_case_stays_positive_and_accurate():
     np.testing.assert_allclose(got.numpy(), oracle(kd, b2), rtol=2e-3)
 
 
+@pytest.mark.parametrize("kind", ["rule", "few", "two"])
+@pytest.mark.parametrize("n", [5000, 40_000])
+def test_parabolic_case_over_window_shapes(n, kind):
+    """Sequential order keeps every pivot positive and within 2e-3 of the
+    float64 recursion whatever the windows, also on a longer grid."""
+    kd, b2 = parabolic(n)
+    got = riccati_d_sweep_f32_plain(torch.tensor(kd, dtype=torch.float32),
+                                    torch.tensor(b2, dtype=torch.float32),
+                                    windows=_shape(n, kind))
+    assert bool((got > 0).all())
+    np.testing.assert_allclose(got.numpy(), oracle(kd, b2), rtol=2e-3)
+
+
 def test_dispatch_by_dtype_and_windows(rng):
-    """float32 sweeps go to K4, float64 to K1; the windows are the TPU's."""
+    """float32 sweeps go to K4, float64 to K1; the windows are the kernel's
+    own: l odd and near √(0.55·N), nb = ceil(N / l)."""
     kd, b2 = easy(rng, 600)
     got32 = riccati_d_scalar(torch.tensor(kd), torch.tensor(b2))
     got64 = riccati_d_scalar(torch.tensor(kd, dtype=torch.float64), torch.tensor(b2, dtype=torch.float64))
     torch.testing.assert_close(got32, riccati_d_sweep_f32_plain(torch.tensor(kd), torch.tensor(b2)))
     torch.testing.assert_close(got64, cs.riccati_d_sweep_plain(torch.tensor(kd, dtype=torch.float64),
                                                                torch.tensor(b2, dtype=torch.float64)))
-    assert window_shape(100_000) == (512, 196)
-    assert window_shape(1500) == (128, 12)
-    assert window_shape(40_000) == (256, 157)
+    assert window_shape(100_000) == (426, 235)
+    assert window_shape(1500) == (52, 29)
+    assert window_shape(40_000) == (269, 149)
+    for n in (1, 2, 3, 10, 4097, 1_048_577):
+        nb, l = window_shape(n)
+        assert l % 2 == 1 and (nb - 1) * l < n <= nb * l, n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_riccati_d_scalar_does_not_check_b2_on_the_host(rng, dtype):
+    """``ops/btd.py::riccati_d_scalar`` takes ``b2[..., N−1] = 0`` as its
+    contract and never reads it (on the card that would wait for the
+    device): it accepts what the public wrappers refuse."""
+    kd, b2 = (torch.tensor(v, dtype=dtype) for v in easy(rng, 300))
+    bad = b2.clone()
+    bad[-1] = 0.5
+    got = riccati_d_scalar(kd, bad)
+    assert got.shape == kd.shape and bool(torch.isfinite(got).all())
+    public = riccati_d_sweep_f32 if dtype == torch.float32 else cs.riccati_d_sweep
+    with pytest.raises(ValueError, match="b2"):
+        public(kd, bad)
+    # on a contract-abiding input both give the same pivots
+    torch.testing.assert_close(riccati_d_scalar(kd, b2), public(kd, b2), rtol=0, atol=0)
 
 
 def test_batched_and_checked(rng):

@@ -42,6 +42,21 @@ def test_riccati_plain_matches_jax(rng, n):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_riccati_plain_tiny_sizes(rng, n):
+    """N = 1 gives D = kd; N = 2 and 3 the recursion written out, whatever
+    the windows (the kernel's tile then holds one to three real elements)."""
+    kd, b2 = riccati_inputs(rng, n)
+    want = kd.copy()
+    for k in range(n - 2, -1, -1):
+        want[k] = kd[k] - b2[k] / want[k + 1]
+    for windows in (None, 1, n, n + 2):
+        got = cs.riccati_d_sweep_plain(torch.tensor(kd), torch.tensor(b2), windows=windows)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, err_msg=str(windows))
+    np.testing.assert_allclose(cs.riccati_d_sweep(torch.tensor(kd), torch.tensor(b2)).numpy(),
+                               want, rtol=1e-13)
+
+
 @pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("n", SIZES)

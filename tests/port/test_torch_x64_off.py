@@ -10,7 +10,7 @@ its own model on the JAX grid and observations.
 
 Tolerance: rtol 1e-3 of each channel's scale and of the ELBO.  Both sides
 run float32 sweeps with other windows (JAX's CPU path uses windows of 512,
-the port the TPU kernel's 128) and float32 quadratures.
+the port its own ``window_shape``: 61 windows of 33) and float32 quadratures.
 """
 import dataclasses
 

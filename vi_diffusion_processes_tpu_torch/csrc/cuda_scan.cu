@@ -14,13 +14,7 @@
 // not bytes.  At T = 100k every f64 plane is 0.8 MB, which the card streams in
 // well under a microsecond; the chain is T dependent divisions and FMAs.
 //
-// K1 runs one 1024-thread block per sequence: thread j composes the map of
-// its chunk [j*l, (j+1)*l), l = ceil(N/1024), a Hillis-Steele scan of the
-// 1024 maps in shared memory gives each chunk its boundary value, and each
-// thread re-runs its chunk exactly (the TPU kernel's phases A/B/C).  One SM
-// does the work; its redesign is later work.
-//
-// K2 and K3 spread one sequence over many SMs, in one launch:
+// All three spread one sequence over many SMs, in one launch:
 //   * the sequence is cut into tiles of kTile = 256 threads x kChunk = 2
 //     elements; thread j of a tile owns the contiguous pair [2j, 2j+2), so
 //     neighbouring threads touch neighbouring addresses and a warp's two
@@ -37,12 +31,14 @@
 //   * across blocks: when bps > 1 the kernel is a cooperative launch.  Each
 //     block publishes its run's aggregate map to a small global array, waits
 //     at cooperative_groups::this_grid().sync(), and one warp composes the
-//     aggregates of the blocks before it into its entry value.  K2 needs one
-//     such grid sync; K3 three (after the sweep R; after Z and V's
+//     aggregates of the blocks before it into its entry value.  K1 and K2
+//     need one such grid sync; K3 three (after the sweep R; after Z and V's
 //     aggregates; after M's).  When bps = 1 (large batch) the launch is an
 //     ordinary one with one block per sequence and no grid sync.
 // The sequential depth drops from N to a few tiles per block, each a pair
 // of dependent steps and two log-depth scans, plus the grid syncs.
+// K1 is K3's phase R alone, on (kd, b2) in place of the naturals: the two
+// share the pair loader, the pair's map and the entry pivot.
 // Everything is native f64 (Hopper has FP64 units), so the TPU's
 // double-float (hi, lo) f32 arithmetic is not carried over; K2's f32 scans
 // stay f32.  The Moebius maps are normalised after every product, which
@@ -54,81 +50,20 @@
 // outputs and scratch come from the caller, which sizes the aggregate
 // scratch with vidp_scan_shape.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
+#include "scan_launch.cuh"
 
 #include <algorithm>
-#include <map>
-#include <mutex>
-#include <utility>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
-
-// This thread's chunk [start, end) of a length-n sequence (K1).
-__device__ __forceinline__ void chunk_of(int n, int& start, int& end) {
-  const int l = (n + kThreads - 1) / kThreads;
-  start = min(static_cast<int>(threadIdx.x) * l, n);
-  end = min(start + l, n);
-}
+using vidp::Shape;
+using vidp::sync_sequence;
 
 // Diagonal preconditioner of the sweep: s = sqrt(b2), or |kd| where b2 = 0
 // (pallas_scan.py:359).  Any positive s leaves the algebra exact; it keeps
 // the Moebius maps O(1)-conditioned.
 __device__ __forceinline__ double precond(double kd, double b2) {
   return b2 > 0.0 ? sqrt(b2) : fabs(kd) + 1e-300;
-}
-
-// Phase B of K1: suffix scan of 2x2 Moebius maps (earlier window is the left
-// factor), normalised after every product.  Returns the pivot D_t entering
-// this thread's chunk from the right: the first-column ratio of the next
-// window's suffix map.  Past the last window the map is the identity, whose
-// ratio 1/0 is replaced by 1; b2 = 0 at the final element resets the
-// recursion there, so that placeholder never reaches a real pivot
-// (pallas_scan.py:312-321).  s holds 4*kThreads doubles.
-__device__ double mobius_entry(double w00, double w01, double w10, double w11,
-                               double* s) {
-  double* s00 = s;
-  double* s01 = s + kThreads;
-  double* s10 = s + 2 * kThreads;
-  double* s11 = s + 3 * kThreads;
-  const int j = threadIdx.x;
-  s00[j] = w00;
-  s01[j] = w01;
-  s10[j] = w10;
-  s11[j] = w11;
-  __syncthreads();
-  for (int sh = 1; sh < kThreads; sh <<= 1) {
-    const int src = j + sh;
-    const bool ok = src < kThreads;
-    const double p00 = ok ? s00[src] : 1.0;
-    const double p01 = ok ? s01[src] : 0.0;
-    const double p10 = ok ? s10[src] : 0.0;
-    const double p11 = ok ? s11[src] : 1.0;
-    __syncthreads();
-    const double n00 = w00 * p00 + w01 * p10;
-    const double n01 = w00 * p01 + w01 * p11;
-    const double n10 = w10 * p00 + w11 * p10;
-    const double n11 = w10 * p01 + w11 * p11;
-    const double r = rsqrt(n00 * n00 + n01 * n01 + n10 * n10 + n11 * n11 + 1e-300);
-    w00 = n00 * r;
-    w01 = n01 * r;
-    w10 = n10 * r;
-    w11 = n11 * r;
-    s00[j] = w00;
-    s01[j] = w01;
-    s10[j] = w10;
-    s11[j] = w11;
-    __syncthreads();
-  }
-  const bool has_next = j + 1 < kThreads;
-  const double t00 = has_next ? s00[j + 1] : 1.0;
-  const double t10 = has_next ? s10[j + 1] : 0.0;
-  __syncthreads();
-  return t10 == 0.0 ? 1.0 : t00 / t10;
 }
 
 // One element of the sweep: W <- M_i W, right to left, with
@@ -145,39 +80,7 @@ __device__ __forceinline__ void mobius_step(double kdt, double nb2t, double& w00
   w01 = p01 * r;
 }
 
-// ---------------------------------------------------------------- K1
-__global__ void __launch_bounds__(kThreads)
-riccati_kernel(const double* __restrict__ kd, const double* __restrict__ b2,
-               double* __restrict__ out, int n) {
-  __shared__ double smem[4 * kThreads];
-  const long long off = static_cast<long long>(blockIdx.x) * n;
-  kd += off;
-  b2 += off;
-  out += off;
-  int start, end;
-  chunk_of(n, start, end);
-
-  // A: the chunk's Moebius map
-  double w00 = 1.0, w01 = 0.0, w10 = 0.0, w11 = 1.0;
-  double s_next = end < n ? precond(kd[end], b2[end]) : 1.0;
-  for (int i = end - 1; i >= start; --i) {
-    const double si = precond(kd[i], b2[i]);
-    mobius_step(kd[i] / si, -b2[i] / (si * s_next), w00, w01, w10, w11);
-    s_next = si;
-  }
-  // B
-  double d = mobius_entry(w00, w01, w10, w11, smem);
-  // C: exact pivot recursion from the boundary value
-  s_next = end < n ? precond(kd[end], b2[end]) : 1.0;
-  for (int i = end - 1; i >= start; --i) {
-    const double si = precond(kd[i], b2[i]);
-    d = kd[i] / si - (b2[i] / (si * s_next)) / d;
-    out[i] = d * si;
-    s_next = si;
-  }
-}
-
-// ------------------------------------------- multi-block scans (K2, K3)
+// -------------------------------------------------- multi-block scans
 constexpr int kScanThreads = 256;
 constexpr int kWarps = kScanThreads / 32;
 constexpr int kChunk = 2;
@@ -306,16 +209,6 @@ __device__ M blocks_before(const M* agg, int stride, int bps, int blk, bool suff
   return r;
 }
 
-// Wait for every block of the launch (bps > 1: a cooperative launch) or of
-// the block (bps = 1); global writes before it are visible after it.
-__device__ __forceinline__ void sync_sequence(int bps) {
-  if (bps > 1) {
-    cg::this_grid().sync();
-  } else {
-    __syncthreads();
-  }
-}
-
 // The tiles [lo, hi) of block blk of bps, for a sequence of n elements.
 __device__ __forceinline__ void tiles_of(int n, int bps, int blk, int& lo, int& hi) {
   const int ntiles = (n + kTile - 1) / kTile;
@@ -399,42 +292,53 @@ linrec_kernel(const T* __restrict__ t, const T* __restrict__ c,
   }
 }
 
-// ---------------------------------------------------------------- K3
-// Phases R -> Z -> M, V of pallas_scan.py::_dist_q_kernel, in f64.
-// scratch is [3, B, n] f64 (u, covs, w) followed by one KAgg per block.
-struct KAgg {
-  Mob r;
-  Aff<double> z, v, m;
+// The pivot sweep's inputs at element i < n: kd, b2 and ks (K3's
+// superdiagonal, b2 = ks^2; K1 has none).
+struct SweepOfKdB2 {  // K1
+  const double* kd;
+  const double* b2;
+  __device__ __forceinline__ void at(int i, int, double& kd_i, double& b2_i, double& ks_i) const {
+    kd_i = kd[i];
+    b2_i = b2[i];
+    ks_i = 0.0;
+  }
+};
+struct SweepOfNaturals {  // K3: kd = -2*nat2d and ks = -nat2s, zero at the last element
+  const double* nat2d;
+  const double* nat2s;
+  __device__ __forceinline__ void at(int i, int n, double& kd_i, double& b2_i, double& ks_i) const {
+    ks_i = i < n - 1 ? -nat2s[i] : 0.0;
+    kd_i = -2.0 * nat2d[i];
+    b2_i = ks_i * ks_i;
+  }
 };
 
-// kd = -2*nat2d and ks = -nat2s, zero past the last element
-__device__ __forceinline__ double ks_at(const double* nat2s, int i, int n) {
-  return i < n - 1 ? -nat2s[i] : 0.0;
-}
-__device__ __forceinline__ double s_at(const double* nat2d, const double* nat2s, int i,
-                                       int n) {
+template <typename In>
+__device__ __forceinline__ double s_at(const In& in, int i, int n) {
   if (i >= n) return 1.0;
-  const double ks = ks_at(nat2s, i, n);
-  return precond(-2.0 * nat2d[i], ks * ks);
+  double kd, b2, ks;
+  in.at(i, n, kd, b2, ks);
+  return precond(kd, b2);
 }
 
 // The preconditioned sweep inputs of this thread's pair in tile `tile`,
 // right to left (k = 0 is the right element): kd~, -b2~, s, ks; s_after is
 // s of the element after the pair.  Elements past n are (1, 0, 1, 0).
-__device__ __forceinline__ void sweep_pair(const double* nat2d, const double* nat2s,
-                                           int tile, int n, double* kdt, double* nb2t,
-                                           double* s, double* ks, double& s_after) {
-  s_after = s_at(nat2d, nat2s, elem_at(tile, 0, true) + 1, n);
+template <typename In>
+__device__ __forceinline__ void sweep_pair(const In& in, int tile, int n, double* kdt,
+                                           double* nb2t, double* s, double* ks,
+                                           double& s_after) {
+  s_after = s_at(in, elem_at(tile, 0, true) + 1, n);
   double s_next = s_after;
 #pragma unroll
   for (int e = 0; e < kChunk; ++e) {
     const int i = elem_at(tile, e, true);
     if (i < n) {
-      ks[e] = ks_at(nat2s, i, n);
-      const double kd = -2.0 * nat2d[i];
-      s[e] = precond(kd, ks[e] * ks[e]);
+      double kd, b2;
+      in.at(i, n, kd, b2, ks[e]);
+      s[e] = precond(kd, b2);
       kdt[e] = kd / s[e];
-      nb2t[e] = -(ks[e] * ks[e]) / (s[e] * s_next);
+      nb2t[e] = -b2 / (s[e] * s_next);
       s_next = s[e];
     } else {
       kdt[e] = 1.0;
@@ -444,6 +348,91 @@ __device__ __forceinline__ void sweep_pair(const double* nat2d, const double* na
     }
   }
 }
+
+// The Moebius map of this thread's pair; pairs past n are the identity.
+__device__ __forceinline__ Mob pair_map(int tile, int n, const double* kdt,
+                                        const double* nb2t) {
+  Mob w = {1.0, 0.0, 0.0, 1.0};
+#pragma unroll
+  for (int e = 0; e < kChunk; ++e) {
+    if (elem_at(tile, e, true) < n) mobius_step(kdt[e], nb2t[e], w.w00, w.w01, w.w10, w.w11);
+  }
+  return w;
+}
+
+// The suffix Moebius map of the block's tiles [lo, hi): what the blocks to
+// its left need of it.  tot is a kWarps array in shared memory.
+template <typename In>
+__device__ Mob sweep_aggregate(const In& in, int lo, int hi, int n, Mob* tot) {
+  double kdt[kChunk], nb2t[kChunk], s[kChunk], ks[kChunk], s_after;
+  Mob mine = {1.0, 0.0, 0.0, 1.0};
+  for (int k = 0; k < hi - lo; ++k) {
+    const int tile = tile_at(lo, hi, k, true);
+    sweep_pair(in, tile, n, kdt, nb2t, s, ks, s_after);
+    mine = compose(mine, block_total(pair_map(tile, n, kdt, nb2t), true, tot));
+  }
+  return mine;
+}
+
+// The pivot D~ entering a pair: the first-column ratio of the map of
+// everything to its right.  With nothing there the map is the identity,
+// whose ratio 1/0 is replaced by 1; b2 = 0 at the final element resets the
+// recursion there, so that placeholder never reaches a real pivot
+// (pallas_scan.py:312-321).
+__device__ __forceinline__ double entry_pivot(Mob entry) {
+  return entry.w10 == 0.0 ? 1.0 : entry.w00 / entry.w10;
+}
+
+// ---------------------------------------------------------------- K1
+// agg holds one Mob per block (used when bps > 1).
+__global__ void __launch_bounds__(kScanThreads)
+riccati_kernel(const double* __restrict__ kd, const double* __restrict__ b2,
+               double* __restrict__ out, Mob* agg, int n, int bps) {
+  __shared__ Mob tot[kWarps];
+  __shared__ Mob slot;
+  const int seq = blockIdx.x / bps;
+  const int blk = blockIdx.x % bps;
+  const long long off = static_cast<long long>(seq) * n;
+  const SweepOfKdB2 in = {kd + off, b2 + off};
+  out += off;
+  int lo, hi;
+  tiles_of(n, bps, blk, lo, hi);
+
+  // the block's suffix map, published for the blocks to its left
+  Mob carry = {1.0, 0.0, 0.0, 1.0};
+  if (bps > 1) {
+    const Mob mine = sweep_aggregate(in, lo, hi, n, tot);
+    if (threadIdx.x == 0) agg[blockIdx.x] = mine;
+    sync_sequence(bps);
+    carry = blocks_before(agg + seq * bps, sizeof(Mob), bps, blk, true, &slot);
+  }
+
+  // the exact recursion of each pair from the pivot entering it
+  double kdt[kChunk], nb2t[kChunk], s[kChunk], ks[kChunk], s_after;
+  for (int k = 0; k < hi - lo; ++k) {
+    const int tile = tile_at(lo, hi, k, true);
+    sweep_pair(in, tile, n, kdt, nb2t, s, ks, s_after);
+    Mob excl, total;
+    block_scan(pair_map(tile, n, kdt, nb2t), true, tot, excl, total);
+    double d = entry_pivot(compose(carry, excl));
+    carry = compose(carry, total);
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = elem_at(tile, e, true);
+      if (i >= n) continue;
+      d = kdt[e] + nb2t[e] / d;
+      out[i] = d * s[e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K3
+// Phases R -> Z -> M, V of pallas_scan.py::_dist_q_kernel, in f64.
+// scratch is [3, B, n] f64 (u, covs, w) followed by one KAgg per block.
+struct KAgg {
+  Mob r;
+  Aff<double> z, v, m;
+};
 
 template <typename TO>
 __global__ void __launch_bounds__(kScanThreads)
@@ -480,19 +469,10 @@ dist_q_kernel(const double* __restrict__ nat1, const double* __restrict__ nat2d,
   double kdt[kChunk], nb2t[kChunk], s[kChunk], ks[kChunk], s_after;
 
   // R, aggregate: the block's suffix Moebius map
+  const SweepOfNaturals in = {nat2d, nat2s};
   Mob carry_r = mob_id;
   if (bps > 1) {
-    Mob mine = mob_id;
-    for (int k = 0; k < ntl; ++k) {
-      const int tile = tile_at(lo, hi, k, true);
-      sweep_pair(nat2d, nat2s, tile, n, kdt, nb2t, s, ks, s_after);
-      Mob w = mob_id;
-#pragma unroll
-      for (int e = 0; e < kChunk; ++e) {
-        if (elem_at(tile, e, true) < n) mobius_step(kdt[e], nb2t[e], w.w00, w.w01, w.w10, w.w11);
-      }
-      mine = compose(mine, block_total(w, true, tot_r));
-    }
+    const Mob mine = sweep_aggregate(in, lo, hi, n, tot_r);
     if (threadIdx.x == 0) agg[blockIdx.x].r = mine;
     sync_sequence(bps);
     carry_r = blocks_before(&agg_seq->r, sizeof(KAgg), bps, blk, true, &slot_r);
@@ -503,18 +483,10 @@ dist_q_kernel(const double* __restrict__ nat1, const double* __restrict__ nat2d,
   Aff<double> mine_z = aff_id, mine_v = aff_id;
   for (int k = 0; k < ntl; ++k) {
     const int tile = tile_at(lo, hi, k, true);
-    sweep_pair(nat2d, nat2s, tile, n, kdt, nb2t, s, ks, s_after);
-    Mob w = mob_id;
-#pragma unroll
-    for (int e = 0; e < kChunk; ++e) {
-      if (elem_at(tile, e, true) < n) mobius_step(kdt[e], nb2t[e], w.w00, w.w01, w.w10, w.w11);
-    }
+    sweep_pair(in, tile, n, kdt, nb2t, s, ks, s_after);
     Mob excl, total;
-    block_scan(w, true, tot_r, excl, total);
-    const Mob entry = compose(carry_r, excl);
-    // the pivot D~ entering the pair: the first-column ratio of the map of
-    // everything to its right; 1/0 (nothing there) is replaced by 1
-    double rec = 1.0 / (entry.w10 == 0.0 ? 1.0 : entry.w00 / entry.w10);
+    block_scan(pair_map(tile, n, kdt, nb2t), true, tot_r, excl, total);
+    double rec = 1.0 / entry_pivot(compose(carry_r, excl));
     carry_r = compose(carry_r, total);
     double s_next = s_after;
     Aff<double> mz = aff_id, mv = aff_id;
@@ -639,39 +611,12 @@ dist_q_kernel(const double* __restrict__ nat1, const double* __restrict__ nat2d,
 }
 
 // ------------------------------------------------------------ launching
-// Blocks of kScanThreads that fit on the current device at once for this
-// kernel: SM count times occupancy, queried once per (kernel, device).
-cudaError_t coresident_blocks(const void* kernel, int& out) {
-  static std::mutex mu;
-  static std::map<std::pair<const void*, int>, int> cache;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_pair(kernel, dev);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    out = it->second;
-    return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kScanThreads, 0);
-  if (err != cudaSuccess) return err;
-  out = cache[key] = sms * per_sm;
-  return cudaSuccess;
-}
-
-struct Shape {
-  int grid, bps;
-};
-
 // Blocks per sequence: as many as fit on the card beside the batch's other
 // sequences, at most one per tile; 1 (no grid sync) when fewer than 2 fit.
+// None of these kernels takes dynamic shared memory.
 cudaError_t plan(const void* kernel, int batch, int n, Shape& shape) {
   int cap = 0;
-  const cudaError_t err = coresident_blocks(kernel, cap);
+  const cudaError_t err = vidp::coresident_blocks(kernel, kScanThreads, 0, cap);
   if (err != cudaSuccess) return err;
   const int ntiles = (n + kTile - 1) / kTile;
   int bps = std::min(cap / std::max(batch, 1), ntiles);
@@ -680,16 +625,8 @@ cudaError_t plan(const void* kernel, int batch, int n, Shape& shape) {
   return cudaSuccess;
 }
 
-// An ordinary launch for bps = 1, a cooperative one otherwise; args are
-// pointers to the kernel's arguments in order.
 int launch(const void* kernel, Shape shape, void** args, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      shape.bps > 1
-          ? cudaLaunchCooperativeKernel(kernel, shape.grid, kScanThreads, args, 0, st)
-          : cudaLaunchKernel(kernel, shape.grid, kScanThreads, args, 0, st);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
+  return vidp::launch(kernel, shape, kScanThreads, 0, args, stream);
 }
 
 template <typename T>
@@ -722,6 +659,7 @@ const void* scan_kernel(int which) {
     case 1: return reinterpret_cast<const void*>(&linrec_kernel<double>);
     case 2: return reinterpret_cast<const void*>(&dist_q_kernel<float>);
     case 3: return reinterpret_cast<const void*>(&dist_q_kernel<double>);
+    case 4: return reinterpret_cast<const void*>(&riccati_kernel);
     default: return nullptr;
   }
 }
@@ -730,8 +668,8 @@ const void* scan_kernel(int which) {
 
 extern "C" {
 
-// The launch shape of K2 (which = 0 f32, 1 f64) or K3 (2 f32 out, 3 f64
-// out) for this batch and length on the current device: out[0] the grid,
+// The launch shape of K2 (which = 0 f32, 1 f64), K3 (2 f32 out, 3 f64 out)
+// or K1 (4) for this batch and length on the current device: out[0] the grid,
 // out[1] blocks per sequence, out[2] threads per block, out[3] elements per
 // tile, out[4] doubles of aggregate scratch per block.
 int vidp_scan_shape(int which, int batch, int n, int* out) {
@@ -744,15 +682,20 @@ int vidp_scan_shape(int which, int batch, int n, int* out) {
   out[1] = shape.bps;
   out[2] = kScanThreads;
   out[3] = kTile;
-  out[4] = which < 2 ? 2 : static_cast<int>(sizeof(KAgg) / sizeof(double));
+  out[4] = static_cast<int>((which < 2 ? sizeof(Aff<double>) : which == 4 ? sizeof(Mob) : sizeof(KAgg)) /
+                            sizeof(double));
   return 0;
 }
 
-int vidp_riccati_f64(const double* kd, const double* b2, double* out, int batch,
-                     int n, void* stream) {
-  riccati_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      kd, b2, out, n);
-  return static_cast<int>(cudaGetLastError());
+int vidp_riccati_f64(const double* kd, const double* b2, double* out, double* agg,
+                     int batch, int n, void* stream) {
+  const void* kernel = reinterpret_cast<const void*>(&riccati_kernel);
+  Shape shape;
+  const cudaError_t err = plan(kernel, batch, n, shape);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Mob* a = reinterpret_cast<Mob*>(agg);
+  void* args[] = {&kd, &b2, &out, &a, &n, &shape.bps};
+  return launch(kernel, shape, args, stream);
 }
 
 int vidp_linrec_f64(const double* t, const double* c, const double* x0,

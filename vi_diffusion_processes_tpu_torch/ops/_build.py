@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``, sharing ``csrc/*.cuh``).
 
 The sources are compiled at first use with ``nvcc``, one process per
 source started together, and linked into a shared library with a plain C
@@ -33,8 +33,9 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 #: argtypes of every launcher in csrc/*.cu; each returns a cudaError_t
 _SIGNATURES = {
-    "vidp_riccati_f64": [_vp, _vp, _vp, _int, _int, _vp],
-    "vidp_riccati_f32": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
+    "vidp_riccati_f64": [_vp, _vp, _vp, _vp, _int, _int, _vp],
+    "vidp_riccati_f32": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
+    "vidp_riccati_f32_shape": [_int, _int, _int, _vp],
     "vidp_scan_shape": [_int, _int, _int, _vp],
     "vidp_linrec_f64": [_vp] * 5 + [_int, _int, _int, _vp],
     "vidp_linrec_f32": [_vp] * 5 + [_int, _int, _int, _vp],
@@ -72,7 +73,7 @@ def _sources():
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libvidp_kernels_{h.hexdigest()[:16]}.so"

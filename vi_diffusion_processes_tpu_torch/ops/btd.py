@@ -17,8 +17,8 @@ from typing import Tuple
 
 import torch
 
-from .cuda_riccati import riccati_d_sweep_f32
-from .cuda_scan import linear_recurrence, riccati_d_sweep
+from .cuda_riccati import _riccati_d_sweep_f32_unchecked
+from .cuda_scan import _riccati_d_sweep_unchecked, linear_recurrence
 
 __all__ = [
     "BTD",
@@ -44,10 +44,13 @@ def riccati_d_scalar(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
 
     float64 runs kernel K1 and float32 the sequential-order windowed sweep
     K4 (the x64-off configuration), on CUDA, or their plain versions on
-    the CPU."""
+    the CPU.  Contract: ``b2[..., N−1] = 0``, the structural zero that every
+    caller here builds in.  It is not checked (as in btd.py:672): reading it
+    on the host would wait for the device on every sweep.  The public
+    ``riccati_d_sweep`` and ``riccati_d_sweep_f32`` check it and raise."""
     if kd.dtype == torch.float32:
-        return riccati_d_sweep_f32(kd.contiguous(), b2.contiguous())
-    return riccati_d_sweep(kd.contiguous(), b2.contiguous())
+        return _riccati_d_sweep_f32_unchecked(kd.contiguous(), b2.contiguous())
+    return _riccati_d_sweep_unchecked(kd.contiguous(), b2.contiguous())
 
 
 def scalar_affine_all(t: torch.Tensor, c: torch.Tensor, x0, *, reverse: bool = False) -> torch.Tensor:

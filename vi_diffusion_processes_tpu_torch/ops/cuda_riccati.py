@@ -11,8 +11,13 @@ direction on fine grids and the pivots come out negative
 (``btd.py::btd_udu_parallel_1d``), so the sweep keeps sequential order:
 per-window maps composed right to left, a boundary pass that walks the
 window maps one after another, then the exact recursion in each window.
-The windows are the TPU kernel's: ``nb = 128·max(1, min(4, N // 16384))``
-of ``l = ceil(N / nb)`` elements.
+Which windows is free, and :func:`window_shape` picks them for the card:
+``nb`` windows of ``l`` elements with ``l`` odd (the kernel's walking
+threads, ``l`` words apart in shared memory, then hit different banks) and
+near ``√(WINDOW_RATIO·N)``, which keeps the dependent chain of ``2·l + nb``
+steps short.  The shape is a function of ``N`` alone, the same on every
+device; the kernel spreads the windows over the card's SMs itself
+(:func:`launch_shape`).
 
 The wrapper is a ``torch.autograd.Function`` whose backward is
 ``_riccati_bwd`` (:164-177): the forward affine recurrence of the adjoint
@@ -20,14 +25,18 @@ runs on K2 in float32, with ``D²`` clamped at 1e-30.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from .cuda_scan import (
     _batch,
     _blockify,
-    _check,
+    _check_last_b2,
+    _check_sweep,
     _launch,
     _lib,
     _ptr,
@@ -35,21 +44,32 @@ from .cuda_scan import (
     sweep_adjoint,
 )
 
-__all__ = ["riccati_d_sweep_f32", "riccati_d_sweep_f32_plain", "window_shape"]
+__all__ = ["riccati_d_sweep_f32", "riccati_d_sweep_f32_plain", "window_shape", "launch_shape"]
+
+#: ``l ≈ √(WINDOW_RATIO·N)``: the cost of a step of the boundary pass over
+#: that of a step of phase A plus one of phase C
+WINDOW_RATIO = 0.55
 
 
 def window_shape(n: int) -> Tuple[int, int]:
-    """``(nb, l)`` of ``pallas_riccati.py:126-127``."""
-    nb = 128 * max(1, min(4, n // (128 * 128)))
-    return nb, -(-n // nb)
+    """``(nb, l)`` that the kernel uses for ``n`` elements: ``l`` odd and near
+    ``√(WINDOW_RATIO·n)``, ``nb = ceil(n / l)``."""
+    l = max(1, round(math.sqrt(WINDOW_RATIO * n))) | 1
+    return max(1, -(-n // l)), l
 
 
-def riccati_d_sweep_f32_plain(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+def riccati_d_sweep_f32_plain(
+    kd: torch.Tensor, b2: torch.Tensor, *, windows: Optional[Tuple[int, int]] = None
+) -> torch.Tensor:
     """Plain PyTorch K4 over ``[..., N]``, in the input dtype: the windowed
     sweep of ``pallas_riccati.py::_riccati_fwd`` with its preconditioning
-    (``s = √b2``, else ``|kd| + 1e-30``) and a sequential boundary pass."""
+    (``s = √b2``, else ``|kd| + 1e-30``) and a sequential boundary pass.
+    ``windows = (nb, l)`` with ``nb·l ≥ N`` replaces :func:`window_shape`;
+    windows past the end are padded with ``kd~ = 1, b2~ = 0``."""
     n = kd.shape[-1]
-    nb, l = window_shape(n)
+    nb, l = window_shape(n) if windows is None else windows
+    if nb < 1 or l < 1 or nb * l < n:
+        raise ValueError(f"windows ({nb}, {l}) do not cover {n} elements")
     s = torch.where(b2 > 0, torch.sqrt(b2), torch.abs(kd) + 1e-30)
     s_next = torch.cat([s[..., 1:], torch.ones_like(s[..., :1])], dim=-1)
     kdb = _blockify(kd / s, nb, l, 1.0)
@@ -90,16 +110,41 @@ def riccati_d_sweep_f32_plain(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tenso
     return _unblockify(torch.stack(outs, dim=-1), n) * s
 
 
-def _forward(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=256)
+def _plan(device: int, batch: int, nb: int, l: int) -> Tuple[int, ...]:
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        err = _lib().vidp_riccati_f32_shape(batch, nb, l, out)
+    if err != 0:
+        raise RuntimeError(f"vidp_riccati_f32_shape failed with cudaError_t {err}")
+    return tuple(out)
+
+
+def launch_shape(batch: int, n: int, device=0, windows: Optional[Tuple[int, int]] = None) -> dict:
+    """The launch that K4 makes for ``batch`` sequences of ``n`` elements on a
+    CUDA ``device``: the windows, the grid and how a block's windows are
+    cut into chunks of shared memory (one chunk: the run stays resident)."""
+    dev = torch.device("cuda", device) if isinstance(device, int) else torch.device(device)
+    nb, l = window_shape(n) if windows is None else windows
+    grid, bps, threads, per_block, per_chunk, smem = _plan(dev.index or 0, batch, nb, l)
+    return {"windows": nb, "window_length": l, "grid": grid, "blocks_per_sequence": bps,
+            "threads_per_block": threads, "windows_per_block": per_block,
+            "windows_per_chunk": per_chunk, "shared_memory_bytes": smem}
+
+
+def _forward(kd: torch.Tensor, b2: torch.Tensor,
+             windows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     if kd.device.type == "cpu":
-        return riccati_d_sweep_f32_plain(kd, b2)
+        return riccati_d_sweep_f32_plain(kd, b2, windows=windows)
     out = torch.empty_like(kd)
     if out.numel():
-        n = kd.shape[-1]
-        nb, l = window_shape(n)
+        batch, n = _batch(kd), kd.shape[-1]
+        nb, l = window_shape(n) if windows is None else windows
+        # the windows' maps (4 floats each), then their entry pairs (2)
+        scratch = torch.empty(6 * batch * nb, dtype=kd.dtype, device=kd.device)
         with torch.cuda.device(kd.device):
             _launch("riccati_d_sweep_f32", _lib().vidp_riccati_f32, _ptr(kd), _ptr(b2),
-                    _ptr(out), _batch(kd), n, nb, l)
+                    _ptr(out), _ptr(scratch), batch, n, nb, l)
         riccati_d_sweep_f32.launches += 1
     return out
 
@@ -119,15 +164,21 @@ class _RiccatiSweepF32(torch.autograd.Function):
         return sweep_adjoint(b2, d, g, 1e-30)
 
 
+def _riccati_d_sweep_f32_unchecked(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """:func:`riccati_d_sweep_f32` for callers that build ``b2`` with its
+    structural zero (``ops/btd.py``): ``b2[..., -1]`` is not read on the
+    host, so nothing waits for the device."""
+    _check_sweep("riccati_d_sweep_f32", kd, b2, torch.float32)
+    return _RiccatiSweepF32.apply(kd, b2)
+
+
 def riccati_d_sweep_f32(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """K4: ``D_k = kd_k − b2_k/D_{k+1}`` on f32 ``[..., N]`` with
-    ``b2[..., N−1] = 0``.  Kernel for CUDA tensors, plain version for CPU;
-    differentiable in ``kd`` and ``b2``."""
-    _check("riccati_d_sweep_f32", (kd, b2), (torch.float32,))
-    if kd.shape != b2.shape:
-        raise ValueError(f"riccati_d_sweep_f32: shapes {kd.shape} and {b2.shape}")
-    if kd.shape[-1] and bool(torch.any(b2[..., -1] != 0)):
-        raise ValueError("riccati_d_sweep_f32: b2[..., -1] must be 0")
+    ``b2[..., N−1] = 0`` (checked: raises ``ValueError`` otherwise).  Kernel
+    for CUDA tensors, plain version for CPU; differentiable in ``kd`` and
+    ``b2``."""
+    _check_sweep("riccati_d_sweep_f32", kd, b2, torch.float32)
+    _check_last_b2("riccati_d_sweep_f32", b2)
     return _RiccatiSweepF32.apply(kd, b2)
 
 

@@ -11,20 +11,16 @@ kernels, written by hand for Hopper in ``csrc/cuda_scan.cu``:
   (``_dist_q_kernel``): naturals → SSM params → marginals in one launch.
 
 What bounds them on the card is the latency of a sequential dependency
-chain, not bytes: at T = 100k an f64 plane is 0.8 MB.  Every kernel splits
-the chain into chunks: each thread composes its chunk's map, a scan of the
-maps gives every chunk its boundary value, and the chunk is re-run exactly
-from it (the TPU kernel's phases A/B/C).
-
-* K1 runs one 1024-thread block per sequence, chunks of ``ceil(N/1024)``,
-  and a Hillis–Steele scan in shared memory: one SM does the work.
-* K2 and K3 spread one sequence over many SMs in one launch: tiles of
-  256 threads × 2 contiguous elements (coalesced loads), warp-shuffle scans
-  inside a tile, and, when a sequence has several blocks, a cooperative
-  launch whose blocks exchange their aggregate maps across a grid sync
-  (one for K2, three for K3).  :func:`launch_shape` gives the grid the
-  launcher picks from the batch, the SM count and the kernel's occupancy;
-  at a batch too large for two blocks a sequence, it is one block each.
+chain, not bytes: at T = 100k an f64 plane is 0.8 MB.  All three spread one
+sequence over many SMs in one launch: tiles of 256 threads × 2 contiguous
+elements (coalesced loads), each thread composing its pair's map,
+warp-shuffle scans inside a tile and, when a sequence has several blocks, a
+cooperative launch whose blocks exchange their aggregate maps across a grid
+sync (one for K1 and K2, three for K3); the pair is then re-run exactly
+from its boundary value.  K1 is K3's pivot-sweep phase alone.
+:func:`launch_shape` gives the grid the launcher picks from the batch, the
+SM count and the kernel's occupancy; at a batch too large for two blocks a
+sequence, it is one block each.
 
 Each wrapper checks device, dtype, shape and contiguity, launches its kernel
 for CUDA tensors and calls the plain version for CPU tensors; it raises on
@@ -63,7 +59,7 @@ __all__ = [
     "launch_shape",
 ]
 
-#: threads per block of K1 = default windows of the plain versions
+#: default window count of the plain versions
 THREADS = 1024
 #: elements per tile of K2 and K3 (csrc/cuda_scan.cu: kTile)
 TILE = 512
@@ -267,17 +263,18 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
 
-#: kernel index of ``vidp_scan_shape``: (K2 f32, K2 f64, K3 f32 out, K3 f64 out)
+#: kernel index of ``vidp_scan_shape``: (K2 f32, K2 f64, K3 f32 out, K3 f64 out, K1)
 _SCAN_KERNELS = {("linear_recurrence", torch.float32): 0,
                  ("linear_recurrence", torch.float64): 1,
                  ("dist_q_1d_planes", torch.float32): 2,
-                 ("dist_q_1d_planes", torch.float64): 3}
+                 ("dist_q_1d_planes", torch.float64): 3,
+                 ("riccati_d_sweep", torch.float64): 4}
 
 
 @functools.lru_cache(maxsize=256)
 def _scan_shape(which: int, device: int, batch: int, n: int) -> Tuple[int, ...]:
-    """(grid, blocks per sequence, threads per block, tile, doubles of
-    aggregate scratch per block) that the launcher of K2 or K3 picks."""
+    """(grid, blocks per sequence, threads per block, tile, elements of
+    aggregate scratch per block) that the launcher of K1, K2 or K3 picks."""
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
         err = _lib().vidp_scan_shape(which, batch, n, out)
@@ -287,9 +284,10 @@ def _scan_shape(which: int, device: int, batch: int, n: int) -> Tuple[int, ...]:
 
 
 def launch_shape(name: str, dtype: torch.dtype, batch: int, n: int, device=0) -> dict:
-    """The launch that K2 (``name="linear_recurrence"``, ``dtype`` of the
-    data) or K3 (``"dist_q_1d_planes"``, ``dtype`` of the outputs) makes for
-    ``batch`` sequences of ``n`` elements on a CUDA ``device``."""
+    """The launch that K1 (``name="riccati_d_sweep"``, float64), K2
+    (``"linear_recurrence"``, ``dtype`` of the data) or K3
+    (``"dist_q_1d_planes"``, ``dtype`` of the outputs) makes for ``batch``
+    sequences of ``n`` elements on a CUDA ``device``."""
     dev = torch.device("cuda", device) if isinstance(device, int) else torch.device(device)
     grid, bps, threads, tile, _ = _scan_shape(_SCAN_KERNELS[name, dtype], dev.index or 0,
                                               batch, n)
@@ -302,9 +300,13 @@ def _riccati_forward(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
         return riccati_d_sweep_plain(kd, b2)
     out = torch.empty_like(kd)
     if out.numel():
+        batch, n = _batch(kd), kd.shape[-1]
+        grid, *_, per_block = _scan_shape(_SCAN_KERNELS["riccati_d_sweep", kd.dtype],
+                                          kd.device.index, batch, n)
+        agg = torch.empty(grid * per_block, dtype=kd.dtype, device=kd.device)
         with torch.cuda.device(kd.device):
             _launch("riccati_d_sweep", _lib().vidp_riccati_f64, _ptr(kd), _ptr(b2),
-                    _ptr(out), _batch(kd), kd.shape[-1])
+                    _ptr(out), _ptr(agg), batch, n)
         riccati_d_sweep.launches += 1
     return out
 
@@ -345,15 +347,34 @@ class _RiccatiSweep(torch.autograd.Function):
         return sweep_adjoint(b2, d, g, 1e-300)
 
 
+def _check_sweep(name: str, kd: torch.Tensor, b2: torch.Tensor, dtype: torch.dtype) -> None:
+    _check(name, (kd, b2), (dtype,))
+    if kd.shape != b2.shape:
+        raise ValueError(f"{name}: shapes {kd.shape} and {b2.shape}")
+
+
+def _check_last_b2(name: str, b2: torch.Tensor) -> None:
+    """Raise unless ``b2[..., -1] = 0``; on a CUDA tensor this waits for the
+    device."""
+    if b2.shape[-1] and bool(torch.any(b2[..., -1] != 0)):
+        raise ValueError(f"{name}: b2[..., -1] must be 0")
+
+
+def _riccati_d_sweep_unchecked(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """:func:`riccati_d_sweep` for callers that build ``b2`` with its
+    structural zero (``ops/btd.py``): ``b2[..., -1]`` is not read on the
+    host, so nothing waits for the device."""
+    _check_sweep("riccati_d_sweep", kd, b2, torch.float64)
+    return _RiccatiSweep.apply(kd, b2)
+
+
 def riccati_d_sweep(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """K1: ``D_k = kd_k − b2_k/D_{k+1}`` on f64 ``[..., N]`` with
-    ``b2[..., N−1] = 0``.  Kernel for CUDA tensors, plain version for CPU;
-    differentiable in ``kd`` and ``b2``."""
-    _check("riccati_d_sweep", (kd, b2), (torch.float64,))
-    if kd.shape != b2.shape:
-        raise ValueError(f"riccati_d_sweep: shapes {kd.shape} and {b2.shape}")
-    if kd.shape[-1] and bool(torch.any(b2[..., -1] != 0)):
-        raise ValueError("riccati_d_sweep: b2[..., -1] must be 0")
+    ``b2[..., N−1] = 0`` (checked: raises ``ValueError`` otherwise).  Kernel
+    for CUDA tensors, plain version for CPU; differentiable in ``kd`` and
+    ``b2``."""
+    _check_sweep("riccati_d_sweep", kd, b2, torch.float64)
+    _check_last_b2("riccati_d_sweep", b2)
     return _RiccatiSweep.apply(kd, b2)
 
 
