@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's d=1 CVI-DP trainer on one CUDA card.
+"""Drive the PyTorch port's d=1 CVI-DP and VDP paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -10,13 +10,17 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
 3. kernels: K1, K2, K3 and K4 against their plain PyTorch versions on the
    card, also at their edge sizes (N = 1 for the sweeps, N = 2, a last tile
    or window one element long, N = 1,048,577, a batch of 8), and K4 on a
-   near-parabolic case against the float64 recursion; each kernel's
+   near-parabolic case against the float64 recursion; K1, K3 and K4 on flat
+   chains of 8 rows (of 10,000 and of 512 elements) with zero couplings at
+   the row boundaries, against the plain versions row by row and against
+   the kernels' own ``[B, T]`` call; each kernel's
    host-clock median over 20 calls and its device time per launch from
    ``torch.profiler`` (which must count one launch per call); the grid,
    blocks per sequence and threads per block that each kernel takes at
    T = 100,000, where every one must spread the sequence over several blocks;
 4. adjoints: the backward passes of K1, K2, K3 and K4 at T = 100,000 against
    autograd through the plain versions on the card; each must launch K2;
+   the device time of one forward-plus-backward call (every kernel of it);
 5. main path: ``bench.py``'s flagship model (double-well SDE, T = 100,000,
    float32 model, float64 naturals) built with the port's API, then 32
    ``packed_natgrad_step`` calls; K3 must launch twice per step;
@@ -26,10 +30,22 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
    ``optimize_prior_sde`` must launch K2 and move ``q_mat``, ``scale``, ``c``;
 8. x64 off: the flagship with the float64 policy off, 32 packed steps that
    must launch K4 exactly twice per step and K3 never;
-9. reference: on a small float64 input the packed step and the prior
-   gradient on the card against the same on the CPU.
+9. batched: 8 flagship models at T = 10,000 (float32 model, float64
+   naturals), ``pack_state_batched``, 32 ``packed_natgrad_step_batched``:
+   K3 must launch exactly 64 times, at N = 80,000, and K4 never; row 0's
+   ELBO against the single-trajectory packed step on the same data;
+10. VDP: the double-well model of ``benchmarks/secondary.py:297-310``
+    (T = 100,000, float32), ``pack_vdp``, 32 ``packed_inference_step`` at lr
+    1e-6, which must launch K2 exactly 128 times; then ``run_vdp`` on the
+    same data under an OU prior (``VDPTrainer``, 5 warm-up steps, rate
+    0.01), which must move ``A`` and ``b`` and end on a finite ELBO;
+11. generic: ``CVISitesTrainer(use_packed=False)``, 3 inner iterations of the
+    generic update rules at T = 100,000, which must launch K1 and K2;
+12. reference: on small float64 inputs the packed step, the prior gradient,
+    the batched step (B = 3, T = 300) and three VDP steps (T = 500) on the
+    card against the same on the CPU.
 
-Launch counts are set to 0 just before each of phases 5-8 and read just
+Launch counts are set to 0 just before each of phases 5-11 and read just
 after.  The second-to-last line is a JSON object with each kernel's
 launches in those phases, its max error, times (host clock ``ms``, device
 ``device_ms``) and bound; the last line is
@@ -45,6 +61,8 @@ import numpy as np
 import torch
 
 T_FLAGSHIP = 100_000
+#: the batched configuration (benchmarks/secondary.py:246-286): trajectories, grid points each
+BATCH, T_BATCHED = 8, 10_000
 STEPS = 32
 LR = 0.3
 REPS = 20
@@ -87,6 +105,23 @@ def device_ms(fn, kernel: str, calls: int = REPS) -> float:
     if launches != calls:
         raise AssertionError(f"{kernel}: {launches} launches in {calls} calls, expected one each")
     return sum(e.self_device_time_total for e in events) / 1e3 / launches
+
+
+def device_call_ms(fn, calls: int = 5) -> float:
+    """Device time of every CUDA kernel that one call of ``fn`` launches,
+    summed, averaged over ``calls`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not total > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total / 1e3 / calls
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -285,6 +320,7 @@ def phase_kernels(dev) -> dict:
             rec["device_ms"] = device_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s),
                                          "dist_q_kernel")
             rec["plain_ms"] = median_ms(lambda: cs.dist_q_1d_planes_plain(nat1, nat2d, nat2s))
+    _interior_zeros(dev, result)
     for name, dtype in (("riccati_d_sweep", torch.float64), ("linear_recurrence", torch.float64),
                         ("linear_recurrence", torch.float32), ("dist_q_1d_planes", torch.float32)):
         shape = cs.launch_shape(name, dtype, 1, T_FLAGSHIP, dev)
@@ -306,6 +342,69 @@ def phase_kernels(dev) -> dict:
             f"{rec['device_ms']:.5f} ms device per launch, plain {rec['plain_ms']:.4f} ms "
             f"(median of {REPS}); bound {rec['bound'][0]:.6f} ms ({rec['bound'][1]})")
     return result
+
+
+def _interior_zeros(dev, result) -> None:
+    """K1, K4 and K3 on flat chains of B rows with zero couplings at the row
+    boundaries (the batched CVI-DP step's input), against the plain versions
+    row by row and against the kernels' own ``[B, T]`` call, whose rows are
+    separate sequences.  Rows of 512 put every boundary on a tile edge."""
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+    from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import (
+        riccati_d_sweep_f32,
+        riccati_d_sweep_f32_plain,
+    )
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+
+    names = ("a", "b", "qv", "mu0", "p0v", "means", "vars")
+    for batch, t_row in ((BATCH, T_BATCHED), (BATCH, cs.TILE)):
+        kd, b2 = (torch.tensor(x, device=dev).reshape(batch, t_row)
+                  for x in _inputs(batch * t_row, 5)[:2])
+        b2[:, -1] = 0.0
+        for label, key, kernel, plain, k, c, tol in (
+            ("K1", "riccati_d_sweep", cs.riccati_d_sweep, cs.riccati_d_sweep_plain, kd, b2, 1e-10),
+            ("K4", "riccati_d_sweep_f32", riccati_d_sweep_f32, riccati_d_sweep_f32_plain,
+             kd.float(), b2.float(), 1e-4),
+        ):
+            flat = kernel(k.reshape(-1), c.reshape(-1)).reshape(batch, t_row)
+            ref, rows = plain(k, c), kernel(k, c)
+            log(f"[{label}] interior zeros: {batch} rows of {t_row} as one chain, max_rel_err "
+                f"{rel(flat, ref):.3e} against the plain version row by row, {rel(flat, rows):.3e} "
+                f"against the [B, T] call (rtol {tol:g}); D = kd at the boundaries: "
+                f"{bool(torch.equal(flat[:, -1], k[:, -1]))}")
+            if not (rel(flat, ref) <= tol and rel(flat, rows) <= tol
+                    and torch.equal(flat[:, -1], k[:, -1])):
+                raise AssertionError(f"{label} does not decouple at interior zeros")
+            result[key]["err"] = max(result[key]["err"], float((flat - ref).abs().max()))
+
+        rows_in = [_inputs(t_row, 11 + r)[4:] for r in range(batch)]
+        nat1, nat2d, nat2s = (torch.tensor(np.stack(x), device=dev) for x in zip(*rows_in))
+        flat_sub = torch.nn.functional.pad(nat2s, (0, 1)).reshape(-1)[:-1].contiguous()
+        for out_dtype in (torch.float32, torch.float64):
+            a, b, qv, _, _, means, varis = cs.dist_q_1d_planes(
+                nat1.reshape(-1), nat2d.reshape(-1), flat_sub, out_dtype)
+
+            def rows_of(x):  # [B·T − 1] → [B, T − 1], the boundary slots dropped
+                return torch.cat([x, x.new_zeros(1)]).reshape(batch, t_row)[:, :-1]
+
+            means, varis = means.reshape(batch, t_row), varis.reshape(batch, t_row)
+            got = (rows_of(a), rows_of(b), rows_of(qv), means[:, 0], varis[:, 0], means, varis)
+            boundary_a = torch.cat([a, a.new_zeros(1)]).reshape(batch, t_row)[:-1, -1]
+            for label, fn in (("the [B, T] call", cs.dist_q_1d_planes),
+                              ("the plain version", cs.dist_q_1d_planes_plain)):
+                ref = fn(nat1, nat2d, nat2s, out_dtype)
+                err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                log(f"[K3] interior zeros: {batch} rows of {t_row} as one chain, "
+                    f"{str(out_dtype)[6:]} out, max_abs_err {err:.3e} against {label} "
+                    f"(rtol 2e-4, atol 1e-6)")
+                for nm, g, r in zip(names, got, ref):
+                    torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-6,
+                                               msg=f"K3 interior zeros {nm} vs {label}")
+                result["dist_q_1d_planes"]["err"] = max(result["dist_q_1d_planes"]["err"], err)
+            if not bool((boundary_a == 0).all()):
+                raise AssertionError("K3: a != 0 across a row boundary")
 
 
 def _vjp(fn, inputs, cotangent):
@@ -372,9 +471,11 @@ def phase_adjoints(dev) -> None:
             scale = float(rv.abs().max().clamp_min(1e-300))
             worst = max(worst, float((gv - rv).abs().max()) / scale)
         ms = median_ms(lambda: _vjp(fn, inputs, ct), 5)
+        dev_ms = device_call_ms(lambda: _vjp(fn, inputs, ct))
         plain_ms = median_ms(lambda: _vjp(plain, inputs, ct), 5)
         log(f"[adjoints] {name} T={n}: scaled_err={worst:.3e} (limit {tol:g}), K2 launches "
-            f"in backward {k2}; forward+backward {ms:.4f} ms, through the plain version "
+            f"in backward {k2}; forward+backward {ms:.4f} ms host clock, {dev_ms:.5f} ms of "
+            f"device time (every kernel of the call, mean of 5), through the plain version "
             f"{plain_ms:.4f} ms (median of 5); bound {bound[0]:.6f} ms ({bound[1]})")
         if not worst <= tol:
             raise AssertionError(f"{name} disagrees with autograd through the plain version")
@@ -382,20 +483,27 @@ def phase_adjoints(dev) -> None:
             raise AssertionError(f"{name}'s backward launched no K2")
 
 
-def flagship_model(t_size: int, dtype, dev):
-    """bench.py:30-69 with the port's API."""
+def flagship_observations(t_size: int, dtype, seed: int = 0):
+    """The grid on [0, 10], the observation indices and the observations
+    ``sign(sin 0.6t) + 0.2·N(0, 1)`` of bench.py:44-52, as numpy arrays."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    grid = np.linspace(0.0, 10.0, t_size).astype(np_dtype)
+    obs_idx = np.arange(50, t_size - 1, max(50, t_size // 200))
+    noise = np.random.default_rng(seed).normal(size=(len(obs_idx), 1))
+    obs_y = (np.sign(np.sin(0.6 * grid[obs_idx]))[:, None] + 0.2 * noise).astype(np_dtype)
+    return grid, obs_idx, obs_y
+
+
+def flagship_model(t_size: int, dtype, dev, seed: int = 0):
+    """bench.py:30-69 with the port's API; ``seed`` draws the observation
+    noise (0 is the benchmark's own)."""
     from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
     from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
     from vi_diffusion_processes_tpu_torch.sde.utils import Gaussian as GaussianState
     from vi_diffusion_processes_tpu_torch.sde.zoo import DoubleWellSDE
 
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    grid_np = np.linspace(0.0, 10.0, t_size).astype(np_dtype)
-    rng = np.random.default_rng(0)
-    obs_idx = np.arange(50, t_size - 1, max(50, t_size // 200))
+    grid_np, obs_idx, obs_y = flagship_observations(t_size, dtype, seed)
     obs_t = grid_np[obs_idx]
-    obs_y = (np.sign(np.sin(0.6 * obs_t))[:, None]
-             + 0.2 * rng.normal(size=(len(obs_idx), 1))).astype(np_dtype)
     grid = torch.tensor(grid_np, device=dev)
     model = CVISitesSDE.initialize(
         prior_ssm=None,
@@ -442,10 +550,11 @@ def _counted(phase, *args):
 
     torch.cuda.synchronize()
     cs.reset_launch_counts()
+    t0 = time.perf_counter()
     out = phase(*args)
     torch.cuda.synchronize()
     counts = cs.launch_counts()
-    log(f"[launches] {phase.__name__}: {json.dumps(counts)}")
+    log(f"[launches] {phase.__name__} ({time.perf_counter() - t0:.1f} s): {json.dumps(counts)}")
     return out, counts
 
 
@@ -454,11 +563,10 @@ def phase_main_path(dev, card: str):
     return model, obs_idx, obs_y, _packed_steps(model, "main", card)
 
 
-def flagship_dataset(model, obs_idx, obs_y, dev):
-    """The flagship's observations split 4:1 into train and test."""
+def flagship_dataset(grid, obs_idx, obs_y, dev):
+    """The flagship's observations on ``grid`` split 4:1 into train and test."""
     from vi_diffusion_processes_tpu_torch.exp.data import DPDataset
 
-    grid = model.time_grid
     test = torch.tensor(np.arange(len(obs_idx)) % 5 == 0, device=dev)
     y = torch.tensor(obs_y, device=dev)
     idx = torch.tensor(obs_idx, device=dev)
@@ -530,6 +638,176 @@ def phase_prior_learning(dataset) -> list:
     return [ms for ms, _ in calls]
 
 
+def phase_batched(dev, card: str):
+    """The batched configuration of benchmarks/secondary.py:246-286: BATCH
+    flagship models at T_BATCHED (row j's observation noise from seed j),
+    one flat chain of BATCH·T_BATCHED through K3 twice a step.  Returns row
+    0's model and the ELBOs ``[STEPS, BATCH]``."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed_batched import (
+        pack_state_batched,
+        packed_natgrad_step_batched,
+        unpack_state_batched,
+    )
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
+    models = [flagship_model(T_BATCHED, torch.float32, dev, seed=j)[0] for j in range(BATCH)]
+    state = pack_state_batched(models)
+    if state.p_nat1.dtype != torch.float64 or state.fx_mu.dtype != torch.float32:
+        raise AssertionError("batched: expected a float32 model with float64 naturals")
+    before = cs.launch_counts()
+    trace = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state, elbos = packed_natgrad_step_batched(models[0], state, LR)
+        trace.append(elbos)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = cs.launch_counts()
+    k3 = after["dist_q_1d_planes"] - before["dist_q_1d_planes"]
+    k4 = after["riccati_d_sweep_f32"] - before["riccati_d_sweep_f32"]
+    trace = torch.stack(trace).cpu()
+    log(f"[batched] {BATCH} x T={T_BATCHED} f32 model, {STEPS} packed_natgrad_step_batched"
+        f"(lr={LR}): ELBOs {trace[-1].tolist()!r}, {STEPS / seconds:.1f} steps/s "
+        f"({BATCH} trajectories each) on {card} (cold, information only); K3 launched {k3} "
+        f"times at N = {BATCH * T_BATCHED}, K4 {k4}")
+    if k3 != 2 * STEPS or k4 != 0:
+        raise AssertionError(f"batched: K3 launched {k3} times in {STEPS} steps (expected "
+                             f"{2 * STEPS}) and K4 {k4} (expected 0)")
+    if not bool(torch.isfinite(trace).all()):
+        raise AssertionError("batched: an ELBO is not finite")
+    restored = unpack_state_batched(models, state)
+    if not all(bool(torch.isfinite(m.fx_mus).all() and (m.fx_covs > 0).all()) for m in restored):
+        raise AssertionError("batched: an unpacked posterior path is not finite and positive")
+    return models[0], trace
+
+
+def check_batched_row(model, trace) -> None:
+    """Row 0 of the batched run against the single-trajectory packed step on
+    the same data.  The two differ in p's process variance (the batch takes
+    the grid's first step, the single path every step's own, which in a
+    float32 grid differ in the last digits) and in summation order, and the
+    converged ELBO is a small difference of large terms: after one step they
+    agree to 1e-5 relative, after all to 1e-5 of the ELBO's scale over the
+    run."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import pack_state, packed_natgrad_step
+
+    state = pack_state(model)
+    single = []
+    for _ in range(STEPS):
+        state, elbo = packed_natgrad_step(model, state, LR)
+        single.append(float(elbo))
+    row = trace[:, 0].double().numpy()
+    scale = float(np.max(np.abs(single)))
+    first, last = abs(row[0] / single[0] - 1.0), abs(row[-1] - single[-1]) / scale
+    log(f"[batched] row 0 against packed_natgrad_step on the same data: step 1 ELBO "
+        f"{row[0]!r} and {single[0]!r} (rel {first:.3e}, limit 1e-5); step {STEPS} "
+        f"{row[-1]!r} and {single[-1]!r} ({last:.3e} of the run's scale {scale:.4g}, limit 1e-5)")
+    if not (first <= 1e-5 and last <= 1e-5):
+        raise AssertionError("batched: row 0 disagrees with the single-trajectory packed step")
+
+
+def vdp_model(t_size: int, dtype, dev, stabilize: bool = False):
+    """benchmarks/secondary.py:297-310 with the port's API: the double well
+    under ``VariationalMarkovGP``, the flagship's observations."""
+    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu_torch.models.vdp import VariationalMarkovGP
+    from vi_diffusion_processes_tpu_torch.sde.zoo import DoubleWellSDE
+
+    grid, obs_idx, obs_y = flagship_observations(t_size, dtype)
+    model = VariationalMarkovGP.initialize(
+        (torch.tensor(grid[obs_idx], device=dev), torch.tensor(obs_y, device=dev)),
+        DoubleWellSDE(q=[[0.8]], dtype=dtype).to(dev),
+        torch.tensor(grid, device=dev),
+        Gaussian(0.04, dtype=dtype).to(dev),
+        stabilize=stabilize,
+    )
+    return model, obs_idx, obs_y
+
+
+def phase_vdp(dev, card: str) -> None:
+    """VDP at T = 100,000 in float32: the benchmark's packed steps at lr
+    1e-6, then ``run_vdp`` on the same data."""
+    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_vdp
+    from vi_diffusion_processes_tpu_torch.models.vdp_packed import (
+        pack_vdp,
+        packed_inference_step,
+        packed_vdp_elbo,
+    )
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
+    model, obs_idx, obs_y = vdp_model(T_FLAGSHIP, torch.float32, dev)
+    state = pack_vdp(model)
+    before = cs.linear_recurrence.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state = packed_inference_step(model, state, 1e-6)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k2 = cs.linear_recurrence.launches - before
+    elbo = float(packed_vdp_elbo(model, state))
+    log(f"[vdp] T={T_FLAGSHIP} f32, {STEPS} packed_inference_step(lr=1e-6): ELBO {elbo!r}, "
+        f"{STEPS / seconds:.1f} steps/s on {card} (cold, information only); K2 launched {k2} "
+        f"times at N = {T_FLAGSHIP - 1} (forward) and {T_FLAGSHIP - 2} (reverse)")
+    if k2 != 4 * STEPS:
+        raise AssertionError(f"vdp: K2 launched {k2} times in {STEPS} steps, expected {4 * STEPS}")
+    if cs.linear_recurrence.launches - before != 4 * STEPS + 2:
+        raise AssertionError("vdp: packed_vdp_elbo did not launch K2 twice")
+    if not (np.isfinite(elbo) and all(bool(torch.isfinite(getattr(state, k)).all())
+                                     for k in ("a", "b", "lam", "psi"))):
+        raise AssertionError("vdp: the packed state or its ELBO is not finite")
+
+    dataset = flagship_dataset(model.grid, obs_idx, obs_y, dev)
+    before = cs.linear_recurrence.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # an OU prior at rate 0.01: from A = b = 0 on these 160 observations the
+    # fixed-point iteration under the double-well prior diverges at every
+    # rate (in the JAX package too), while this one climbs for all 200 steps
+    out = run_vdp(ExperimentConfig(prior_sde="ou", prior_sde_kwargs={"decay": 1.0}, q=0.8,
+                                   vdp_lr=0.01, vdp_warmup_steps=5), dataset)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    trained = out["model"]
+    moved_a, moved_b = float(trained.A.abs().max()), float(trained.b.abs().max())
+    log(f"[vdp] run_vdp(OU prior, vdp_lr=0.01, 5 warm-up steps): ELBO {out['elbos']!r} nlpd {out['nlpd']!r} "
+        f"rmse {out['rmse']!r}, {seconds:.2f} s, K2 launches "
+        f"{cs.linear_recurrence.launches - before}, max|A| {moved_a:.4g}, max|b| {moved_b:.4g}")
+    if not (np.all(np.isfinite(out["elbos"])) and np.isfinite(out["nlpd"])):
+        raise AssertionError("run_vdp: ELBO or metrics not finite")
+    if not (moved_a > 0 and moved_b > 0 and bool(torch.isfinite(out["posterior_means"]).all())):
+        raise AssertionError("run_vdp: A and b did not move, or the posterior is not finite")
+    if cs.linear_recurrence.launches == before:
+        raise AssertionError("run_vdp did not launch K2")
+
+
+def phase_generic(dataset) -> None:
+    """The generic (unpacked) update rules through the trainer: every
+    refresh of the posterior path is ``dist_q.marginals()``, K1 and K2."""
+    from vi_diffusion_processes_tpu_torch.exp.data import build_prior_sde
+    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
+    from vi_diffusion_processes_tpu_torch.optim.trainers import CVISitesTrainer
+
+    dev = dataset.time_grid.device
+    model = CVISitesSDE.initialize_sde(
+        build_prior_sde("dw", q=0.8, device=dev), dataset.time_grid,
+        (dataset.obs_times, dataset.obs_values), Gaussian(dataset.noise_stddev**2).to(dev),
+    )
+    trainer = CVISitesTrainer(model, max_inner_iters=3, max_outer_iters=1, use_packed=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    elbos = trainer.optimize()
+    torch.cuda.synchronize()
+    log(f"[generic] CVISitesTrainer(use_packed=False) T={T_FLAGSHIP}, 3 inner iterations: "
+        f"ELBO trace {trainer.elbo_trace!r}, final {elbos!r}, {time.perf_counter() - t0:.2f} s")
+    if not (len(trainer.elbo_trace) >= 1 and np.all(np.isfinite(trainer.elbo_trace))):
+        raise AssertionError("generic: no accepted step, or an ELBO is not finite")
+    if not bool(torch.isfinite(trainer.model.fx_mus).all()):
+        raise AssertionError("generic: the posterior path is not finite")
+
+
 def phase_x64_off(dev, card: str):
     from vi_diffusion_processes_tpu_torch import config
 
@@ -575,9 +853,78 @@ def phase_reference(dev) -> None:
         raise AssertionError("the packed step on the card disagrees with the CPU")
     if not g_rel <= 1e-9:
         raise AssertionError("grad_ve_wrt_prior_params on the card disagrees with the CPU")
+    _reference_batched(dev)
+    _reference_vdp(dev)
+
+
+def _scaled_err(a, b) -> float:
+    b = b.double()
+    return float((a.double().cpu() - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def _reference_batched(dev) -> None:
+    """Three float64 batched steps (B = 3, T = 300, distinct p(x0) per row)
+    on the card against the CPU: rtol 1e-9."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed_batched import (
+        pack_state_batched,
+        packed_natgrad_step_batched,
+    )
+    from vi_diffusion_processes_tpu_torch.sde.utils import Gaussian
+
+    results = []
+    for device in (dev, torch.device("cpu")):
+        models = []
+        for j in range(3):
+            model = flagship_model(300, torch.float64, device, seed=j)[0]
+            p0 = Gaussian(mu=torch.full((1,), 0.1 * j, dtype=torch.float64, device=device),
+                          cov=torch.tensor([[0.8 + 0.1 * j]], dtype=torch.float64, device=device))
+            models.append(model.replace(prior_initial_state=p0).set_linearized_prior())
+        state = pack_state_batched(models)
+        for _ in range(3):
+            state, elbos = packed_natgrad_step_batched(models[0], state, LR)
+        results.append((elbos.cpu(), state))
+    (e_gpu, s_gpu), (e_cpu, s_cpu) = results
+    rel = float((e_gpu / e_cpu - 1.0).abs().max())
+    worst = max(_scaled_err(getattr(s_gpu, f), getattr(s_cpu, f))
+                for f in ("g_nat1", "g_nat2d", "g_nat2s", "d_nat1", "d_nat2", "fx_mu", "fx_var"))
+    log(f"[reference] batched B=3 T=300 f64, 3 steps: ELBOs card {e_gpu.tolist()!r} cpu "
+        f"{e_cpu.tolist()!r} rel {rel:.3e}; state scaled err {worst:.3e} (rtol 1e-9)")
+    if not (rel <= 1e-9 and worst <= 1e-9):
+        raise AssertionError("the batched step on the card disagrees with the CPU")
+
+
+def _reference_vdp(dev) -> None:
+    """Three float64 VDP steps (T = 500, with the stabilization's clips) on
+    the card against the CPU: rtol 1e-9."""
+    from vi_diffusion_processes_tpu_torch.models.vdp_packed import (
+        pack_vdp,
+        packed_inference_step,
+        packed_vdp_elbo,
+    )
+
+    rng = np.random.default_rng(3)
+    a0, b0 = rng.uniform(0.1, 0.8, size=(499, 1, 1)), rng.normal(0.0, 0.3, size=(499, 1))
+    results = []
+    for device in (dev, torch.device("cpu")):
+        model = vdp_model(500, torch.float64, device, stabilize=True)[0]
+        # a non-trivial (A, b), so that every term of the step is exercised
+        model = model.replace(A=torch.tensor(a0, device=device), b=torch.tensor(b0, device=device))
+        state = pack_vdp(model)
+        for _ in range(3):
+            state = packed_inference_step(model, state, 0.05, 0.02)
+        results.append((float(packed_vdp_elbo(model, state)), state))
+    (e_gpu, s_gpu), (e_cpu, s_cpu) = results
+    rel = abs(e_gpu / e_cpu - 1.0)
+    worst = max(_scaled_err(getattr(s_gpu, f), getattr(s_cpu, f))
+                for f in ("a", "b", "lam", "psi", "q0_mean", "q0_var"))
+    log(f"[reference] VDP T=500 f64, 3 steps: ELBO card {e_gpu!r} cpu {e_cpu!r} rel {rel:.3e}; "
+        f"state scaled err {worst:.3e} (rtol 1e-9)")
+    if not (rel <= 1e-9 and worst <= 1e-9):
+        raise AssertionError("the VDP step on the card disagrees with the CPU")
 
 
 def main() -> None:
+    started = time.perf_counter()
     card = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -590,7 +937,7 @@ def main() -> None:
     if main_counts["dist_q_1d_planes"] != 2 * STEPS:
         raise AssertionError(f"K3 launched {main_counts['dist_q_1d_planes']} times in "
                              f"{STEPS} steps, expected {2 * STEPS}")
-    dataset = flagship_dataset(model, obs_idx, obs_y, dev)
+    dataset = flagship_dataset(model.time_grid, obs_idx, obs_y, dev)
     _, trainer_counts = _counted(phase_trainer, dataset)
     for name in ("riccati_d_sweep", "linear_recurrence"):
         if trainer_counts[name] == 0:
@@ -604,12 +951,21 @@ def main() -> None:
         raise AssertionError(f"x64 off: K4 launched {x64_off_counts['riccati_d_sweep_f32']} "
                              f"times (expected {2 * STEPS}) and K3 "
                              f"{x64_off_counts['dist_q_1d_planes']} (expected 0)")
-    paths = (main_counts, trainer_counts, prior_counts, x64_off_counts)
+    (row_model, batched_trace), batched_counts = _counted(phase_batched, dev, card)
+    check_batched_row(row_model, batched_trace)
+    _, vdp_counts = _counted(phase_vdp, dev, card)
+    _, generic_counts = _counted(phase_generic, dataset)
+    for name in ("riccati_d_sweep", "linear_recurrence"):
+        if generic_counts[name] == 0:
+            raise AssertionError(f"{name} was not launched by the generic trainer")
+    paths = (main_counts, trainer_counts, prior_counts, x64_off_counts, batched_counts,
+             vdp_counts, generic_counts)
     launches = {name: sum(c[name] for c in paths) for name in kernels}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
     phase_reference(dev)
+    log(f"[time] {time.perf_counter() - started:.0f} s in all, the build included")
 
     csrc = "vi_diffusion_processes_tpu_torch/csrc/"
     pallas = "vi_diffusion_processes_tpu/ops/"

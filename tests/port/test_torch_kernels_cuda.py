@@ -305,3 +305,177 @@ def test_packed_step_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(e_card, e_cpu, rtol=1e-9)
     for name in ("g_nat1", "g_nat2d", "g_nat2s", "fx_mu", "fx_var"):
         assert_close_scaled(getattr(s_card, name).cpu(), getattr(s_cpu, name), 1e-9, err_msg=name)
+
+
+# Interior zeros: B rows laid end to end, with zero couplings at the row
+# boundaries, as the batched CVI-DP step gives them to the kernels.  A row
+# length of 512 puts every boundary on a tile edge of K1-K3.
+ROW_LENGTHS = [511, 512, 513, 10_000]
+ROW_BATCHES = [2, 8]
+
+
+@pytest.mark.parametrize("batch", ROW_BATCHES)
+@pytest.mark.parametrize("t_row", ROW_LENGTHS)
+def test_sweep_kernels_decouple_at_interior_zeros(cuda_device, t_row, batch):
+    """K1 (float64) and K4 (float32) on the flat chain against their plain
+    versions row by row and against the kernels' own ``[B, T]`` call."""
+    kd, b2 = (torch.tensor(v, device=cuda_device)
+              for v in riccati_inputs(np.random.default_rng(t_row + batch), t_row, (batch,)))
+    cases = ((cs.riccati_d_sweep, cs.riccati_d_sweep_plain, kd, b2, 1e-10),
+             (riccati_d_sweep_f32, riccati_d_sweep_f32_plain, kd.float(), b2.float(), 1e-4))
+    for kernel, plain, k, c, rtol in cases:
+        before = kernel.launches
+        flat = kernel(k.reshape(-1), c.reshape(-1)).reshape(batch, t_row)
+        assert kernel.launches == before + 1
+        assert torch.equal(flat[:, -1], k[:, -1])  # D = kd where b2 = 0
+        np.testing.assert_allclose(flat.cpu().numpy(), plain(k, c).cpu().numpy(), rtol=rtol)
+        np.testing.assert_allclose(flat.cpu().numpy(), kernel(k, c).cpu().numpy(), rtol=rtol)
+        # another row 1 moves no other row beyond rounding
+        k2 = k.clone()
+        k2[1] *= 1.1
+        moved = kernel(k2.reshape(-1), c.reshape(-1)).reshape(batch, t_row)
+        keep = [j for j in range(batch) if j != 1]
+        np.testing.assert_allclose(moved[keep].cpu().numpy(), flat[keep].cpu().numpy(),
+                                   rtol=1e-13 if k.dtype == torch.float64 else 1e-5)
+        assert not torch.allclose(moved[1], flat[1])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("batch", ROW_BATCHES)
+@pytest.mark.parametrize("t_row", ROW_LENGTHS)
+def test_dist_q_kernel_decouples_at_interior_zeros(cuda_device, t_row, batch, out_dtype):
+    """K3 on the flat chain ``[B·T]`` against its ``[B, T]`` call (one
+    sequence per row) and its plain version: every row restarts from its own
+    ``(mu0, P0)`` and ``a = 0`` across a boundary."""
+    nat1, nat2d, nat2s = (torch.tensor(v, device=cuda_device)
+                          for v in naturals(np.random.default_rng(t_row + batch), t_row, (batch,)))
+    flat_sub = torch.nn.functional.pad(nat2s, (0, 1)).reshape(-1)[:-1].contiguous()
+    before = cs.dist_q_1d_planes.launches
+    a, b, qv, _, _, means, varis = cs.dist_q_1d_planes(
+        nat1.reshape(-1), nat2d.reshape(-1), flat_sub, out_dtype)
+    assert cs.dist_q_1d_planes.launches == before + 1
+    pad = lambda x: torch.cat([x, x.new_zeros(1)]).reshape(batch, t_row)
+    assert bool((pad(a)[:-1, -1] == 0).all())
+    got = {"a": pad(a)[:, :-1], "b": pad(b)[:, :-1], "qv": pad(qv)[:, :-1],
+           "means": means.reshape(batch, t_row), "vars": varis.reshape(batch, t_row)}
+    got["mu0"], got["p0v"] = got["means"][:, 0], got["vars"][:, 0]
+    rtol = 1e-9 if out_dtype == torch.float64 else 2e-6
+    for label, fn in (("[B, T] call", cs.dist_q_1d_planes), ("plain", cs.dist_q_1d_planes_plain)):
+        ref = dict(zip(NAMES, fn(nat1, nat2d, nat2s, out_dtype)))
+        for name, g in got.items():
+            assert_close_scaled(g.cpu(), ref[name].cpu(), rtol, err_msg=f"{name} vs {label}")
+
+
+def _double_well_model(dev, n, seed, p_mu0=0.0, p_var0=0.8, dtype=torch.float64):
+    """A double-well CVI-DP model on [0, 10] with its own observations."""
+    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
+    from vi_diffusion_processes_tpu_torch.sde.utils import Gaussian as GaussianState
+    from vi_diffusion_processes_tpu_torch.sde.zoo import DoubleWellSDE
+
+    grid = np.linspace(0.0, 10.0, n)
+    idx = np.arange(7 + seed, n - 1, 13)
+    y = (np.sign(np.sin((0.6 + 0.2 * seed) * grid[idx]))[:, None]
+         + 0.2 * np.random.default_rng(seed).normal(size=(len(idx), 1)))
+    return CVISitesSDE.initialize(
+        prior_ssm=None, time_grid=torch.tensor(grid, device=dev, dtype=dtype),
+        input_data=(torch.tensor(grid[idx], device=dev, dtype=dtype),
+                    torch.tensor(y, device=dev, dtype=dtype)),
+        likelihood=Gaussian(0.04, dtype=dtype).to(dev),
+        prior_initial_state=GaussianState(torch.full((1,), p_mu0, dtype=dtype, device=dev),
+                                          torch.tensor([[p_var0]], dtype=dtype, device=dev)),
+        prior_sde=DoubleWellSDE(q=[[0.8]], dtype=dtype).to(dev),
+    ).set_linearized_prior()
+
+
+def test_batched_step_on_card_matches_cpu(cuda_device):
+    """Three float64 batched steps (B = 3, T = 512: the row boundaries on
+    tile edges) with K3 on the flat chain against the CPU."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed_batched import (
+        pack_state_batched,
+        packed_natgrad_step_batched,
+    )
+
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        models = [_double_well_model(dev, 512, j, 0.1 * j, 0.8 + 0.1 * j) for j in range(3)]
+        state = pack_state_batched(models)
+        before = cs.dist_q_1d_planes.launches
+        for _ in range(3):
+            state, elbos = packed_natgrad_step_batched(models[0], state, 0.3)
+        if dev.type == "cuda":
+            assert cs.dist_q_1d_planes.launches == before + 6
+        out.append((elbos.cpu(), state))
+    (e_card, s_card), (e_cpu, s_cpu) = out
+    np.testing.assert_allclose(e_card.numpy(), e_cpu.numpy(), rtol=1e-9)
+    for name in ("g_nat1", "g_nat2d", "g_nat2s", "d_nat1", "fx_mu", "fx_var"):
+        assert_close_scaled(getattr(s_card, name).cpu(), getattr(s_cpu, name), 1e-9, err_msg=name)
+
+
+def test_batched_step_with_x64_off_on_card_matches_cpu(cuda_device):
+    """float32 naturals: K4 and four float32 K2 launches per ``dist_q`` on a
+    flat chain whose windows cut the rows anywhere; against the CPU to 1e-3."""
+    from vi_diffusion_processes_tpu_torch import config
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed_batched import (
+        pack_state_batched,
+        packed_natgrad_step_batched,
+    )
+
+    out = []
+    with config.enable_x64(False):
+        for dev in (cuda_device, torch.device("cpu")):
+            models = [_double_well_model(dev, 513, j, dtype=torch.float32) for j in range(3)]
+            state = pack_state_batched(models)
+            assert state.p_nat1.dtype == torch.float32
+            before = riccati_d_sweep_f32.launches
+            for _ in range(2):
+                state, elbos = packed_natgrad_step_batched(models[0], state, 0.3)
+            if dev.type == "cuda":
+                assert riccati_d_sweep_f32.launches == before + 4
+            out.append((elbos.cpu(), state))
+    (e_card, s_card), (e_cpu, s_cpu) = out
+    np.testing.assert_allclose(e_card.numpy(), e_cpu.numpy(), rtol=1e-3)
+    for name in ("g_nat1", "g_nat2d", "fx_mu", "fx_var"):
+        assert_close_scaled(getattr(s_card, name).cpu(), getattr(s_cpu, name), 1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("stabilize", [False, True], ids=["plain", "stabilize"])
+def test_vdp_step_on_card_matches_cpu(cuda_device, stabilize):
+    """Three float64 VDP steps, packed (K2 four times a step) and generic,
+    against the CPU: association order is the only difference."""
+    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu_torch.models.vdp import VariationalMarkovGP
+    from vi_diffusion_processes_tpu_torch.models.vdp_packed import (
+        pack_vdp,
+        packed_inference_step,
+        packed_vdp_elbo,
+    )
+    from vi_diffusion_processes_tpu_torch.sde.zoo import DoubleWellSDE
+
+    n = 1025
+    rng = np.random.default_rng(3)
+    grid = np.linspace(0.0, 5.0, n)
+    idx = np.arange(20, n - 1, 37)
+    y = np.sign(np.sin(1.3 * grid[idx]))[:, None] + 0.2 * rng.normal(size=(len(idx), 1))
+    a0, b0 = rng.uniform(0.1, 0.8, size=(n - 1, 1, 1)), rng.normal(0.0, 0.3, size=(n - 1, 1))
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = VariationalMarkovGP.initialize(
+            (torch.tensor(grid[idx], device=dev), torch.tensor(y, device=dev)),
+            DoubleWellSDE(q=[[0.8]]).to(dev), torch.tensor(grid, device=dev),
+            Gaussian(0.04).to(dev), stabilize=stabilize,
+        ).replace(A=torch.tensor(a0, device=dev), b=torch.tensor(b0, device=dev))
+        state, generic = pack_vdp(model), model
+        before = cs.linear_recurrence.launches
+        for _ in range(3):
+            state = packed_inference_step(model, state, 0.05, 0.02)
+        if dev.type == "cuda":
+            assert cs.linear_recurrence.launches == before + 12
+        for _ in range(3):
+            generic = generic.inference_step(0.05, 0.02)
+        out.append((float(packed_vdp_elbo(model, state)), state, pack_vdp(generic)))
+    (e_card, s_card, g_card), (e_cpu, s_cpu, _) = out
+    np.testing.assert_allclose(e_card, e_cpu, rtol=1e-9)
+    for name in ("a", "b", "lam", "psi", "q0_mean", "q0_var"):
+        assert_close_scaled(getattr(s_card, name).cpu(), getattr(s_cpu, name), 1e-9, err_msg=name)
+        assert_close_scaled(getattr(g_card, name).cpu(), getattr(s_cpu, name), 1e-8, err_msg=name)

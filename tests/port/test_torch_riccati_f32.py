@@ -30,6 +30,8 @@ from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import (
     window_shape,
 )
 
+from .helpers import row_perturbation
+
 _jax_riccati = jax.jit(jax_riccati)
 
 
@@ -189,3 +191,32 @@ def test_batched_and_checked(rng):
         riccati_d_sweep_f32(kdb, torch.ones_like(b2b))
     with pytest.raises(TypeError):
         riccati_d_sweep_f32(kdb.double(), b2b.double())
+
+
+@pytest.mark.parametrize("kind", [None] + SHAPES)
+@pytest.mark.parametrize("t_row", [511, 512, 513])
+def test_plain_decouples_at_interior_zeros(rng, t_row, kind):
+    """B rows laid end to end are one chain with ``b2 = 0`` at the row
+    boundaries (the batched CVI-DP step with the float64 policy off): each
+    row of the flat sweep is the row's own sweep to float32 rounding
+    (rtol 2e-6), wherever the windows cut the rows, and a row swept earlier
+    does not move at all when a later one changes."""
+    b = 3
+    rows = [easy(rng, t_row) for _ in range(b)]
+    kd, b2 = (np.stack(x) for x in zip(*rows))
+    kd = kd + 0.3 * rng.random(kd.shape).astype(np.float32)
+    windows = None if kind is None else _shape(b * t_row, kind)
+    flat = lambda k: riccati_d_sweep_f32_plain(
+        torch.tensor(k).reshape(-1), torch.tensor(b2).reshape(-1), windows=windows
+    ).reshape(b, t_row)
+    got = flat(kd)
+    for j in range(b):
+        own = riccati_d_sweep_f32_plain(torch.tensor(kd[j]), torch.tensor(b2[j]))
+        np.testing.assert_allclose(got[j].numpy(), own.numpy(), rtol=2e-6)
+        np.testing.assert_allclose(got[j].numpy(), oracle(kd[j].astype(np.float64),
+                                                          b2[j].astype(np.float64)), rtol=2e-5)
+    assert torch.equal(got[:, -1], torch.tensor(kd[:, -1]))
+    moved = flat(row_perturbation(kd, 1).astype(np.float32))
+    assert torch.equal(moved[2], got[2])
+    np.testing.assert_allclose(moved[0].numpy(), got[0].numpy(), rtol=2e-6)
+    assert not torch.allclose(moved[1], got[1])

@@ -21,9 +21,16 @@ from vi_diffusion_processes_tpu.models.cvi_dp_packed import _dist_q_core as jax_
 from vi_diffusion_processes_tpu.ops.btd import riccati_d_scalar as jax_riccati
 from vi_diffusion_processes_tpu.ops.btd import scalar_affine_all as jax_affine
 from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+from vi_diffusion_processes_tpu_torch.ops.btd import dist_q_1d_core
 from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import riccati_d_sweep_f32
 
-from .helpers import affine_inputs, assert_close_scaled, naturals, riccati_inputs
+from .helpers import (
+    affine_inputs,
+    assert_close_scaled,
+    naturals,
+    riccati_inputs,
+    row_perturbation,
+)
 
 SIZES = [1500, 5000]  # both ragged against the 1024 windows
 NAMES = ["a", "b", "qv", "mu0", "p0v", "means", "vars"]
@@ -173,3 +180,98 @@ def test_cpu_tensors_never_count_a_launch(rng):
         "riccati_d_sweep": 0, "linear_recurrence": 0, "dist_q_1d_planes": 0,
         "riccati_d_sweep_f32": 0,
     }
+
+
+# Interior zeros: B independent rows laid end to end are one chain whose
+# couplings vanish at the B − 1 row boundaries (the batched CVI-DP step,
+# models/cvi_dp_packed_batched.py).  A boundary is a reset of the sweep: the
+# flat chain must give each row's own result, on a window edge (rows of 512)
+# and inside a window alike.  The row boundary's pivot is exact; the rows
+# before it see it through the composed window maps, so they agree with
+# their own run to a few ulps (rtol 1e-14), not bit for bit.
+ROWS = [511, 512, 513]
+FLAT_WINDOWS = [None] + WINDOWS
+
+
+def _flat_windows(n, kind):
+    return None if kind is None else _windows(n, kind)
+
+
+@pytest.mark.parametrize("windows", FLAT_WINDOWS)
+@pytest.mark.parametrize("t_row", ROWS)
+def test_riccati_plain_decouples_at_interior_zeros(rng, t_row, windows):
+    b = 3
+    kd, b2 = riccati_inputs(rng, t_row, (b,))
+    w = _flat_windows(b * t_row, windows)
+    flat = lambda k, c: cs.riccati_d_sweep_plain(
+        torch.tensor(k).reshape(-1), torch.tensor(c).reshape(-1), windows=w).reshape(b, t_row)
+    got = flat(kd, b2)
+    for j in range(b):
+        row = cs.riccati_d_sweep_plain(torch.tensor(kd[j]), torch.tensor(b2[j]))
+        np.testing.assert_allclose(got[j].numpy(), row.numpy(), rtol=1e-14)
+    assert torch.equal(got[:, -1], torch.tensor(kd[:, -1]))  # D = kd where b2 = 0
+    # row 1's inputs change: row 2, swept before it, is untouched bit for bit,
+    # and row 0 does not move beyond rounding
+    kd2, b22 = row_perturbation(kd, 1), row_perturbation(b2, 1)
+    moved = flat(kd2, b22)
+    assert torch.equal(moved[2], got[2])
+    np.testing.assert_allclose(moved[0].numpy(), got[0].numpy(), rtol=1e-14)
+    assert not torch.allclose(moved[1], got[1])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("t_row", ROWS)
+def test_dist_q_plain_decouples_at_interior_zeros(rng, t_row, out_dtype):
+    """K3's plain version and the K1 + K2 composition on the flat chain
+    against the ``[B, T]`` call, whose rows are separate sequences."""
+    b = 3
+    nat1, nat2d, nat2s = naturals(rng, t_row, (b,))
+    rtol = 1e-12 if out_dtype == torch.float64 else 2e-6
+
+    def flat(n1, n2d, n2s):
+        sub = np.pad(n2s, ((0, 0), (0, 1))).reshape(-1)[:-1]  # zeros at the row boundaries
+        return [torch.tensor(n1).reshape(-1), torch.tensor(n2d).reshape(-1), torch.tensor(sub)]
+
+    def rows_of(outs):
+        a, bb, qv, _, _, means, varis = outs
+        pad = lambda x: torch.cat([x, x.new_zeros(1)]).reshape(b, t_row)
+        return {"a": pad(a)[:, :-1], "b": pad(bb)[:, :-1], "qv": pad(qv)[:, :-1],
+                "means": means.reshape(b, t_row), "vars": varis.reshape(b, t_row),
+                # the first state of a row restarts from its own (mu0, P0)
+                "mu0": means.reshape(b, t_row)[:, 0], "p0v": varis.reshape(b, t_row)[:, 0],
+                "a_boundary": pad(a)[:-1, -1]}
+
+    batch = dict(zip(NAMES, cs.dist_q_1d_planes_plain(
+        torch.tensor(nat1), torch.tensor(nat2d), torch.tensor(nat2s), out_dtype)))
+    for label, fn in (("plain", cs.dist_q_1d_planes), ("core", dist_q_1d_core)):
+        got = rows_of(fn(*flat(nat1, nat2d, nat2s), out_dtype))
+        assert bool((got.pop("a_boundary") == 0).all()), label
+        for name, g in got.items():
+            assert_close_scaled(g.numpy(), batch[name].numpy(), rtol, err_msg=f"{label} {name}")
+        moved = rows_of(fn(*flat(row_perturbation(nat1, 1), row_perturbation(nat2d, 1), nat2s),
+                           out_dtype))
+        for name in ("means", "vars", "a", "b", "qv"):
+            for j in (0, 2):
+                assert_close_scaled(moved[name][j].numpy(), got[name][j].numpy(), rtol,
+                                    err_msg=f"{label} {name} row {j}")
+            assert not torch.allclose(moved["means"][1], got["means"][1])
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("windows", FLAT_WINDOWS)
+def test_linear_recurrence_plain_restarts_at_a_zero_coefficient(rng, windows, reverse):
+    """``t = 0`` inside the chain cuts it exactly: what follows does not
+    depend on what came before, bit for bit."""
+    n, cut = 1024, 512
+    t, c = affine_inputs(rng, n)
+    t[cut] = 0.0
+    w = _flat_windows(n, windows)
+    run = lambda tt, cc: cs.linear_recurrence_plain(torch.tensor(tt), torch.tensor(cc), 0.7,
+                                                    reverse, windows=w)
+    got = run(t, c)
+    t2, c2 = t.copy(), c.copy()
+    far = slice(cut + 1, None) if reverse else slice(0, cut)
+    t2[far], c2[far] = 0.5 * t[far], c[far] + 1.0
+    near = slice(0, cut + 1) if reverse else slice(cut, None)
+    assert torch.equal(run(t2, c2)[near], got[near])
+    assert float(got[cut]) == c[cut]

@@ -14,7 +14,10 @@ from tests.golden.generate import GOLDEN_PATH, SEED
 from vi_diffusion_processes_tpu.exp.runners import ExperimentConfig as JConfig
 from vi_diffusion_processes_tpu.exp.runners import make_dataset
 from vi_diffusion_processes_tpu_torch import interop
+from vi_diffusion_processes_tpu_torch.exp.data import build_prior_sde
 from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_cvi_dp
+from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
 from vi_diffusion_processes_tpu_torch.optim.trainers import CVISitesTrainer
 
 from .helpers import to_np
@@ -36,5 +39,22 @@ def test_run_cvi_dp_reproduces_golden_elbos():
 
 
 def test_trainer_refuses_routes_outside_the_slice():
-    with pytest.raises(NotImplementedError, match="slices B and E"):
-        CVISitesTrainer(model=None)
+    """``use_packed=False`` runs at d = 1; a d >= 2 model raises, naming
+    slice E."""
+    dataset = interop.dataset_from_numpy(
+        to_np(make_dataset(JConfig(**CONFIG, **dict(DATA, num_grid=201, num_observations=20)))),
+        device="cpu")
+    sde = build_prior_sde("dw", q=0.8, device="cpu")
+    model = CVISitesSDE.initialize_sde(
+        sde, dataset.time_grid, (dataset.obs_times, dataset.obs_values), Gaussian(0.04))
+    trainer = CVISitesTrainer(model, max_inner_iters=3, max_outer_iters=1, use_packed=False)
+    elbos = trainer.optimize()
+    assert len(elbos) == 1 and np.isfinite(elbos[0]) and len(trainer.elbo_trace) >= 1
+    packed = CVISitesTrainer(model, max_inner_iters=3, max_outer_iters=1)
+    np.testing.assert_allclose(packed.optimize(), elbos, rtol=1e-8)
+
+    class TwoD:
+        state_dim = 2
+
+    with pytest.raises(NotImplementedError, match="slice E"):
+        CVISitesTrainer(model=TwoD())

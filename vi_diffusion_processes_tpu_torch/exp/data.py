@@ -28,10 +28,20 @@ class DPDataset(NamedTuple):
     x0: torch.Tensor
 
 
+#: name → (class, default ``theta``) of the one-parameter drifts
+_THETA_SDES = {
+    "benes": (zoo.BenesSDE, 1.0),
+    "sine": (zoo.SineDiffusionSDE, 0.0),
+    "sqrt": (zoo.SqrtDiffusionSDE, 1.0),
+}
+
+
 def build_prior_sde(name: str, dtype=torch.float64, q: float = 1.0, device=None, **kwargs):
     """Prior SDE by the reference's config name (exp/data.py:85-113); the
-    d = 1 members of this slice only.  Built on ``device``: the CUDA card
-    unless the caller names another device."""
+    d = 1 members only.  ``"mlpdrift"`` draws its weights from
+    ``kwargs["generator"]`` (a CPU ``torch.Generator``; seed 0 when none is
+    given).  Built on ``device``: the CUDA card unless the caller names
+    another device."""
     q1 = [[q]]
     if name == "ou":
         sde = zoo.OrnsteinUhlenbeckSDE(decay=kwargs.get("decay", 1.0), q=q1, dtype=dtype)
@@ -39,8 +49,18 @@ def build_prior_sde(name: str, dtype=torch.float64, q: float = 1.0, device=None,
         sde = zoo.DoubleWellSDE(
             q=q1, scale=kwargs.get("scale", 4.0), c=kwargs.get("c", 1.0), dtype=dtype
         )
-    else:
+    elif name in _THETA_SDES:
+        cls, theta = _THETA_SDES[name]
+        sde = cls(theta=kwargs.get("theta", theta), q=q1, dtype=dtype)
+    elif name == "mlpdrift":
+        generator = kwargs.get("generator")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        sde = zoo.MLPDrift.initialize(generator, q1, dtype=dtype)
+    elif name == "vanderpol":
         raise NotImplementedError(
-            f"prior sde {name!r} is not ported yet (slices C, E and H of ROADMAP.md)"
+            "prior sde 'vanderpol' is not ported yet (slice E of ROADMAP.md, d >= 2)"
         )
+    else:
+        raise ValueError(f"unknown prior sde: {name}")
     return sde.to(resolve_device(device))

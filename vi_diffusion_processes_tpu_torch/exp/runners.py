@@ -1,8 +1,9 @@
-"""CVI-DP experiment runner (vi_diffusion_processes_tpu/exp/runners.py:35-226).
+"""CVI-DP and VDP experiment runners
+(vi_diffusion_processes_tpu/exp/runners.py:35-260).
 
-Only the configuration fields that :func:`run_cvi_dp` reads are ported.
-The dataset is required: the JAX ``make_dataset`` draws with
-``jax.random``, which PyTorch cannot reproduce.  Artifacts and plots
+Only the configuration fields that :func:`run_cvi_dp` and :func:`run_vdp`
+read are ported.  The dataset is required: the JAX ``make_dataset`` draws
+with ``jax.random``, which PyTorch cannot reproduce.  Artifacts and plots
 (``output_dir``) are not ported yet (slice I of ROADMAP.md).
 """
 from __future__ import annotations
@@ -14,16 +15,18 @@ import torch
 
 from ..likelihoods.gaussian import Gaussian
 from ..models.cvi_dp import CVISitesSDE
-from ..optim.trainers import CVISitesTrainer
+from ..models.vdp import VariationalMarkovGP
+from ..optim.trainers import CVISitesTrainer, VDPTrainer
 from .data import DPDataset, build_prior_sde
 from .metrics import grid_indices, nlpd, nlpd_full, rmse
 
-__all__ = ["ExperimentConfig", "run_cvi_dp"]
+__all__ = ["ExperimentConfig", "run_cvi_dp", "run_vdp"]
 
 
 @dataclasses.dataclass
 class ExperimentConfig:
-    """The CVI-DP fields of the reference's configs/cvi_base.yaml."""
+    """The CVI-DP and VDP fields of the reference's configs/cvi_base.yaml
+    and vi_base.yaml."""
 
     prior_sde: str = "dw"
     prior_sde_kwargs: Dict = dataclasses.field(default_factory=dict)
@@ -35,6 +38,9 @@ class ExperimentConfig:
     prior_sde_lr: float = 0.01
     stabilize_ssm: bool = True
     clip_state_transitions: tuple = (-1.0, 1.0)
+    # vdp trainer
+    vdp_lr: float = 0.05
+    vdp_warmup_steps: int = 20
 
 
 def _metrics(model_means, model_covs, dataset: DPDataset) -> Dict[str, float]:
@@ -51,11 +57,15 @@ def _metrics(model_means, model_covs, dataset: DPDataset) -> Dict[str, float]:
     return {"nlpd": float(nlpd_val), "rmse": float(rmse(m, dataset.test_values))}
 
 
-def run_cvi_dp(config: ExperimentConfig, dataset: DPDataset) -> Dict:
-    """CVI-DP experiment (runners.py:192-226) on the dataset's device."""
+def _prior_and_likelihood(config: ExperimentConfig, dataset: DPDataset):
     device = dataset.time_grid.device
     sde = build_prior_sde(config.prior_sde, q=config.q, device=device, **config.prior_sde_kwargs)
-    likelihood = Gaussian(variance=dataset.noise_stddev**2).to(device)
+    return sde, Gaussian(variance=dataset.noise_stddev**2).to(device)
+
+
+def run_cvi_dp(config: ExperimentConfig, dataset: DPDataset) -> Dict:
+    """CVI-DP experiment (runners.py:192-226) on the dataset's device."""
+    sde, likelihood = _prior_and_likelihood(config, dataset)
     model = CVISitesSDE.initialize_sde(
         sde,
         dataset.time_grid,
@@ -76,6 +86,33 @@ def run_cvi_dp(config: ExperimentConfig, dataset: DPDataset) -> Dict:
     model = trainer.model
     with torch.no_grad():
         means, covs = model.dist_q.marginals()
+    return {
+        "model": model,
+        "elbos": elbos,
+        "posterior_means": means,
+        "posterior_covs": covs,
+        "learned_prior_sde": model.prior_sde,
+        **_metrics(means, covs, dataset),
+    }
+
+
+def run_vdp(config: ExperimentConfig, dataset: DPDataset) -> Dict:
+    """VDP experiment (runners.py:229-260) on the dataset's device."""
+    sde, likelihood = _prior_and_likelihood(config, dataset)
+    model = VariationalMarkovGP.initialize(
+        (dataset.obs_times, dataset.obs_values), sde, dataset.time_grid, likelihood
+    )
+    trainer = VDPTrainer(
+        model,
+        lr=config.vdp_lr,
+        warmup_steps=config.vdp_warmup_steps,
+        learn_prior_sde=config.learn_prior_sde,
+        prior_sde_lr=config.prior_sde_lr,
+    )
+    elbos = trainer.optimize(n_rounds=3 if config.learn_prior_sde else 1)
+    model = trainer.model
+    with torch.no_grad():
+        means, covs = model.forward_pass()
     return {
         "model": model,
         "elbos": elbos,

@@ -20,6 +20,9 @@ from .exp.data import DPDataset
 from .likelihoods.gaussian import Gaussian as GaussianLikelihood
 from .models.cvi_dp import CVISitesSDE, DataSites
 from .models.cvi_dp_packed import PackedCVIState
+from .models.cvi_dp_packed_batched import BatchedPackedCVIState
+from .models.vdp import VariationalMarkovGP
+from .models.vdp_packed import PackedVDPState
 from .sde import zoo
 from .sde.utils import BTDNaturals, Gaussian
 from .ssm.state_space_model import StateSpaceModel
@@ -29,6 +32,9 @@ __all__ = [
     "likelihood_from_numpy",
     "cvi_dp_from_numpy",
     "packed_state_from_numpy",
+    "batched_packed_state_from_numpy",
+    "vdp_from_numpy",
+    "packed_vdp_state_from_numpy",
     "dataset_from_numpy",
     "sde_params_to_numpy",
 ]
@@ -39,15 +45,24 @@ def _t(x, device):
 
 
 def sde_from_numpy(name: str, leaves: Mapping, device=None):
-    """SDE from its JAX leaves: ``"DoubleWellSDE"`` (``q_mat``, ``scale``,
-    ``c``) or ``"OrnsteinUhlenbeckSDE"`` (``decay``, ``q_mat``)."""
+    """SDE from its JAX leaves, by class name: ``"DoubleWellSDE"`` (``q_mat``,
+    ``scale``, ``c``), ``"OrnsteinUhlenbeckSDE"`` (``decay``, ``q_mat``),
+    ``"BenesSDE"``, ``"SineDiffusionSDE"``, ``"SqrtDiffusionSDE"`` (``theta``,
+    ``q_mat``) or ``"MLPDrift"`` (``w1``, ``b1``, ``w2``, ``b2``, ``q_mat``)."""
     q = np.asarray(leaves["q_mat"])
+    dtype = torch.as_tensor(q).dtype
     if name == "DoubleWellSDE":
-        sde = zoo.DoubleWellSDE(q=q, scale=leaves["scale"], c=leaves["c"], dtype=torch.as_tensor(q).dtype)
+        sde = zoo.DoubleWellSDE(q=q, scale=leaves["scale"], c=leaves["c"], dtype=dtype)
     elif name == "OrnsteinUhlenbeckSDE":
-        sde = zoo.OrnsteinUhlenbeckSDE(decay=leaves["decay"], q=q, dtype=torch.as_tensor(q).dtype)
+        sde = zoo.OrnsteinUhlenbeckSDE(decay=leaves["decay"], q=q, dtype=dtype)
+    elif name in ("BenesSDE", "SineDiffusionSDE", "SqrtDiffusionSDE"):
+        sde = getattr(zoo, name)(theta=np.asarray(leaves["theta"]), q=q, dtype=dtype)
+    elif name == "MLPDrift":
+        sde = zoo.MLPDrift(
+            *(np.asarray(leaves[k]) for k in ("w1", "b1", "w2", "b2")), q=q, dtype=dtype
+        )
     else:
-        raise NotImplementedError(f"SDE {name!r} is not ported yet")
+        raise NotImplementedError(f"SDE {name!r} is not ported yet (slice E of ROADMAP.md)")
     return sde.to(resolve_device(device))
 
 
@@ -104,11 +119,40 @@ def cvi_dp_from_numpy(tree: Mapping, prior_sde, likelihood, device=None) -> CVIS
     )
 
 
+def _fields_from_numpy(cls, tree: Mapping, device):
+    """A dataclass of tensors from the JAX dataclass's fields of the same names."""
+    device = resolve_device(device)
+    return cls(**{f.name: _t(tree[f.name], device) for f in dataclasses.fields(cls)})
+
+
 def packed_state_from_numpy(tree: Mapping, device=None) -> PackedCVIState:
     """``PackedCVIState`` from the JAX state's fields."""
+    return _fields_from_numpy(PackedCVIState, tree, device)
+
+
+def batched_packed_state_from_numpy(tree: Mapping, device=None) -> BatchedPackedCVIState:
+    """``BatchedPackedCVIState`` from the JAX state's fields."""
+    return _fields_from_numpy(BatchedPackedCVIState, tree, device)
+
+
+def packed_vdp_state_from_numpy(tree: Mapping, device=None) -> PackedVDPState:
+    """``PackedVDPState`` from the JAX state's fields."""
+    return _fields_from_numpy(PackedVDPState, tree, device)
+
+
+def vdp_from_numpy(tree: Mapping, prior_sde, likelihood, device=None) -> VariationalMarkovGP:
+    """``VariationalMarkovGP`` from the JAX model's fields.  ``prior_sde`` and
+    ``likelihood`` are port objects (see :func:`sde_from_numpy`)."""
     device = resolve_device(device)
-    return PackedCVIState(
-        **{f.name: _t(tree[f.name], device) for f in dataclasses.fields(PackedCVIState)}
+    tensors = {
+        f.name: _t(tree[f.name], device)
+        for f in dataclasses.fields(VariationalMarkovGP)
+        if f.name not in ("prior_sde", "likelihood", "stabilize")
+    }
+    tensors["obs_indices"] = tensors["obs_indices"].long()
+    return VariationalMarkovGP(
+        prior_sde=prior_sde, likelihood=likelihood,
+        stabilize=bool(tree.get("stabilize", False)), **tensors,
     )
 
 

@@ -8,13 +8,16 @@ natural form.  ``dist_q`` sums them and recovers an SSM by the UDU'
 factorization.  Models are frozen dataclasses of tensors; every update
 returns a new model through :meth:`replace`.
 
-Ported: construction, linearization, ``full_sites``, ``dist_q``, the
-variational expectation, the SDE prior's ``kl_q_p`` and the two gradients
-that drift learning takes with respect to the SDE's parameters, which flow
-through the pivot sweep and the recurrences by their custom backward
-passes.  The generic (unpacked) update rules and the SSM prior's KL raise:
-the d = 1 site loop runs on :mod:`.cvi_dp_packed`, and the generic route is
-slice E of ROADMAP.md (d >= 2).
+Ported at d = 1: construction, linearization, ``full_sites``, ``dist_q``,
+the variational expectation, ``kl_q_p`` against an SSM and an SDE prior,
+``classic_elbo``, the generic (unpacked) update rules ``update_data_sites``
+and ``update_girsanov_sites`` with ``grad_kl_wrt_exp_param``, and the two
+gradients that drift learning takes with respect to the SDE's parameters,
+which flow through the pivot sweep and the recurrences by their custom
+backward passes.  Every refresh of the cached path goes through
+``dist_q.marginals()``: kernels K1 and K2 on CUDA.  The same loop on packed
+scalars is :mod:`.cvi_dp_packed`.  At d >= 2 ``dist_q`` raises, naming
+slice E of ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -30,7 +33,9 @@ from ..sde.utils import (
     BTDNaturals,
     Gaussian,
     linearize_sde,
+    sde_ssm_kl_with_grads_wrt_exp_params,
     ssm_kl_along_gaussian_path,
+    ssm_kl_with_grads_wrt_exp_params,
     ssm_to_btd_nat,
     transform_girsanov_sites,
 )
@@ -66,12 +71,6 @@ def _param_grads(loss: torch.Tensor, module: nn.Module) -> Dict[str, torch.Tenso
     names, params = zip(*module.named_parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
-
-
-def _not_in_slice(name: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported yet: it belongs to slice {slice_} of ROADMAP.md"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,21 +198,83 @@ class CVISitesSSM:
         var = torch.diagonal(s, dim1=-2, dim2=-1)
         return torch.sum(self.likelihood.variational_expectations(m, var, self.observations))
 
-    # ------------------------------------------- generic route (later slices)
-    def kl_q_p(self):
-        raise _not_in_slice("the generic kl_q_p", "E")
+    def local_objective_and_gradients(self, f_means, f_covs):
+        """VE and its gradient in the expectation parameters
+        ``η = [μ, Σ + μμᵀ]`` of the marginals at the observations
+        (cvi_dp.py:199-213), on fresh leaves."""
+        with torch.enable_grad():
+            eta1 = f_means.detach().requires_grad_()
+            eta2 = (f_covs + f_means[..., :, None] * f_means[..., None, :]).detach().requires_grad_()
+            cov = eta2 - eta1[..., :, None] * eta1[..., None, :]
+            var = torch.diagonal(cov, dim1=-2, dim2=-1)
+            obj = torch.sum(self.likelihood.variational_expectations(eta1, var, self.observations))
+            grads = torch.autograd.grad(obj, (eta1, eta2))
+        return obj.detach(), grads
 
-    def classic_elbo(self):
-        raise _not_in_slice("the generic classic_elbo", "E")
+    def kl_q_p(self) -> torch.Tensor:
+        """Quadrature KL[q‖p] against the SSM prior plus the closed-form KL₀
+        (cvi_dp.py:223-247)."""
+        dist_q, dist_p = self.dist_q, self.dist_p
+        means, covs = dist_q.marginals()
 
+        def fwd(ssm):
+            a, b = ssm.state_transitions, ssm.state_offsets
+            return lambda x: torch.einsum("nij,npj->npi", a, x) + b[:, None, :]
+
+        kl_path = ssm_kl_along_gaussian_path(
+            func_q=fwd(dist_q),
+            func_p=fwd(dist_p),
+            ssm_q_process_covar=dist_q.process_covariances,
+            ssm_p_process_covar=dist_p.process_covariances,
+            ssm_q_marginals_mean=means,
+            ssm_q_marginals_covar=covs,
+        )
+        kl_0 = gaussian_kl(
+            dist_q.initial_mean,
+            dist_q.chol_initial_covariance,
+            dist_p.initial_mean,
+            dist_p.chol_initial_covariance,
+        )
+        return kl_path + kl_0
+
+    def classic_elbo(self) -> torch.Tensor:
+        """``VE − KL[q‖p]`` (cvi_dp.py:249-252)."""
+        fx_mus, fx_covs = self.dist_q.marginals()
+        return self.variational_expectation(fx_mus, fx_covs) - self.kl_q_p()
+
+    # ---------------------------------------------------------------- updates
     def grad_kl_wrt_exp_param(self):
-        raise _not_in_slice("the generic grad_kl_wrt_exp_param", "E")
+        """``(KL, ∇_η KL)`` in q's expectation parameters (cvi_dp.py:255)."""
+        return ssm_kl_with_grads_wrt_exp_params(self.dist_q, self.dist_p)
 
-    def update_girsanov_sites(self, lr):
-        raise _not_in_slice("the generic update_girsanov_sites", "E")
+    def _with_refreshed_path(self, **updates):
+        model = self.replace(**updates)
+        fx_mus, fx_covs = model.dist_q.marginals()
+        return model.replace(fx_mus=fx_mus, fx_covs=fx_covs)
 
-    def update_data_sites(self, lr):
-        raise _not_in_slice("the generic update_data_sites", "E")
+    @torch.no_grad()
+    def update_girsanov_sites(self, lr: float):
+        """``nat ← nat + lr·(data_nat − ∇_η KL)`` (cvi_dp.py:258-272)."""
+        _, grad_kl = self.grad_kl_wrt_exp_param()
+        t = self.time_grid.shape[0]
+        data_nat1 = _scatter_rows(self.data_sites.nat1, self.obs_indices, t)
+        data_nat2 = _scatter_rows(self.data_sites.nat2, self.obs_indices, t)
+        g = self.girsanov_sites
+        return self._with_refreshed_path(girsanov_sites=BTDNaturals(
+            nat1=g.nat1 + lr * (data_nat1 - grad_kl[0]),
+            nat2_diag=g.nat2_diag + lr * (data_nat2 - grad_kl[1]),
+            nat2_sub=g.nat2_sub - lr * grad_kl[2],
+        ))
+
+    @torch.no_grad()
+    def update_data_sites(self, lr: float):
+        """The CVI rule ``θ ← (1−lr)θ + lr·∇_η VE`` (cvi_dp.py:274-285)."""
+        m, s = self._obs_moments(self.fx_mus, self.fx_covs)
+        _, (g1, g2) = self.local_objective_and_gradients(m, s)
+        return self._with_refreshed_path(data_sites=DataSites(
+            nat1=(1.0 - lr) * self.data_sites.nat1 + lr * g1,
+            nat2=(1.0 - lr) * self.data_sites.nat2 + lr * g2,
+        ))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -326,6 +387,12 @@ class CVISitesSDE(CVISitesSSM):
             chol_psd(self.prior_initial_state.cov),
         )
         return kl_path + kl_0
+
+    def grad_kl_wrt_exp_param(self):
+        """``(KL, ∇_η KL)`` against the SDE prior (cvi_dp.py:409-413)."""
+        return sde_ssm_kl_with_grads_wrt_exp_params(
+            self.dist_q, self.prior_sde, self.dt, self.prior_initial_state, self.time_grid
+        )
 
     def grad_kl_wrt_prior_params(self) -> Dict[str, torch.Tensor]:
         """``∂KL/∂θ_p`` for drift learning (cvi_dp.py:415-420): one gradient

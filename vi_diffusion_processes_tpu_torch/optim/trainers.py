@@ -1,9 +1,14 @@
-"""CVI-DP training loop (vi_diffusion_processes_tpu/optim/trainers.py:29-162).
+"""Training loops of the diffusion-process models
+(vi_diffusion_processes_tpu/optim/trainers.py).
 
-The packed d = 1 route only: site updates with learning-rate decay on an
-ELBO decrease, re-linearization of the prior between inner loops, drift
-learning (Adam on the SDE's parameters after each outer iteration), and
-zigzag detection.  The control flow is plain Python, as in the reference.
+:class:`CVISitesTrainer` at d = 1, on the packed state or
+(``use_packed=False``, or an SSM prior) on the generic update rules: site
+updates with learning-rate decay on an ELBO decrease, re-linearization of
+an SDE prior between inner loops, drift learning (Adam on the SDE's
+parameters after each outer iteration), and zigzag detection.
+:class:`VDPTrainer`: the VDP fixed-point loop with warm-up, on the packed
+state at d = 1.  The control flow is plain Python, as in the reference.
+d >= 2 belongs to slice E of ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -14,8 +19,9 @@ from typing import List
 import torch
 
 from ..models.cvi_dp import CVISitesSDE, CVISitesSSM
+from ..models.vdp import VariationalMarkovGP
 
-__all__ = ["CVISitesTrainer"]
+__all__ = ["CVISitesTrainer", "VDPTrainer"]
 
 
 @dataclass
@@ -30,20 +36,18 @@ class CVISitesTrainer:
     elbo_tol: float = 1e-4
     lr_decay: float = 0.5
     learn_prior_sde: bool = False
-    #: run the inner site loop on the packed state (models/cvi_dp_packed)
+    #: run the inner site loop on the packed state (models/cvi_dp_packed);
+    #: a model with an SSM prior always takes the generic update rules
     use_packed: bool = True
     elbo_trace: List[float] = field(default_factory=list)
 
     def __post_init__(self):
-        if not (
-            self.use_packed
-            and isinstance(self.model, CVISitesSDE)
-            and self.model.state_dim == 1
-        ):
+        if self.model.state_dim != 1:
             raise NotImplementedError(
-                "only the packed d=1 CVISitesSDE route is ported: the generic "
-                "route and d>=2 (cvi_dp_packed_ch) belong to slices B and E of ROADMAP.md"
+                "CVISitesTrainer: d >= 2 (cvi_dp_packed_ch and the d >= 2 "
+                "naturals_to_ssm_params) belongs to slice E of ROADMAP.md"
             )
+        self._packed = self.use_packed and isinstance(self.model, CVISitesSDE)
         if self.learn_prior_sde:
             # the reference's Adam defaults (b1 0.9, b2 0.999, eps 1e-8) are torch's
             self._prior_opt = torch.optim.Adam(
@@ -51,8 +55,8 @@ class CVISitesTrainer:
             )
 
     def optimize_sites(self) -> float:
-        """Inner loop on the packed state, with lr decay on an ELBO decrease
-        (trainers.py:84-108)."""
+        """Inner loop with lr decay on an ELBO decrease (trainers.py:84-124),
+        on the packed state or on the generic update rules: the same updates."""
         from ..models.cvi_dp_packed import (
             pack_state,
             packed_elbo,
@@ -60,31 +64,47 @@ class CVISitesTrainer:
             unpack_state,
         )
 
+        # both routes share a carry: the packed state, or the model itself
+        if self._packed:
+            carry = pack_state(self.model)
+            prev = float(packed_elbo(self.model, carry))
+
+            def step(state, lr):
+                return packed_natgrad_step(self.model, state, lr)
+        else:
+            carry = self.model
+            with torch.no_grad():
+                prev = float(self.model.classic_elbo())
+
+            @torch.no_grad()
+            def step(model, lr):
+                model = model.update_data_sites(lr).update_girsanov_sites(lr)
+                return model, model.classic_elbo()
+
         lr = self.sites_lr
-        state = pack_state(self.model)
-        prev = float(packed_elbo(self.model, state))
         for _ in range(self.max_inner_iters):
-            cand, elbo_t = packed_natgrad_step(self.model, state, lr)
+            cand, elbo_t = step(carry, lr)
             elbo = float(elbo_t)
             if math.isnan(elbo) or elbo < prev - abs(prev) * 1e-6:
                 lr *= self.lr_decay
                 if lr < 1e-4:
                     break
                 continue
-            state = cand
+            carry = cand
             self.elbo_trace.append(elbo)
             if abs(elbo - prev) < self.elbo_tol:
                 prev = elbo
                 break
             prev = elbo
-        self.model = unpack_state(self.model, state)
+        self.model = unpack_state(self.model, carry) if self._packed else carry
         return prev
 
     def perform_inference(self) -> float:
-        """Optimize sites, then re-linearize and re-base the Girsanov sites
-        (trainers.py:127-133)."""
+        """Optimize sites, then, with an SDE prior, re-linearize and re-base
+        the Girsanov sites (trainers.py:127-133)."""
         elbo = self.optimize_sites()
-        self.model = self.model.relinearize()
+        if isinstance(self.model, CVISitesSDE):
+            self.model = self.model.relinearize()
         return elbo
 
     def optimize_prior_sde(self) -> None:
@@ -110,4 +130,83 @@ class CVISitesTrainer:
                 d1, d2 = elbos[-1] - elbos[-2], elbos[-2] - elbos[-3]
                 if abs(d1) < self.elbo_tol and abs(d2) < self.elbo_tol:
                     break
+        return elbos
+
+
+@dataclass
+class VDPTrainer:
+    """VDP fixed-point loop with warm-up (trainers.py:165-251), at d = 1 on
+    the packed state (models/vdp_packed)."""
+
+    model: VariationalMarkovGP
+    lr: float = 0.05
+    x0_lr: float = 0.05
+    warmup_steps: int = 20
+    warmup_lr: float = 1e-6
+    max_iters: int = 200
+    elbo_tol: float = 1e-4
+    lr_decay: float = 0.5
+    prior_sde_lr: float = 0.01
+    learn_prior_sde: bool = False
+    elbo_trace: List[float] = field(default_factory=list)
+
+    def __post_init__(self):
+        if self.model.state_dim != 1:
+            raise NotImplementedError(
+                "VDPTrainer: d >= 2 (the matrix affine_scan) belongs to slice E of ROADMAP.md"
+            )
+        if self.learn_prior_sde:
+            self._prior_opt = torch.optim.Adam(
+                self.model.prior_sde.parameters(), lr=self.prior_sde_lr
+            )
+
+    def perform_inference(self) -> float:
+        """Warm-up at a tiny rate, then fixed-point steps on the packed
+        state: a NaN ELBO reverts the step and shrinks the rate; a step whose
+        ELBO fell is accepted and only damps the rate, since VDP steps
+        transiently decrease the ELBO (trainers.py:202-234)."""
+        from ..models.vdp_packed import (
+            pack_vdp,
+            packed_inference_step,
+            packed_vdp_elbo,
+            unpack_vdp,
+        )
+
+        state = pack_vdp(self.model)
+        for _ in range(self.warmup_steps):
+            state = packed_inference_step(self.model, state, self.warmup_lr, 0.0)
+        lr = self.lr
+        prev = float(packed_vdp_elbo(self.model, state))
+        for _ in range(self.max_iters):
+            candidate = packed_inference_step(self.model, state, lr, self.x0_lr)
+            elbo = float(packed_vdp_elbo(self.model, candidate))
+            if math.isnan(elbo):
+                lr *= self.lr_decay
+                if lr < 1e-7:
+                    break
+                continue
+            if elbo < prev - abs(prev) * 1e-6:
+                lr = max(lr * self.lr_decay, 1e-4)
+            state = candidate
+            self.elbo_trace.append(elbo)
+            if abs(elbo - prev) < self.elbo_tol:
+                prev = elbo
+                break
+            prev = elbo
+        self.model = unpack_vdp(self.model, state)
+        return prev
+
+    def optimize_prior_sde(self) -> None:
+        """One Adam step on ``∂E_sde/∂θ_p`` (trainers.py:236-243)."""
+        grads = self.model.grad_prior_sde_params()
+        for name, p in self.model.prior_sde.named_parameters():
+            p.grad = grads[name]
+        self._prior_opt.step()
+
+    def optimize(self, n_rounds: int = 5) -> List[float]:
+        elbos = []
+        for _ in range(n_rounds):
+            elbos.append(self.perform_inference())
+            if self.learn_prior_sde:
+                self.optimize_prior_sde()
         return elbos

@@ -1,7 +1,7 @@
-"""Linear drift → state-space model (Euler discretization)
-(vi_diffusion_processes_tpu/sde/drift.py:37-61):
+"""Linear drift ↔ state-space model (Euler discretization)
+(vi_diffusion_processes_tpu/sde/drift.py:26-61):
 
-    ``f(x, t) = A_t x + b_t``  ⇒  ``A_ssm = I + A·dt``, ``b_ssm = b·dt``,
+    ``f(x, t) = A_t x + b_t``  ⇔  ``A_ssm = I + A·dt``, ``b_ssm = b·dt``,
     ``Q_ssm = q·dt``.
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ import torch
 from ..ssm.state_space_model import StateSpaceModel
 from ..utils.linalg import chol_psd
 
-__all__ = ["LinearDrift", "linear_drift_to_ssm"]
+__all__ = ["LinearDrift", "linear_drift_from_ssm", "linear_drift_to_ssm"]
 
 
 class LinearDrift(NamedTuple):
@@ -21,6 +21,14 @@ class LinearDrift(NamedTuple):
 
     A: torch.Tensor
     b: torch.Tensor
+
+
+def linear_drift_from_ssm(ssm: StateSpaceModel, dt) -> LinearDrift:
+    """First-order inversion of the Euler map (drift.py:26-34):
+    ``A = (A_ssm − I)/dt``, ``b = b_ssm/dt``."""
+    offsets = ssm.state_offsets
+    eye = torch.eye(ssm.state_dim, dtype=offsets.dtype, device=offsets.device)
+    return LinearDrift(A=(ssm.state_transitions - eye) / dt, b=offsets / dt)
 
 
 def linear_drift_to_ssm(

@@ -1,4 +1,5 @@
-"""The SDE zoo, d = 1 members of the slice (vi_diffusion_processes_tpu/sde/zoo.py).
+"""The SDE zoo, its d = 1 members (vi_diffusion_processes_tpu/sde/zoo.py); the
+2-D Van der Pol oscillator belongs to slice E of ROADMAP.md.
 
 Parameters are 0-d (or ``[1, 1]`` for ``q_mat``) ``nn.Parameter``s.  A 0-d
 float64 parameter times a float32 tensor stays float32 under PyTorch's
@@ -11,7 +12,14 @@ from torch import nn
 
 from .base import SDE
 
-__all__ = ["OrnsteinUhlenbeckSDE", "DoubleWellSDE"]
+__all__ = [
+    "OrnsteinUhlenbeckSDE",
+    "DoubleWellSDE",
+    "BenesSDE",
+    "SineDiffusionSDE",
+    "SqrtDiffusionSDE",
+    "MLPDrift",
+]
 
 
 def _param(value, dtype) -> nn.Parameter:
@@ -33,11 +41,24 @@ class _ConstantDiffusionSDE(SDE):
         chol = torch.linalg.cholesky(self.q_mat)
         return torch.broadcast_to(chol, x.shape + (x.shape[-1],))
 
+
+class _ScalarDriftSDE(_ConstantDiffusionSDE):
+    """d = 1 SDEs with elementwise drift formulas: the channelized drift is
+    the same formula applied to the single channel."""
+
     def drift_ch(self, xs, t=None):
         return (self.drift(xs[0], t),)
 
 
-class OrnsteinUhlenbeckSDE(_ConstantDiffusionSDE):
+class _ThetaSDE(_ScalarDriftSDE):
+    """Elementwise drifts with the one parameter ``theta``."""
+
+    def __init__(self, theta, q, dtype=torch.float64):
+        super().__init__(q, dtype)
+        self.theta = _param(theta, dtype)
+
+
+class OrnsteinUhlenbeckSDE(_ScalarDriftSDE):
     """``dx = −λ x dt + dB``, ``Σ = q`` (zoo.py:49)."""
 
     def __init__(self, decay, q, dtype=torch.float64):
@@ -48,7 +69,7 @@ class OrnsteinUhlenbeckSDE(_ConstantDiffusionSDE):
         return -self.decay * x
 
 
-class DoubleWellSDE(_ConstantDiffusionSDE):
+class DoubleWellSDE(_ScalarDriftSDE):
     """``f(x) = scale·x·(c − x²)`` (zoo.py:60-68)."""
 
     def __init__(self, q, scale=4.0, c=1.0, dtype=torch.float64):
@@ -58,3 +79,56 @@ class DoubleWellSDE(_ConstantDiffusionSDE):
 
     def drift(self, x, t=None):
         return self.scale * x * (self.c - torch.square(x))
+
+
+class BenesSDE(_ThetaSDE):
+    """``f(x) = θ·tanh(x)`` (zoo.py:72)."""
+
+    def drift(self, x, t=None):
+        return self.theta * torch.tanh(x)
+
+
+class SineDiffusionSDE(_ThetaSDE):
+    """``f(x) = sin(x − θ)`` (zoo.py:83)."""
+
+    def drift(self, x, t=None):
+        return torch.sin(x - self.theta)
+
+
+class SqrtDiffusionSDE(_ThetaSDE):
+    """``f(x) = √(θ|x|)`` (zoo.py:94)."""
+
+    def drift(self, x, t=None):
+        return torch.sqrt(self.theta * torch.abs(x))
+
+
+class MLPDrift(_ConstantDiffusionSDE):
+    """Two-layer MLP drift ``1 → H (relu) → 1`` (zoo.py:105-133):
+    ``w1 [1, H]``, ``b1 [H]``, ``w2 [H, 1]``, ``b2 [1]``."""
+
+    def __init__(self, w1, b1, w2, b2, q, dtype=torch.float64):
+        super().__init__(q, dtype)
+        self.w1 = _param(w1, dtype)
+        self.b1 = _param(b1, dtype)
+        self.w2 = _param(w2, dtype)
+        self.b2 = _param(b2, dtype)
+
+    @classmethod
+    def initialize(
+        cls, generator: torch.Generator, q, hidden: int = 3, stddev: float = 1.0,
+        dtype=torch.float64,
+    ) -> "MLPDrift":
+        """Normal weights of scale ``stddev`` drawn from ``generator`` (on the
+        generator's device), zero biases."""
+        def normal(*shape):
+            return stddev * torch.randn(
+                shape, dtype=dtype, device=generator.device, generator=generator
+            )
+
+        return cls(
+            w1=normal(1, hidden), b1=torch.zeros(hidden), w2=normal(hidden, 1),
+            b2=torch.zeros(1), q=q, dtype=dtype,
+        )
+
+    def drift(self, x, t=None):
+        return torch.relu(x @ self.w1 + self.b1) @ self.w2 + self.b2

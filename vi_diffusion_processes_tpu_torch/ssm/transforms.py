@@ -2,8 +2,12 @@
 
 Conventions match the reference: the density is ``∝ exp(θᵀx + Θ·xxᵀ)``,
 so the precision is ``K = −2Θ_diag`` on the diagonal and ``−Θ_sub`` on the
-sub-diagonal, and the means solve ``K μ = θ``.  Only the d = 1 branch of
-``naturals_to_ssm_params`` is ported; d ≥ 2 is slice E of ROADMAP.md.
+sub-diagonal, and the means solve ``K μ = θ``; the expectation parameters
+are ``η = E[x]`` and the in-band blocks of ``E[xxᵀ]`` (diagonal
+``Σ_k + μ_kμ_kᵀ``, sub-diagonal ``A_kΣ_k + μ_{k+1}μ_kᵀ``).  Only the d = 1
+branch of ``naturals_to_ssm_params`` is ported; d ≥ 2 is slice E of
+ROADMAP.md.  The expectation transforms are batched ``[N, d, d]`` algebra
+for any d.
 """
 from __future__ import annotations
 
@@ -13,12 +17,55 @@ from ..ops.btd import BTD, affine_scan, btd_udu_parallel_1d
 from ..utils.linalg import cho_solve, chol_psd, transpose_last, tri_solve
 from .state_space_model import StateSpaceModel
 
-__all__ = ["ssm_to_naturals", "naturals_to_ssm_params", "naturals_to_ssm"]
+__all__ = [
+    "ssm_to_expectations",
+    "expectations_to_ssm_params",
+    "expectations_to_ssm",
+    "ssm_to_naturals",
+    "naturals_to_ssm_params",
+    "naturals_to_ssm",
+]
 
 
 def _eye_like(x: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
     return torch.broadcast_to(eye, x.shape)
+
+
+def _outer(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return x[..., :, None] * y[..., None, :]
+
+
+def ssm_to_expectations(ssm: StateSpaceModel):
+    """SSM → expectation parameters ``(η [..., N+1, d], Η_diag, Η_sub)``
+    (transforms.py:47-55).  The marginals run on K2 at d = 1."""
+    means, covs = ssm.marginals()
+    eta_diag = covs + _outer(means, means)
+    eta_sub = ssm.state_transitions @ covs[..., :-1, :, :] + _outer(
+        means[..., 1:, :], means[..., :-1, :]
+    )
+    return means, eta_diag, eta_sub
+
+
+def expectations_to_ssm_params(eta_linear, eta_diag, eta_sub):
+    """Expectation parameters → ``(A, b, chol P₀, chol Q, μ₀)``
+    (transforms.py:58-73)."""
+    mu = eta_linear
+    covs = eta_diag - _outer(mu, mu)
+    # Σ_{k,k+1} = Σ_k A_{k+1}ᵀ (the upper cross-block)
+    covs_upper = transpose_last(eta_sub) - _outer(mu[..., :-1, :], mu[..., 1:, :])
+    chols = chol_psd(covs)
+    a_s = transpose_last(cho_solve(chols[..., :-1, :, :], covs_upper))
+    offsets = mu[..., 1:, :] - torch.einsum("...ij,...j->...i", a_s, mu[..., :-1, :])
+    cond_covs = covs[..., 1:, :, :] - a_s @ covs[..., :-1, :, :] @ transpose_last(a_s)
+    return a_s, offsets, chols[..., 0, :, :], chol_psd(cond_covs), mu[..., 0, :]
+
+
+def expectations_to_ssm(eta_linear, eta_diag, eta_sub) -> StateSpaceModel:
+    a_s, offsets, chol_p0, chol_qs, mu0 = expectations_to_ssm_params(
+        eta_linear, eta_diag, eta_sub
+    )
+    return StateSpaceModel(mu0, chol_p0, a_s, offsets, chol_qs)
 
 
 def _precisions(ssm: StateSpaceModel) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Small dense linear-algebra helpers (vi_diffusion_processes_tpu/utils/linalg.py).
 
-Only what the d=1 CVI-DP slice needs.  The JAX package's unrolled
+Only what the ported slices need.  The JAX package's unrolled
 small-block forms exist to dodge TPU tile padding; here the d=1 blocks
 short-circuit to elementwise arithmetic and anything larger goes to
 ``torch.linalg``.  All functions batch over leading dimensions.
@@ -16,6 +16,7 @@ __all__ = [
     "tri_solve",
     "chol_psd",
     "gaussian_kl",
+    "inv_small",
 ]
 
 
@@ -76,3 +77,11 @@ def gaussian_kl(
         torch.log(torch.abs(torch.diagonal(chol_p, dim1=-2, dim2=-1))), dim=-1
     )
     return 0.5 * (trace + maha - d + log_det_p - log_det_q)
+
+
+def inv_small(a: torch.Tensor) -> torch.Tensor:
+    """``a⁻¹`` of small blocks ``[..., d, d]`` (linalg.py:335); a division at
+    d = 1."""
+    if a.shape[-1] == 1:
+        return 1.0 / a
+    return torch.linalg.inv(a)
