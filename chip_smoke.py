@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's d=1 CVI-DP and VDP paths on one CUDA card.
+"""Drive the PyTorch port's d=1 CVI-DP and VDP paths and its exact-GPR path
+(any state dimension) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -41,11 +42,27 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     0.01), which must move ``A`` and ``b`` and end on a finite ELBO;
 11. generic: ``CVISitesTrainer(use_packed=False)``, 3 inner iterations of the
     generic update rules at T = 100,000, which must launch K1 and K2;
-12. reference: on small float64 inputs the packed step, the prior gradient,
+12. scan: ``StateSpaceModel.marginals()`` of a Matern32 (d = 2) and a
+    Matern52 (d = 3) prior at T = 100,000 in float64, the generic
+    associative scan, against the sequential recursion in numpy (1e-9) and
+    against the kernel's steady state; launches, host and device time per
+    scan;
+13. GPR reference: float64, N = 10,000, d = 2 and d = 4: the log-likelihood,
+    every gradient and the smoothed moments on the card against the same
+    calls on the CPU (1e-9);
+14. GPR: the two full-width configurations of ``benchmarks/secondary.py``
+    (Matern32, d = 2, and Matern52 + Matern12, d = 4; N = 100,000, float32):
+    one warm-up step, then 8 steps of value, gradient and the ``p − 1e-3·g``
+    update, each from the benchmark's hyperparameters; launches and device
+    time per step, peak memory, and the float32 log-likelihood beside the
+    float64 one;
+15. run_gpr: ``run_gpr`` on the flagship's data (an OU kernel, 60 Adam
+    steps, ``predict_f`` at the test times), which must launch K2;
+16. reference: on small float64 inputs the packed step, the prior gradient,
     the batched step (B = 3, T = 300) and three VDP steps (T = 500) on the
     card against the same on the CPU.
 
-Launch counts are set to 0 just before each of phases 5-11 and read just
+Launch counts are set to 0 just before each of phases 5-15 and read just
 after.  The second-to-last line is a JSON object with each kernel's
 launches in those phases, its max error, times (host clock ``ms``, device
 ``device_ms``) and bound; the last line is
@@ -65,6 +82,10 @@ T_FLAGSHIP = 100_000
 BATCH, T_BATCHED = 8, 10_000
 STEPS = 32
 LR = 0.3
+#: the GPR configurations of benchmarks/secondary.py:169-205 and :394-434
+N_GPR = 100_000
+GPR_STEPS = 8
+GPR_CONFIGS = ("gpr_loglik_grad_100k", "gpr_d4_sum_loglik_grad_100k")
 REPS = 20
 #: the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 #: bytes/s, and FLOP/s outside the tensor cores in float64 and float32
@@ -107,21 +128,33 @@ def device_ms(fn, kernel: str, calls: int = REPS) -> float:
     return sum(e.self_device_time_total for e in events) / 1e3 / launches
 
 
-def device_call_ms(fn, calls: int = 5) -> float:
-    """Device time of every CUDA kernel that one call of ``fn`` launches,
-    summed, averaged over ``calls`` calls after one warm-up."""
-    fn()
+def profile_calls(fn, calls: int) -> dict:
+    """Launches and device time per call of ``fn`` over ``calls`` calls under
+    ``torch.profiler`` (every kernel, copy and memset of the call), and the
+    kernels that take the most device time."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events)
     if not total > 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return total / 1e3 / calls
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "launches": sum(e.count for e in events) / calls,
+        "device_ms": total / 1e3 / calls,
+        "top": {e.key[:48]: round(e.self_device_time_total / 1e3 / calls, 4) for e in top},
+    }
+
+
+def device_call_ms(fn, calls: int = 5) -> float:
+    """Device time of every CUDA kernel that one call of ``fn`` launches,
+    summed, averaged over ``calls`` calls after one warm-up."""
+    fn()
+    return profile_calls(fn, calls)["device_ms"]
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -808,6 +841,215 @@ def phase_generic(dataset) -> None:
         raise AssertionError("generic: the posterior path is not finite")
 
 
+def _sequential_marginals(a, b, q, m0, p0):
+    """Marginal means and covariances of a chain, one step after another in
+    numpy float64: ``m ← A m + b``, ``P ← A P Aᵀ + Q``."""
+    means, covs = [m0], [p0]
+    for k in range(len(a)):
+        means.append(a[k] @ means[-1] + b[k])
+        covs.append(a[k] @ covs[-1] @ a[k].T + q[k])
+    return np.stack(means), np.stack(covs)
+
+
+def phase_scan(dev, card: str) -> None:
+    """The generic associative scan at full length: the d = 2 and d = 3
+    marginals of stationary priors with a non-zero state mean.  The scan is
+    held against the sequential recursion (1e-9 of the scale).  Every
+    marginal of a stationary prior is its steady state; the model adds a
+    jitter of 1e-10 to each ``Q_k``, which over 100,000 steps of 1e-3 sums to
+    about ``1e-10 / (2λΔt)``, a few 1e-8, so the steady state is held to 1e-6
+    and the distance is printed."""
+    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern32, Matern52
+
+    t = torch.linspace(0.0, 100.0, T_FLAGSHIP, dtype=torch.float64, device=dev)
+    for kernel in (Matern32(1.0, 1.0, state_mean=[0.3, -0.2]),
+                   Matern52(1.0, 1.0, state_mean=[0.3, -0.2, 0.1])):
+        kernel = kernel.to(dev)
+        with torch.no_grad():
+            ssm = kernel.state_space_model(t)
+            means, covs = ssm.marginals()
+            steady = kernel.steady_state_covariance
+            ref_m, ref_c = _sequential_marginals(
+                *(x.cpu().numpy() for x in (ssm.state_transitions, ssm.state_offsets,
+                                            ssm.process_covariances, ssm.initial_mean,
+                                            ssm.initial_covariance)))
+            err_m = _scaled_err(means, torch.tensor(ref_m))
+            err_c = _scaled_err(covs, torch.tensor(ref_c))
+            off_steady = float((covs - steady).abs().max() / steady.abs().max())
+            off_mean = float((means - kernel.state_mean).abs().max())
+            host = median_ms(ssm.marginals, 5)
+            prof = profile_calls(ssm.marginals, 3)
+        d = kernel.state_dim
+        log(f"[scan] {type(kernel).__name__} d={d} T={T_FLAGSHIP} f64 marginals(): scaled err "
+            f"means {err_m:.3e} covs {err_c:.3e} against the sequential recursion (limit 1e-9); "
+            f"covs off the steady state by {off_steady:.3e} (limit 1e-6, the jitter's sum), "
+            f"means off the state mean by {off_mean:.3e}; {prof['launches']:.0f} launches, "
+            f"{host:.3f} ms host clock (median of 5), {prof['device_ms']:.3f} ms device per scan "
+            f"on {card}; top {json.dumps(prof['top'])}")
+        if not (err_m <= 1e-9 and err_c <= 1e-9):
+            raise AssertionError(f"scan d={d}: marginals disagree with the sequential recursion")
+        if not (off_steady <= 1e-6 and off_mean <= 1e-9):
+            raise AssertionError(f"scan d={d}: marginals leave the steady state")
+
+
+def gpr_model(name: str, n: int, dtype, dev):
+    """One of ``GPR_CONFIGS`` as benchmarks/secondary.py:176-192 and :404-423
+    build it, at ``n`` points: the model and its trainable leaves (the
+    kernel's hyperparameters, then the noise factor ``[[r]]``)."""
+    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12, Matern32, Matern52
+    from vi_diffusion_processes_tpu_torch.models.gpr import GaussianProcessRegression
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    t = np.linspace(0.0, 100.0, n).astype(np_dtype)
+    y = (np.sin(0.3 * t) + 0.3 * np.random.default_rng(0).normal(size=n))[:, None].astype(np_dtype)
+    if name == "gpr_loglik_grad_100k":
+        kernel = Matern32(1.0, 1.0, dtype=dtype)
+    elif name == "gpr_d4_sum_loglik_grad_100k":
+        kernel = Matern52(1.0, 1.0, dtype=dtype) + Matern12(2.0, 0.5, dtype=dtype)
+    else:
+        raise ValueError(name)
+    kernel = kernel.to(dev)
+    noise = torch.tensor([[0.3]], dtype=dtype, device=dev, requires_grad=True)
+    model = GaussianProcessRegression(
+        kernel, torch.tensor(t, device=dev), torch.tensor(y, device=dev), noise)
+    return model, [*kernel.parameters(), noise]
+
+
+def gpr_step(model, params):
+    """One benchmark step: value and gradient of ``−log p(y)``, then
+    ``p ← p − 1e-3·g``.  Returns the loss and the gradients, on the device."""
+    loss = model.loss()
+    grads = torch.autograd.grad(loss, params)
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            p.sub_(g, alpha=1e-3)
+    return loss.detach(), grads
+
+
+def phase_gpr_reference(dev) -> None:
+    """float64, N = 10,000: the card against the CPU, 1e-9 relative for the
+    log-likelihood and each gradient, 1e-9 of the scale for the smoothed
+    moments."""
+    from vi_diffusion_processes_tpu_torch.parallel.pskf import filter_smoother_with_sites
+    from vi_diffusion_processes_tpu_torch.parallel.sites import gaussian_observation_sites
+
+    for name in GPR_CONFIGS:
+        results = []
+        for device in (dev, torch.device("cpu")):
+            model, params = gpr_model(name, 10_000, torch.float64, device)
+            loglik = model.log_likelihood()
+            grads = torch.autograd.grad(loglik, params)
+            with torch.no_grad():
+                ssm = model.kernel.state_space_model(model.time_points)
+                emission = model.kernel.generate_emission_model(model.time_points)
+                nat1, nat2, _ = gaussian_observation_sites(
+                    emission.emission_matrix, model.chol_obs_covariance, model.observations)
+                _, smooth = filter_smoother_with_sites(ssm, nat1, nat2)
+            results.append((float(loglik.detach()), [g.cpu() for g in grads], smooth))
+        (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = results
+        rel = abs(l_gpu / l_cpu - 1.0)
+        g_rel = max(float(((a - b).abs() / b.abs()).max()) for a, b in zip(g_gpu, g_cpu))
+        worst = max(_scaled_err(s_gpu.means, s_cpu.means), _scaled_err(s_gpu.covs, s_cpu.covs))
+        d = model.kernel.state_dim
+        log(f"[gpr-reference] {name} d={d} N=10000 f64: log-likelihood card {l_gpu!r} cpu "
+            f"{l_cpu!r} rel {rel:.3e}; gradients {[float(g) for g in g_gpu]!r} rel err "
+            f"{g_rel:.3e}; smoothed moments scaled err {worst:.3e} (limit 1e-9 each)")
+        if not (rel <= 1e-9 and g_rel <= 1e-9 and worst <= 1e-9):
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
+
+
+def gpr_stepper(model, params):
+    """The benchmark's step as a closure that starts every call from the
+    hyperparameters the model has now.  The benchmark lets its steps run on:
+    its fixed step of 1e-3 against gradients of order 1e3 to 1e5 leaves the
+    positive orthant at once (after one update the noise factor and, at
+    d = 4, the Matern12 variance are negative, in float64 too), and from the
+    second step on it would time NaNs.  Every call here does the first step's
+    work, which is any step's work.  Returns ``(loss, gradients, the
+    hyperparameters after the update)``."""
+    start = [p.detach().clone() for p in params]
+
+    def step():
+        with torch.no_grad():
+            for p, p0 in zip(params, start):
+                p.copy_(p0)
+        loss, grads = gpr_step(model, params)
+        return loss, grads, [p.detach().clone() for p in params]
+
+    return step
+
+
+def phase_gpr(dev, card: str) -> dict:
+    """The two full-width configurations: a warm-up step, GPR_STEPS timed
+    steps, two more under the profiler.  Returns {name: record}."""
+    records = {}
+    for name in GPR_CONFIGS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model, params = gpr_model(name, N_GPR, torch.float32, dev)
+        step = gpr_stepper(model, params)
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checks = []
+        for _ in range(GPR_STEPS):
+            loss, grads, updated = step()
+            checks += [torch.isfinite(loss)] + [torch.isfinite(x).all() for x in [*grads, *updated]]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        prof = profile_calls(step, 2)
+        with torch.no_grad():
+            after = float(model.loss())  # at the updated hyperparameters: information only
+            # the float32 log-likelihood beside the float64 one, same data and
+            # starting hyperparameters
+            ll32 = float(gpr_model(name, N_GPR, torch.float32, dev)[0].log_likelihood())
+            ll64 = float(gpr_model(name, N_GPR, torch.float64, dev)[0].log_likelihood())
+        rel = abs(ll32 / ll64 - 1.0)
+        d = model.kernel.state_dim
+        rate = GPR_STEPS / seconds
+        rec = {"d": d, "steps_per_s": rate, "launches_per_step": prof["launches"],
+               "device_ms_per_step": prof["device_ms"], "peak_mb": peak_mb,
+               "busy_share": prof["device_ms"] * rate / 1e3, "loglik_f32": ll32,
+               "loglik_f64": ll64, "loglik_rel": rel}
+        records[name] = rec
+        log(f"[gpr] {name} d={d} N={N_GPR} f32, {GPR_STEPS} steps of value, gradient and update "
+            f"from the benchmark's hyperparameters: loss {float(loss)!r}, gradients "
+            f"{[float(g) for g in grads]!r}, hyperparameters after the update "
+            f"{[float(p) for p in updated]!r} (loss there {after!r}); {rate:.2f} steps/s on {card} "
+            f"(cold, information only), {prof['launches']:.0f} launches and "
+            f"{prof['device_ms']:.2f} ms of device time per step (busy share "
+            f"{rec['busy_share']:.2f}), peak memory {peak_mb:.0f} MiB; log-likelihood f32 "
+            f"{ll32!r} f64 {ll64!r} rel {rel:.3e}"
+            + ("" if rel <= 1e-3 else " (above 1e-3: see ROADMAP.md Queue 3)")
+            + f"; top {json.dumps(prof['top'])}")
+        if not bool(torch.stack(checks).all()):
+            raise AssertionError(f"{name}: a loss, a gradient or an updated value is not finite")
+        if not (np.isfinite(ll32) and np.isfinite(ll64)):
+            raise AssertionError(f"{name}: a log-likelihood is not finite")
+    return records
+
+
+def phase_run_gpr(dataset) -> None:
+    from vi_diffusion_processes_tpu_torch import interop
+    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_gpr
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_gpr(ExperimentConfig(q=0.8), dataset)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = out["losses"]
+    learned = {k: v.tolist() for k, v in interop.kernel_params_to_numpy(out["kernel"]).items()}
+    log(f"[run_gpr] OU kernel, {len(losses)} Adam steps on {len(dataset.obs_times)} observations: "
+        f"loss {losses[0]!r} -> {losses[-1]!r}, nlpd {out['nlpd']!r} rmse {out['rmse']!r}, "
+        f"{seconds:.2f} s; learned {json.dumps(learned)}")
+    if not (len(losses) == 60 and np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("run_gpr: the 60 losses are not finite or do not fall overall")
+    if not (np.isfinite(out["nlpd"]) and np.isfinite(out["rmse"])):
+        raise AssertionError("run_gpr: NLPD or RMSE is not finite")
+
+
 def phase_x64_off(dev, card: str):
     from vi_diffusion_processes_tpu_torch import config
 
@@ -958,8 +1200,16 @@ def main() -> None:
     for name in ("riccati_d_sweep", "linear_recurrence"):
         if generic_counts[name] == 0:
             raise AssertionError(f"{name} was not launched by the generic trainer")
+    _, scan_counts = _counted(phase_scan, dev, card)
+    _, gpr_reference_counts = _counted(phase_gpr_reference, dev)
+    gpr_records, gpr_counts = _counted(phase_gpr, dev, card)
+    _, run_gpr_counts = _counted(phase_run_gpr, dataset)
+    if run_gpr_counts["linear_recurrence"] == 0:
+        raise AssertionError("run_gpr did not launch K2 (predict_f's d = 1 marginals)")
+    log("[gpr] " + json.dumps(gpr_records))
     paths = (main_counts, trainer_counts, prior_counts, x64_off_counts, batched_counts,
-             vdp_counts, generic_counts)
+             vdp_counts, generic_counts, scan_counts, gpr_reference_counts, gpr_counts,
+             run_gpr_counts)
     launches = {name: sum(c[name] for c in paths) for name in kernels}
     for name, n in launches.items():
         if n == 0:

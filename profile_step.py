@@ -1,7 +1,8 @@
 """Time and profile the port's packed steps on one CUDA card.
 
     python3 profile_step.py [--root DIR] [--label NAME]
-        [--x64-off [--k4-windows NB L] | --batched | --vdp | --prior | --k4-shapes]
+        [--x64-off [--k4-windows NB L] | --batched | --vdp | --prior | --k4-shapes
+         | --gpr | --scan]
 
 Imports ``vi_diffusion_processes_tpu_torch`` from ``DIR`` (default: this
 checkout), so that two trees can be compared in one run on one card.
@@ -30,7 +31,19 @@ a run), over three runs after one warm-up run.  ``--k4-shapes`` instead
 times K4 at T = 100,000 over window shapes ``l ≈ √(r·N)`` for several ``r``
 (a tree whose K4 takes its windows as an argument).
 
-Prints the card's name and power limit, then one JSON line.
+``--gpr`` times the two exact-GPR configurations of ``chip_smoke.py``
+(Matern32, d = 2, and Matern52 + Matern12, d = 4; N = 100,000, float32; one
+step is value, gradient and the ``p − 1e-3·g`` update from the benchmark's
+hyperparameters, ``chip_smoke.py::gpr_stepper``): median
+of 7 warm runs of 8 steps, then ``torch.profiler`` over 4 steps, one JSON
+line per configuration.  ``--scan`` times the generic associative scan alone
+at T = 100,000: the marginals' compose at d = 1, 2 and 4 in float64 and
+float32 (launches, host-clock and device time per scan), one product of
+100,000 blocks as ``matmul_small`` takes it and as a batched GEMM, and the
+tiny inverses of one compose level (50,000 blocks) in closed form and by the
+batched LU.
+
+Prints the card's name and power limit, then one JSON line (``--gpr``: two).
 """
 import argparse
 import importlib.util
@@ -182,6 +195,106 @@ def prior_learning_ms(dev) -> dict:
             "optimize_prior_sde_ms_median": statistics.median(calls)}
 
 
+def time_and_profile(advance, state, runs: int, steps: int, profiled: int) -> tuple:
+    """Median rate of ``runs`` warm runs of ``steps`` calls of ``advance``,
+    then ``profiled`` calls under ``torch.profiler``.  Returns the record,
+    the last state and the last value ``advance`` gave beside it."""
+    rates = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, value = advance(state)
+        torch.cuda.synchronize()
+        rates.append(steps / (time.perf_counter() - t0))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(profiled):
+            state, value = advance(state)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / profiled
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / profiled
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "steps_per_s_median": statistics.median(rates), "steps_per_s_runs": rates,
+        "profiled_wall_ms_per_step": wall_ms,
+        # against the unprofiled step: under the profiler the wall time is the profiler's
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share": busy_ms * statistics.median(rates) / 1e3,
+        "launches_per_step": sum(e.count for e in events) / profiled,
+        "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / profiled
+                                    for e in top},
+        "top_kernels_launches_per_step": {e.key[:60]: e.count / profiled for e in top},
+    }, state, value
+
+
+def gpr_profiles(dev, label: str, root: str) -> None:
+    """One JSON line per GPR configuration; the step is ``chip_smoke.py``'s
+    ``gpr_stepper``, which starts each call from the benchmark's
+    hyperparameters."""
+    smoke = _chip_smoke()
+    for name in smoke.GPR_CONFIGS:
+        torch.cuda.reset_peak_memory_stats()
+        model, params = smoke.gpr_model(name, smoke.N_GPR, torch.float32, dev)
+        step = smoke.gpr_stepper(model, params)
+
+        def advance(state):
+            return state, step()[0]
+
+        advance(None)  # warm-up
+        record, _, loss = time_and_profile(advance, None, runs=7, steps=8, profiled=4)
+        print(json.dumps({
+            "label": label, "root": root, "gpr": name, "d": model.kernel.state_dim,
+            "n": smoke.N_GPR, "loss": float(loss),
+            "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20, **record,
+        }), flush=True)
+
+
+def scan_profiles(dev) -> dict:
+    """The generic scan alone at T: launches, host-clock ms (median of 7) and
+    device ms per scan of the marginals' compose at d = 1, 2, 4, and the tiny
+    inverses of one level."""
+    from vi_diffusion_processes_tpu_torch.ops.blocked_scan import assoc_scan
+    from vi_diffusion_processes_tpu_torch.ssm.state_space_model import _affine_gaussian_compose
+    from vi_diffusion_processes_tpu_torch.utils import linalg
+
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(0)
+    out = {"scan": {}, "inverse_of_50000_blocks_ms": {}, "product_of_100000_blocks_ms": {}}
+    for dtype in (torch.float64, torch.float32):
+        for d in (1, 2, 4):
+            a = torch.tensor(0.9 * rng.normal(size=(T, d, d)) / np.sqrt(d), dtype=dtype, device=dev)
+            b = torch.tensor(rng.normal(size=(T, d)), dtype=dtype, device=dev)
+            w = torch.tensor(rng.normal(size=(T, d, d)), dtype=dtype, device=dev)
+            elems = (a, b, w @ w.transpose(-1, -2))
+            with torch.no_grad():
+                def scan():
+                    return assoc_scan(_affine_gaussian_compose, elems)
+
+                host = smoke.median_ms(scan, 7)
+                prof = smoke.profile_calls(scan, 3)
+            out["scan"][f"d={d} {str(dtype)[6:]}"] = {
+                "launches": prof["launches"], "host_ms": host, "device_ms": prof["device_ms"]}
+            if d > 1:
+                for label, fn in (("elementwise", lambda: linalg.matmul_small(a, w)),
+                                  ("batched GEMM", lambda: a @ w)):
+                    out["product_of_100000_blocks_ms"][f"d={d} {str(dtype)[6:]} {label}"] = {
+                        "host_ms": smoke.median_ms(fn, 7),
+                        "device_ms": smoke.profile_calls(fn, 3)["device_ms"]}
+    for d in (2, 3, 4):
+        w = torch.tensor(rng.normal(size=(T // 2, d, d)), dtype=torch.float32, device=dev)
+        blocks = torch.eye(d, device=dev) + w @ w.transpose(-1, -2) / d
+        for label, fn in (("inv_small", lambda: linalg.inv_small(blocks)),
+                          ("inv_ex", lambda: torch.linalg.inv_ex(blocks, check_errors=False)),
+                          ("inv", lambda: torch.linalg.inv(blocks))):
+            out["inverse_of_50000_blocks_ms"][f"d={d} f32 {label}"] = {
+                "host_ms": smoke.median_ms(fn, 7), "device_ms": smoke.profile_calls(fn, 3)["device_ms"]}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -191,6 +304,8 @@ def main() -> None:
     mode.add_argument("--vdp", action="store_true")
     mode.add_argument("--prior", action="store_true")
     mode.add_argument("--k4-shapes", action="store_true")
+    mode.add_argument("--gpr", action="store_true")
+    mode.add_argument("--scan", action="store_true")
     ap.add_argument("--k4-windows", type=int, nargs=2, metavar=("NB", "L"))
     ap.add_argument("--label", default="")
     args = ap.parse_args()
@@ -202,8 +317,12 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
-    if args.prior or args.k4_shapes:
-        result = prior_learning_ms(dev) if args.prior else k4_shapes(dev)
+    if args.gpr:
+        gpr_profiles(dev, args.label, args.root)
+        return
+    if args.prior or args.k4_shapes or args.scan:
+        result = (prior_learning_ms(dev) if args.prior
+                  else k4_shapes(dev) if args.k4_shapes else scan_profiles(dev))
         print(json.dumps({"label": args.label, "root": args.root, **result}), flush=True)
         return
     if args.x64_off:
@@ -224,41 +343,15 @@ def main() -> None:
         advance, state = (lambda s: packed_natgrad_step(model, s, LR)), pack_state(model)
     for _ in range(5):
         state, elbo = advance(state)
-    rates = []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(32):
-            state, elbo = advance(state)
-        torch.cuda.synchronize()
-        rates.append(32 / (time.perf_counter() - t0))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(8):
-            state, elbo = advance(state)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 8
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    record, state, elbo = time_and_profile(advance, state, runs=7, steps=32, profiled=8)
     if args.vdp:
         elbo = advance.elbo(state)
     # K1 and K4 alone, beside the steps that may run them
     sweeps = {} if args.batched or args.vdp else sweeps_device_ms(dev)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / 8
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     print(json.dumps({
         "label": args.label, "root": args.root, "x64_off": args.x64_off,
         "batched": args.batched, "vdp": args.vdp, "k4_windows": args.k4_windows,
-        "steps_per_s_median": statistics.median(rates), "steps_per_s_runs": rates,
-        "elbo": float(elbo), "profiled_wall_ms_per_step": wall_ms,
-        # against the unprofiled step: under the profiler the wall time is the profiler's
-        "device_busy_ms_per_step": busy_ms,
-        "device_busy_share": busy_ms * statistics.median(rates) / 1e3,
-        "launches_per_step": sum(e.count for e in events) / 8,
-        "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / 8 for e in top},
-        "top_kernels_launches_per_step": {e.key[:60]: e.count / 8 for e in top},
-        **sweeps,
+        "elbo": float(elbo), **record, **sweeps,
     }), flush=True)
 
 

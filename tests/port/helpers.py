@@ -97,3 +97,43 @@ def row_perturbation(x, row, seed=11):
     out = x.copy()
     out[row] = x[row] * rng.uniform(0.8, 1.2, x.shape[-1])
     return out
+
+
+def kernel_spec(jkernel):
+    """A JAX kernel as the ``(name, leaves)`` pair that the port's
+    ``interop.kernel_from_numpy`` takes: numpy leaves by field name for a
+    leaf kernel, the list of its parts' pairs for a combinator."""
+    name = type(jkernel).__name__
+    if hasattr(jkernel, "kernels"):
+        return name, [kernel_spec(k) for k in jkernel.kernels]
+    return name, {k: v for k, v in to_np(jkernel).items() if v is not None}
+
+
+def port_kernel(jkernel):
+    """The port's CPU twin of a JAX kernel."""
+    from vi_diffusion_processes_tpu_torch import interop
+
+    return interop.kernel_from_numpy(*kernel_spec(jkernel), device="cpu")
+
+
+def port_ssm(jssm):
+    """The port's CPU twin of a JAX ``StateSpaceModel``."""
+    from vi_diffusion_processes_tpu_torch import interop
+
+    return interop._ssm(to_np(jssm), "cpu")
+
+
+SSM_FIELDS = ("initial_mean", "chol_initial_covariance", "state_transitions",
+              "state_offsets", "chol_process_covariances")
+
+
+def assert_ssm_close(tssm, jssm, rtol):
+    """Every field of a port SSM against the JAX one, ``rtol`` of its scale."""
+    for f in SSM_FIELDS:
+        assert_close_scaled(getattr(tssm, f).detach().numpy(), np.asarray(getattr(jssm, f)),
+                            rtol, err_msg=f)
+
+
+def uneven_grid(rng, n, t1=10.0):
+    """A sorted grid of ``n`` points on [0, t1] with uneven gaps."""
+    return np.sort(rng.uniform(0.0, t1, size=n))

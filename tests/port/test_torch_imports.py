@@ -27,6 +27,9 @@ config interop exp.data exp.metrics exp.runners likelihoods.base likelihoods.gau
 models.cvi_dp models.cvi_dp_packed models.cvi_dp_packed_batched models.vdp models.vdp_packed
 ops._build ops.btd ops.cuda_riccati ops.cuda_scan ops.quadrature optim.trainers
 sde.base sde.drift sde.utils sde.zoo ssm.state_space_model ssm.transforms utils.linalg
+utils.shapes ops.blocked_scan ssm.emission ssm.mean_functions ssm.conditionals
+kernels.base kernels.matern kernels.misc parallel.pskf parallel.sites parallel.kalman
+models.posterior models.gpr
 """.split()
 SCRIPTS = ["chip_smoke.py", "profile_step.py"]
 

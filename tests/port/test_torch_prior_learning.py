@@ -76,3 +76,63 @@ def test_prior_gradients_match_jax(which, t_size, dtype, rtol):
             np.testing.assert_allclose(g, r, rtol=rtol, err_msg=name)
         else:
             assert_close_scaled(g, r, rtol, err_msg=name)
+
+
+def _port_vdp_model():
+    """A small double-well VDP model with a non-trivial ``(A, b)``."""
+    import torch
+
+    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu_torch.models.vdp import VariationalMarkovGP
+    from vi_diffusion_processes_tpu_torch.sde.zoo import DoubleWellSDE
+
+    rng = np.random.default_rng(3)
+    grid = torch.linspace(0.0, 5.0, 256, dtype=torch.float64)
+    obs_idx = np.arange(20, 255, 37)
+    obs_y = torch.tensor(np.sign(np.sin(1.3 * grid[obs_idx].numpy()))[:, None]
+                         + 0.2 * rng.normal(size=(len(obs_idx), 1)))
+    model = VariationalMarkovGP.initialize(
+        (grid[obs_idx], obs_y), DoubleWellSDE(q=[[0.8]]), grid, Gaussian(0.04))
+    return model.replace(A=torch.tensor(rng.uniform(0.1, 0.8, size=tuple(model.A.shape))),
+                         b=torch.tensor(rng.normal(0.0, 0.3, size=tuple(model.b.shape))))
+
+
+@pytest.mark.parametrize("which", ["cvi", "vdp"])
+def test_earlier_model_keeps_its_drift(which):
+    """The reference builds a new SDE and a new model at every
+    ``optimize_prior_sde`` and the old model keeps its drift
+    (optim/trainers.py:141-146, :238-243).  So does the port: a model
+    captured before the step gives bit for bit the same drift and the same
+    prior gradients after it, while the trainer's model has moved."""
+    import torch
+
+    from vi_diffusion_processes_tpu_torch.optim.trainers import CVISitesTrainer, VDPTrainer
+
+    if which == "cvi":
+        before = _models(2000, "float64")[1]
+        trainer = CVISitesTrainer(before, learn_prior_sde=True, prior_sde_lr=0.05)
+        grad_name = "grad_kl_wrt_prior_params"
+    else:
+        before = _port_vdp_model()
+        trainer = VDPTrainer(before, learn_prior_sde=True, prior_sde_lr=0.05)
+        grad_name = "grad_prior_sde_params"
+    x = torch.linspace(-2.0, 2.0, 9, dtype=torch.float64)[:, None]
+    start = interop.sde_params_to_numpy(before.prior_sde)
+    drift_before = before.prior_sde.drift(x).detach().clone()
+    grads_before = {k: v.clone() for k, v in getattr(before, grad_name)().items()}
+
+    for _ in range(2):
+        trainer.optimize_prior_sde()
+
+    assert trainer.model is not before
+    assert trainer.model.prior_sde is not before.prior_sde
+    learned = interop.sde_params_to_numpy(trainer.model.prior_sde)
+    for name in PARAMS:
+        assert np.all(learned[name] != start[name]), name
+        np.testing.assert_array_equal(
+            interop.sde_params_to_numpy(before.prior_sde)[name], start[name], err_msg=name)
+    assert torch.equal(before.prior_sde.drift(x).detach(), drift_before)
+    assert not torch.equal(trainer.model.prior_sde.drift(x).detach(), drift_before)
+    grads_after = getattr(before, grad_name)()
+    for name in PARAMS:
+        assert torch.equal(grads_after[name], grads_before[name]), name

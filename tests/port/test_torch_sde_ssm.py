@@ -123,5 +123,7 @@ def test_d2_paths_raise_naming_their_slice(rng):
         ttr.naturals_to_ssm_params(*nat)
     ssm2 = StateSpaceModel(torch.zeros(2), torch.eye(2), torch.zeros(4, 2, 2),
                            torch.zeros(4, 2), torch.eye(2).expand(4, 2, 2))
-    with pytest.raises(NotImplementedError, match="slice D"):
-        ssm2.marginals()
+    # d >= 2 marginals no longer raise: they run the generic associative scan
+    means, covs = ssm2.marginals()
+    assert torch.equal(means, torch.zeros(5, 2))
+    assert torch.equal(covs, torch.eye(2).expand(5, 2, 2))

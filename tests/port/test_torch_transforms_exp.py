@@ -1,8 +1,9 @@
 """The port's expectation-parameter transforms against the JAX package.
 
 Inputs are a random stable SSM made with numpy from a seed; its expectation
-parameters at d = 2 come from a numpy forward recursion, since the port's
-``marginals()`` is d = 1 only.  float64, rtol 1e-10 of each array's scale.
+parameters at d = 2 come from a numpy forward recursion, which also holds
+the port's d = 2 ``marginals()`` (the generic associative scan).  float64,
+rtol 1e-10 of each array's scale.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -89,9 +90,15 @@ def test_expectation_round_trip_at_d1():
 
 
 def test_ssm_to_expectations_at_d2_names_slice_d():
-    _, tssm = _both(_ssm_fields(2))
-    with pytest.raises(NotImplementedError, match="slice D"):
-        tt.ssm_to_expectations(tssm)
+    """Until slice D this raised, naming the slice; with the d = 2 marginals
+    on the generic scan it gives the numpy recursion's and the JAX package's
+    expectation parameters."""
+    f = _ssm_fields(2)
+    jssm, tssm = _both(f)
+    got = tt.ssm_to_expectations(tssm)
+    for g, r, e in zip(got, jt.ssm_to_expectations(jssm), _expectations(f)):
+        assert_close_scaled(g.numpy(), np.asarray(r), RTOL)
+        assert_close_scaled(g.numpy(), e, RTOL)
 
 
 @pytest.mark.parametrize("d", [1, 2])

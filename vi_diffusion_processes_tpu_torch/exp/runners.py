@@ -1,13 +1,14 @@
-"""CVI-DP and VDP experiment runners
-(vi_diffusion_processes_tpu/exp/runners.py:35-260).
+"""CVI-DP, VDP and exact-GPR experiment runners
+(vi_diffusion_processes_tpu/exp/runners.py:35-309).
 
-Only the configuration fields that :func:`run_cvi_dp` and :func:`run_vdp`
-read are ported.  The dataset is required: the JAX ``make_dataset`` draws
+Only the configuration fields that :func:`run_cvi_dp`, :func:`run_vdp` and
+:func:`run_gpr` read are ported.  The dataset is required: the JAX ``make_dataset`` draws
 with ``jax.random``, which PyTorch cannot reproduce.  Artifacts and plots
 (``output_dir``) are not ported yet (slice I of ROADMAP.md).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict
 
@@ -20,7 +21,7 @@ from ..optim.trainers import CVISitesTrainer, VDPTrainer
 from .data import DPDataset, build_prior_sde
 from .metrics import grid_indices, nlpd, nlpd_full, rmse
 
-__all__ = ["ExperimentConfig", "run_cvi_dp", "run_vdp"]
+__all__ = ["ExperimentConfig", "run_cvi_dp", "run_vdp", "run_gpr"]
 
 
 @dataclasses.dataclass
@@ -120,4 +121,46 @@ def run_vdp(config: ExperimentConfig, dataset: DPDataset) -> Dict:
         "posterior_covs": covs,
         "learned_prior_sde": model.prior_sde,
         **_metrics(means, covs, dataset),
+    }
+
+
+def run_gpr(config: ExperimentConfig, dataset: DPDataset, kernel=None) -> Dict:
+    """Exact-GPR baseline on the same data (runners.py:263-309) on the
+    dataset's device: a state-space kernel whose hyperparameters Adam(0.05)
+    trains for 60 steps on ``−log p(y)``, then ``predict_f`` at the test
+    times.  The kernel is an OU kernel of decay 1 and diffusion ``config.q``
+    unless the caller gives one; the caller's kernel is copied, not changed,
+    and ``out["kernel"]`` is the trained one."""
+    from ..kernels.matern import OrnsteinUhlenbeck
+    from ..models.gpr import GaussianProcessRegression
+
+    dtype = dataset.obs_values.dtype
+    device = dataset.obs_values.device
+    if kernel is None:
+        kernel = OrnsteinUhlenbeck(decay=1.0, diffusion=config.q, dtype=dtype)
+    kernel = copy.deepcopy(kernel).to(device)
+    model = GaussianProcessRegression(
+        kernel=kernel,
+        time_points=dataset.obs_times,
+        observations=dataset.obs_values,
+        chol_obs_covariance=torch.tensor([[dataset.noise_stddev]], dtype=dtype, device=device),
+    )
+    # the reference's Adam defaults (b1 0.9, b2 0.999, eps 1e-8) are torch's
+    opt = torch.optim.Adam(kernel.parameters(), lr=0.05)
+    losses = []
+    for _ in range(60):
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+
+    with torch.no_grad():
+        f_mu, f_var = model.posterior.predict_f(dataset.test_times)
+    return {
+        "model": model,
+        "losses": losses,
+        "kernel": kernel,
+        "nlpd": float(nlpd(f_mu, f_var, dataset.test_values, dataset.noise_stddev**2)),
+        "rmse": float(rmse(f_mu, dataset.test_values)),
     }

@@ -10,17 +10,20 @@ weights and state can be fed to both implementations.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .config import resolve_device
 from .exp.data import DPDataset
+from .kernels import base as kernels_base
+from .kernels import matern, misc
 from .likelihoods.gaussian import Gaussian as GaussianLikelihood
 from .models.cvi_dp import CVISitesSDE, DataSites
 from .models.cvi_dp_packed import PackedCVIState
 from .models.cvi_dp_packed_batched import BatchedPackedCVIState
+from .models.gpr import GaussianProcessRegression
 from .models.vdp import VariationalMarkovGP
 from .models.vdp_packed import PackedVDPState
 from .sde import zoo
@@ -37,6 +40,9 @@ __all__ = [
     "packed_vdp_state_from_numpy",
     "dataset_from_numpy",
     "sde_params_to_numpy",
+    "kernel_from_numpy",
+    "kernel_params_to_numpy",
+    "gpr_from_numpy",
 ]
 
 
@@ -171,3 +177,74 @@ def sde_params_to_numpy(sde) -> dict:
     """``{parameter name: numpy array}`` of an SDE's ``nn.Parameter``s, the
     JAX pytree's leaf names (``q_mat``, ``scale``, ``c`` for the double well)."""
     return {name: p.detach().cpu().numpy() for name, p in sde.named_parameters()}
+
+
+_LEAF_KERNELS = {
+    "Matern12": (matern.Matern12, ("lengthscale", "variance")),
+    "Matern32": (matern.Matern32, ("lengthscale", "variance")),
+    "Matern52": (matern.Matern52, ("lengthscale", "variance")),
+    "OrnsteinUhlenbeck": (matern.OrnsteinUhlenbeck, ("decay", "diffusion")),
+    "Constant": (misc.Constant, ("variance",)),
+    "HarmonicOscillator": (misc.HarmonicOscillator, ("variance", "period")),
+}
+_COMBINATORS = {
+    "Sum": kernels_base.Sum,
+    "Product": kernels_base.Product,
+    "IndependentMultiOutput": kernels_base.IndependentMultiOutput,
+}
+
+
+def kernel_from_numpy(
+    name: str, leaves: Union[Mapping, Sequence[Tuple[str, object]]], device=None
+):
+    """Kernel from its JAX leaves, by class name.  A leaf kernel takes a
+    mapping of its fields (``lengthscale`` and ``variance`` for the Matern
+    family, ``decay`` and ``diffusion`` for ``"OrnsteinUhlenbeck"``,
+    ``variance`` for ``"Constant"``, ``variance`` and ``period`` for
+    ``"HarmonicOscillator"``, each with an optional ``state_mean``; ``N`` and
+    ``R`` for ``"LatentExponentiallyGenerated"``).  A combinator (``"Sum"``,
+    ``"Product"``, ``"IndependentMultiOutput"``) takes the list of its parts,
+    each a ``(name, leaves)`` pair.  The parameters take the dtype of the
+    leaves."""
+    device = resolve_device(device)
+    if name in _COMBINATORS:
+        parts = [kernel_from_numpy(part, sub, device=device) for part, sub in leaves]
+        return _COMBINATORS[name](parts)
+    if name == "LatentExponentiallyGenerated":
+        n = np.asarray(leaves["N"])
+        kernel = misc.LatentExponentiallyGenerated(
+            N=n, R=np.asarray(leaves["R"]), dtype=torch.as_tensor(n).dtype
+        )
+    elif name in _LEAF_KERNELS:
+        cls, fields = _LEAF_KERNELS[name]
+        values = {k: np.asarray(leaves[k]) for k in fields}
+        state_mean = leaves.get("state_mean")
+        kernel = cls(
+            **values,
+            state_mean=None if state_mean is None else np.asarray(state_mean),
+            dtype=torch.as_tensor(values[fields[0]]).dtype,
+        )
+    else:
+        raise NotImplementedError(f"kernel {name!r} is not ported yet (slice H of ROADMAP.md)")
+    return kernel.to(device)
+
+
+def kernel_params_to_numpy(kernel) -> dict:
+    """``{parameter name: numpy array}`` of a kernel's ``nn.Parameter``s: the
+    JAX dataclass's field names, prefixed ``kernels.<i>.`` inside a
+    combinator."""
+    return {name: p.detach().cpu().numpy() for name, p in kernel.named_parameters()}
+
+
+def gpr_from_numpy(
+    tree: Mapping, kernel, mean_function=None, device=None
+) -> GaussianProcessRegression:
+    """``GaussianProcessRegression`` from the JAX model's array fields
+    (``time_points``, ``observations``, ``chol_obs_covariance``); ``kernel``
+    and ``mean_function`` are port objects (see :func:`kernel_from_numpy`)."""
+    device = resolve_device(device)
+    return GaussianProcessRegression(
+        kernel=kernel,
+        mean_function=mean_function,
+        **{k: _t(tree[k], device) for k in ("time_points", "observations", "chol_obs_covariance")},
+    )

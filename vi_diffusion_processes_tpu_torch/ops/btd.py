@@ -1,9 +1,10 @@
-"""Scalar (d = 1) block-tridiagonal dispatchers (vi_diffusion_processes_tpu/ops/btd.py).
+"""Block-tridiagonal dispatchers (vi_diffusion_processes_tpu/ops/btd.py).
 
-Only the d = 1 slice: the Riccati pivot sweep, the scalar affine
-recurrences, the parallel UDU' built on them, and the scalar-channel
-``dist_q`` composition (naturals → SSM parameters → marginals) of
-``models/cvi_dp_packed.py:125-197``.  Dispatch is by dtype and device:
+The d = 1 slice: the Riccati pivot sweep, the scalar affine recurrences,
+the parallel UDU' built on them, and the scalar-channel ``dist_q``
+composition (naturals → SSM parameters → marginals) of
+``models/cvi_dp_packed.py:125-197``; and the matrix ``affine_scan`` at
+d ≥ 2, on the generic associative scan.  Dispatch is by dtype and device:
 float64 sweeps run K1 and float32 sweeps K4; the wrappers launch their
 CUDA kernels for CUDA tensors and run their plain PyTorch versions for CPU
 tensors.  Every wrapper is differentiable.  The JAX package's
@@ -17,6 +18,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.linalg import matmul_small, matvec_small
+from .blocked_scan import assoc_scan
 from .cuda_riccati import _riccati_d_sweep_f32_unchecked
 from .cuda_scan import _riccati_d_sweep_unchecked, linear_recurrence
 
@@ -74,14 +77,25 @@ def btd_udu_parallel_1d(k: BTD) -> Tuple[torch.Tensor, torch.Tensor]:
 def affine_scan(
     t_mats: torch.Tensor, c_vecs: torch.Tensor, x0: torch.Tensor, *, reverse: bool = False
 ) -> torch.Tensor:
-    """``x_k = T_k x_{k±1} + c_k`` (btd.py:848), d = 1 branch only:
-    ``t_mats [..., N, 1, 1]``, ``c_vecs [..., N, 1]``, ``x0 [..., 1]``."""
-    if t_mats.shape[-1] != 1:
-        raise NotImplementedError(
-            "affine_scan: d >= 2 belongs to slice E of ROADMAP.md (d>=2 CVI-DP)"
-        )
-    xs = scalar_affine_all(t_mats[..., 0, 0], c_vecs[..., 0], x0[..., 0], reverse=reverse)
-    return xs[..., None]
+    """``x_k = T_k x_{k±1} + c_k`` (btd.py:848): ``t_mats [..., N, d, d]``,
+    ``c_vecs [..., N, d]``, and the boundary value ``x0 [..., d]`` (before
+    the first element, or after the last with ``reverse``).  Returns all N
+    values.  d = 1 runs K2; d ≥ 2 the associative scan over ``(T, c)``."""
+    if t_mats.shape[-1] == 1:
+        xs = scalar_affine_all(t_mats[..., 0, 0], c_vecs[..., 0], x0[..., 0], reverse=reverse)
+        return xs[..., None]
+
+    def compose(e1, e2):
+        # e2 is applied after e1 in recursion order; a reverse scan passes
+        # (later suffix, earlier element), for which the same formula holds
+        a1, b1 = e1
+        a2, b2 = e2
+        return matmul_small(a2, a1), matvec_small(a2, b1) + b2
+
+    ca, cb = assoc_scan(
+        compose, (t_mats.movedim(-3, 0), c_vecs.movedim(-2, 0)), reverse=reverse
+    )
+    return (matvec_small(ca, x0) + cb).movedim(0, -2)
 
 
 def _naturals_to_ssm_1d(nat1, nat2d, nat2s):

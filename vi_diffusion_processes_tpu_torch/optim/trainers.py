@@ -12,6 +12,7 @@ d >= 2 belongs to slice E of ROADMAP.md.
 """
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass, field
 from typing import List
@@ -22,6 +23,36 @@ from ..models.cvi_dp import CVISitesSDE, CVISitesSSM
 from ..models.vdp import VariationalMarkovGP
 
 __all__ = ["CVISitesTrainer", "VDPTrainer"]
+
+
+class _PriorSDELearner:
+    """Adam on an SDE's parameters that leaves every earlier model alone.
+
+    The reference's SDE is an immutable tree: each step builds a new SDE and
+    a new model, and a model taken before the step keeps its drift.  Here
+    the learner owns copies of the parameters and their Adam moments, and
+    :meth:`step` returns a fresh SDE module holding the new values; the
+    module it was given, and every model that holds it, is left unchanged.
+    """
+
+    def __init__(self, sde, lr: float):
+        self._params = {
+            name: p.detach().clone().requires_grad_() for name, p in sde.named_parameters()
+        }
+        # the reference's Adam defaults (b1 0.9, b2 0.999, eps 1e-8) are torch's
+        self._opt = torch.optim.Adam(self._params.values(), lr=lr)
+
+    def step(self, sde, grads):
+        """One Adam step along ``grads`` (by parameter name); a copy of
+        ``sde`` with the new values."""
+        for name, p in self._params.items():
+            p.grad = grads[name]
+        self._opt.step()
+        new_sde = copy.deepcopy(sde)
+        with torch.no_grad():
+            for name, p in new_sde.named_parameters():
+                p.copy_(self._params[name])
+        return new_sde
 
 
 @dataclass
@@ -49,10 +80,7 @@ class CVISitesTrainer:
             )
         self._packed = self.use_packed and isinstance(self.model, CVISitesSDE)
         if self.learn_prior_sde:
-            # the reference's Adam defaults (b1 0.9, b2 0.999, eps 1e-8) are torch's
-            self._prior_opt = torch.optim.Adam(
-                self.model.prior_sde.parameters(), lr=self.prior_sde_lr
-            )
+            self._prior_learner = _PriorSDELearner(self.model.prior_sde, self.prior_sde_lr)
 
     def optimize_sites(self) -> float:
         """Inner loop with lr decay on an ELBO decrease (trainers.py:84-124),
@@ -109,13 +137,14 @@ class CVISitesTrainer:
 
     def optimize_prior_sde(self) -> None:
         """One Adam step on ``∇(KL + −VE)`` with respect to the SDE's
-        parameters, then re-linearize (trainers.py:135-146)."""
+        parameters, then re-linearize (trainers.py:135-146).  The model gets
+        a new SDE; a model taken before the step keeps its drift."""
         g_kl = self.model.grad_kl_wrt_prior_params()
         g_ve = self.model.grad_ve_wrt_prior_params()
-        for name, p in self.model.prior_sde.named_parameters():
-            p.grad = g_kl[name] + g_ve[name]
-        self._prior_opt.step()
-        self.model = self.model.set_linearized_prior()
+        new_sde = self._prior_learner.step(
+            self.model.prior_sde, {name: g_kl[name] + g_ve[name] for name in g_kl}
+        )
+        self.model = self.model.replace(prior_sde=new_sde).set_linearized_prior()
 
     def optimize(self) -> List[float]:
         """Alternate inference and, with ``learn_prior_sde``, drift learning,
@@ -156,9 +185,7 @@ class VDPTrainer:
                 "VDPTrainer: d >= 2 (the matrix affine_scan) belongs to slice E of ROADMAP.md"
             )
         if self.learn_prior_sde:
-            self._prior_opt = torch.optim.Adam(
-                self.model.prior_sde.parameters(), lr=self.prior_sde_lr
-            )
+            self._prior_learner = _PriorSDELearner(self.model.prior_sde, self.prior_sde_lr)
 
     def perform_inference(self) -> float:
         """Warm-up at a tiny rate, then fixed-point steps on the packed
@@ -197,11 +224,12 @@ class VDPTrainer:
         return prev
 
     def optimize_prior_sde(self) -> None:
-        """One Adam step on ``∂E_sde/∂θ_p`` (trainers.py:236-243)."""
-        grads = self.model.grad_prior_sde_params()
-        for name, p in self.model.prior_sde.named_parameters():
-            p.grad = grads[name]
-        self._prior_opt.step()
+        """One Adam step on ``∂E_sde/∂θ_p`` (trainers.py:236-243).  The
+        model gets a new SDE; a model taken before the step keeps its drift."""
+        new_sde = self._prior_learner.step(
+            self.model.prior_sde, self.model.grad_prior_sde_params()
+        )
+        self.model = self.model.replace(prior_sde=new_sde)
 
     def optimize(self, n_rounds: int = 5) -> List[float]:
         elbos = []

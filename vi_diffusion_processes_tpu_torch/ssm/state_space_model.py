@@ -12,9 +12,19 @@ from typing import Tuple
 
 import torch
 
-from ..utils.linalg import transpose_last
+from ..utils.linalg import chol_psd, matmul_small, matvec_small, mvn_logpdf, transpose_last
 
-__all__ = ["StateSpaceModel"]
+__all__ = ["StateSpaceModel", "ssm_from_covariances"]
+
+
+def _affine_gaussian_compose(e1, e2):
+    """Compose two affine-Gaussian maps, row by row over the leading axes
+    (state_space_model.py:47).  ``e = (A, b, Q)`` stands for ``x_out = A x_in
+    + b + ε, ε ~ N(0, Q)``; ``e1`` is applied first.  Associative."""
+    a1, b1, q1 = e1
+    a2, b2, q2 = e2
+    q = matmul_small(matmul_small(a2, q1), transpose_last(a2)) + q2
+    return matmul_small(a2, a1), matvec_small(a2, b1) + b2, q
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +63,14 @@ class StateSpaceModel:
         return self.state_transitions.shape[-3]
 
     @property
+    def batch_shape(self) -> Tuple[int, ...]:
+        return tuple(self.initial_mean.shape[:-1])
+
+    @property
+    def event_shape(self) -> Tuple[int, int]:
+        return (self.num_transitions + 1, self.state_dim)
+
+    @property
     def initial_covariance(self) -> torch.Tensor:
         l = self.chol_initial_covariance
         return l @ transpose_last(l)
@@ -60,7 +78,7 @@ class StateSpaceModel:
     @property
     def process_covariances(self) -> torch.Tensor:
         l = self.chol_process_covariances
-        return l @ transpose_last(l)
+        return matmul_small(l, transpose_last(l))
 
     @property
     def concatenated_cholesky_process_covariance(self) -> torch.Tensor:
@@ -81,12 +99,12 @@ class StateSpaceModel:
 
         At d = 1 these are the two scalar recurrences
         ``m_k = a_k m_{k−1} + b_k`` and ``v_k = a_k² v_{k−1} + q_k`` through
-        :func:`~..ops.btd.scalar_affine_all` (kernel K2 on CUDA)."""
+        :func:`~..ops.btd.scalar_affine_all` (kernel K2 on CUDA).  At d ≥ 2
+        the marginal at step k is the initial Gaussian pushed through the
+        cumulative affine map of an associative scan over ``(A, b, Q)``
+        (state_space_model.py:201-218)."""
         if self.state_dim != 1:
-            raise NotImplementedError(
-                "StateSpaceModel.marginals: d >= 2 belongs to slice D of "
-                "ROADMAP.md (GPR and the parallel Kalman engine)"
-            )
+            return self._marginals_dense()
         from ..ops.btd import scalar_affine_all
 
         a = self.state_transitions[..., 0, 0]
@@ -99,3 +117,78 @@ class StateSpaceModel:
         means = torch.cat([mu0[..., None], m_rest], dim=-1)
         varis = torch.cat([p0[..., None], v_rest], dim=-1)
         return means[..., None], varis[..., None, None]
+
+    def _marginals_dense(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        from ..ops.blocked_scan import assoc_scan
+
+        ca, cb, cq = assoc_scan(
+            _affine_gaussian_compose,
+            (
+                self.state_transitions.movedim(-3, 0),
+                self.state_offsets.movedim(-2, 0),
+                self.process_covariances.movedim(-3, 0),
+            ),
+        )
+        mu0, p0 = self.initial_mean, self.initial_covariance
+        means = torch.cat([mu0[None], matvec_small(ca, mu0) + cb], dim=0)
+        covs = torch.cat(
+            [p0[None], matmul_small(matmul_small(ca, p0), transpose_last(ca)) + cq], dim=0)
+        return means.movedim(0, -2), covs.movedim(0, -3)
+
+    @property
+    def marginal_means(self) -> torch.Tensor:
+        return self.marginals()[0]
+
+    @property
+    def marginal_covariances(self) -> torch.Tensor:
+        return self.marginals()[1]
+
+    def subsequent_covariances(self, marginal_covariances: torch.Tensor) -> torch.Tensor:
+        """``Cov(x_{k+1}, x_k) = A_k P_k`` (state_space_model.py:228)."""
+        return matmul_small(self.state_transitions, marginal_covariances[..., :-1, :, :])
+
+    # ------------------------------------------------------------- densities
+    def log_det_precision(self) -> torch.Tensor:
+        """``log |K| = −log |P₀| − Σ log |Q_k|`` (state_space_model.py:269)."""
+        chols = self.concatenated_cholesky_process_covariance
+        return -2.0 * torch.sum(
+            torch.log(torch.abs(torch.diagonal(chols, dim1=-2, dim2=-1))), dim=(-1, -2)
+        )
+
+    def log_pdf(self, states: torch.Tensor) -> torch.Tensor:
+        """Joint log-density of trajectories ``[..., N+1, d]`` → ``[...]`` by
+        the Markov factorization (state_space_model.py:276): one Gaussian
+        log-density per transition."""
+        pred = matvec_small(self.state_transitions, states[..., :-1, :]) + self.state_offsets
+        lp_init = mvn_logpdf(states[..., 0, :], self.initial_mean, self.chol_initial_covariance)
+        lp_trans = mvn_logpdf(states[..., 1:, :], pred, self.chol_process_covariances)
+        return lp_init + torch.sum(lp_trans, dim=-1)
+
+
+def ssm_from_covariances(
+    initial_mean: torch.Tensor,
+    initial_covariance: torch.Tensor,
+    state_transitions: torch.Tensor,
+    state_offsets: torch.Tensor,
+    process_covariances: torch.Tensor,
+    jitter: float = 0.0,
+) -> StateSpaceModel:
+    """An SSM from covariances rather than their Cholesky factors
+    (state_space_model.py:371).  Process covariances that are exactly zero
+    (deterministic kernels such as Constant and HarmonicOscillator) get a
+    zero factor instead of NaNs; the others get ``jitter`` on the diagonal."""
+    d = initial_mean.shape[-1]
+    eye = torch.eye(d, dtype=initial_mean.dtype, device=initial_mean.device)
+
+    def chol_or_zero(cov):
+        is_zero = torch.all(cov == 0.0, dim=-1, keepdim=True).all(dim=-2, keepdim=True)
+        chol = chol_psd(torch.where(is_zero, eye, cov + jitter * eye))
+        return torch.where(is_zero, torch.zeros_like(chol), chol)
+
+    return StateSpaceModel(
+        initial_mean=initial_mean,
+        chol_initial_covariance=chol_or_zero(initial_covariance),
+        state_transitions=state_transitions,
+        state_offsets=state_offsets,
+        chol_process_covariances=chol_or_zero(process_covariances),
+    )

@@ -38,7 +38,8 @@ def _outer(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def ssm_to_expectations(ssm: StateSpaceModel):
     """SSM → expectation parameters ``(η [..., N+1, d], Η_diag, Η_sub)``
-    (transforms.py:47-55).  The marginals run on K2 at d = 1."""
+    (transforms.py:47-55).  The marginals run on K2 at d = 1 and on the
+    generic associative scan beyond."""
     means, covs = ssm.marginals()
     eta_diag = covs + _outer(means, means)
     eta_sub = ssm.state_transitions @ covs[..., :-1, :, :] + _outer(
