@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's d=1 CVI-DP and VDP paths and its exact-GPR path
-(any state dimension) on one CUDA card.
+"""Drive the PyTorch port's d=1 CVI-DP and VDP paths, its d=2 CVI-DP path and
+its exact-GPR path (any state dimension) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -58,11 +58,21 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     float64 one;
 15. run_gpr: ``run_gpr`` on the flagship's data (an OU kernel, 60 Adam
     steps, ``predict_f`` at the test times), which must launch K2;
-16. reference: on small float64 inputs the packed step, the prior gradient,
+16. vanderpol: the d = 2 CVI-DP configuration of ``benchmarks/secondary.py:339-385``
+    (Van der Pol prior, T = 100,000, float32 model, float64 naturals, lr
+    0.2), ``pack_state_ch`` and 32 ``packed_natgrad_step_ch``: a finite ELBO
+    that rises from its first value, steps/s (cold), launches and device time
+    per step (``torch.profiler``) and peak memory; K1-K4 must launch 0 times;
+17. vanderpol reference: the same model at T = 2,000 in float64, three packed
+    steps on the card against the CPU (ELBOs, sites, marginals, 1e-9), and the
+    Schur-segment UDU' on the card against the sequential ``btd_udu`` (1e-10);
+18. vanderpol trainer: ``run_cvi_dp(prior_sde="vanderpol")`` at T = 10,000 (2
+    outer and 5 inner iterations), and one re-linearization timed alone;
+19. reference: on small float64 inputs the packed step, the prior gradient,
     the batched step (B = 3, T = 300) and three VDP steps (T = 500) on the
     card against the same on the CPU.
 
-Launch counts are set to 0 just before each of phases 5-15 and read just
+Launch counts are set to 0 just before each of phases 5-18 and read just
 after.  The second-to-last line is a JSON object with each kernel's
 launches in those phases, its max error, times (host clock ``ms``, device
 ``device_ms``) and bound; the last line is
@@ -86,6 +96,8 @@ LR = 0.3
 N_GPR = 100_000
 GPR_STEPS = 8
 GPR_CONFIGS = ("gpr_loglik_grad_100k", "gpr_d4_sum_loglik_grad_100k")
+#: the d = 2 configuration of benchmarks/secondary.py:339-385: its learning rate
+LR_VANDERPOL = 0.2
 REPS = 20
 #: the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 #: bytes/s, and FLOP/s outside the tensor cores in float64 and float32
@@ -109,23 +121,54 @@ def median_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, calls: int = REPS) -> float:
+def device_ms(fn, kernel: str, wrapper: str, calls: int = REPS, tries: int = 3) -> float:
     """Device time per launch of the CUDA kernel whose name contains
     ``kernel``, over ``calls`` calls of ``fn`` after one warm-up, read with
-    ``torch.profiler``; fails unless each call launched it exactly once."""
+    ``torch.profiler``.
+
+    Fails unless the launch count of ``wrapper`` (``cuda_scan.launch_counts``)
+    rises by exactly ``calls``, one launch a call, or if the profiler records
+    more launches of ``kernel`` than were made. The profiler's CUPTI records
+    may lose launches: the time is then the mean over the launches recorded,
+    from the best of ``tries`` profiles, and if none records any, the device
+    time of a whole call between CUDA events."""
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    launches = sum(e.count for e in events)
-    if launches != calls:
-        raise AssertionError(f"{kernel}: {launches} launches in {calls} calls, expected one each")
-    return sum(e.self_device_time_total for e in events) / 1e3 / launches
+    recorded, total_us = 0, 0.0
+    for _ in range(tries):
+        before = cs.launch_counts()[wrapper]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        made = cs.launch_counts()[wrapper] - before
+        if made != calls:
+            raise AssertionError(f"{wrapper}: {made} launches in {calls} calls, expected one each")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        n = sum(e.count for e in events)
+        if n > calls:
+            raise AssertionError(f"{kernel}: the profiler recorded {n} launches in {calls} calls")
+        if n > recorded:
+            recorded, total_us = n, sum(e.self_device_time_total for e in events)
+        if recorded == calls:
+            return total_us / 1e3 / recorded
+    if recorded:
+        log(f"[profiler] {kernel}: {recorded} of {calls} launches recorded at best in {tries} "
+            f"profiles; device time is their mean")
+        return total_us / 1e3 / recorded
+    log(f"[profiler] {kernel}: no launch recorded in {tries} profiles; device time per call "
+        f"between CUDA events instead")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def profile_calls(fn, calls: int) -> dict:
@@ -279,11 +322,12 @@ def phase_kernels(dev) -> dict:
             kd, b2, kd4, b24 = kd[0], b2[0], kd4[0], b24[0]
             rec["ms"] = median_ms(lambda: riccati_d_sweep_f32(kd4, b24))
             rec["device_ms"] = device_ms(lambda: riccati_d_sweep_f32(kd4, b24),
-                                         "riccati_f32_kernel")
+                                         "riccati_f32_kernel", "riccati_d_sweep_f32")
             rec["plain_ms"] = median_ms(lambda: riccati_d_sweep_f32_plain(kd4, b24))
             rec = result["riccati_d_sweep"]
             rec["ms"] = median_ms(lambda: cs.riccati_d_sweep(kd, b2))
-            rec["device_ms"] = device_ms(lambda: cs.riccati_d_sweep(kd, b2), "riccati_kernel")
+            rec["device_ms"] = device_ms(lambda: cs.riccati_d_sweep(kd, b2),
+                                         "riccati_kernel", "riccati_d_sweep")
             rec["plain_ms"] = median_ms(lambda: cs.riccati_d_sweep_plain(kd, b2))
     # K4 on the parabolic case, where float32 is at its limit: kernel and
     # plain version against the float64 sequential recursion to rtol 2e-3,
@@ -321,7 +365,7 @@ def phase_kernels(dev) -> dict:
                 if (n, batch, reverse) == (T_FLAGSHIP, 1, False):
                     tt1, cc1 = tt[0], cc[0]
                     dev_ms = device_ms(lambda: cs.linear_recurrence(tt1, cc1, 0.7),
-                                       "linrec_kernel")
+                                       "linrec_kernel", "linear_recurrence")
                     log(f"[K2] n={n} {str(dtype)[6:]} fwd device time {dev_ms:.5f} ms per launch")
                     if dtype == torch.float64:
                         rec["ms"] = median_ms(lambda: cs.linear_recurrence(tt1, cc1, 0.7))
@@ -351,7 +395,7 @@ def phase_kernels(dev) -> dict:
             rec = result["dist_q_1d_planes"]
             rec["ms"] = median_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s))
             rec["device_ms"] = device_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s),
-                                         "dist_q_kernel")
+                                         "dist_q_kernel", "dist_q_1d_planes")
             rec["plain_ms"] = median_ms(lambda: cs.dist_q_1d_planes_plain(nat1, nat2d, nat2s))
     _interior_zeros(dev, result)
     for name, dtype in (("riccati_d_sweep", torch.float64), ("linear_recurrence", torch.float64),
@@ -597,21 +641,22 @@ def phase_main_path(dev, card: str):
 
 
 def flagship_dataset(grid, obs_idx, obs_y, dev):
-    """The flagship's observations on ``grid`` split 4:1 into train and test."""
+    """Observations ``[n, d]`` on ``grid`` split 4:1 into train and test."""
     from vi_diffusion_processes_tpu_torch.exp.data import DPDataset
 
     test = torch.tensor(np.arange(len(obs_idx)) % 5 == 0, device=dev)
     y = torch.tensor(obs_y, device=dev)
     idx = torch.tensor(obs_idx, device=dev)
+    d = obs_y.shape[-1]
     return DPDataset(
-        latent_path=torch.zeros_like(grid)[:, None],
+        latent_path=grid.new_zeros((grid.shape[0], d)),
         time_grid=grid,
         obs_times=grid[idx[~test]],
         obs_values=y[~test],
         test_times=grid[idx[test]],
         test_values=y[test],
         noise_stddev=0.2,
-        x0=torch.zeros(1, device=dev),
+        x0=torch.zeros(d, device=dev),
     )
 
 
@@ -1050,6 +1095,180 @@ def phase_run_gpr(dataset) -> None:
         raise AssertionError("run_gpr: NLPD or RMSE is not finite")
 
 
+def vanderpol_observations(t_size: int, dtype, seed: int = 0):
+    """The grid on [0, 10], the observation indices and the observations
+    ``(sin 0.6t, cos 0.6t) + 0.2·N(0, I₂)`` of benchmarks/secondary.py:355-365
+    (every 500 points from index 50 at T = 100,000), as numpy arrays."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    grid = np.linspace(0.0, 10.0, t_size).astype(np_dtype)
+    obs_idx = np.arange(50, t_size - 1, max(50, t_size // 200))
+    t = grid[obs_idx]
+    noise = np.random.default_rng(seed).normal(size=(len(obs_idx), 2))
+    obs_y = (np.stack([np.sin(0.6 * t), np.cos(0.6 * t)], -1) + 0.2 * noise).astype(np_dtype)
+    return grid, obs_idx, obs_y
+
+
+def vanderpol_model(t_size: int, dtype, dev):
+    """benchmarks/secondary.py:344-377 with the port's API: the Van der Pol
+    prior (a = τ = 1, q = 0.5·I₂), p(x₀) = N(0, 0.5·I₂), Gaussian likelihood
+    0.04, clip (−2, 2), linearized."""
+    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
+    from vi_diffusion_processes_tpu_torch.sde.utils import Gaussian as GaussianState
+    from vi_diffusion_processes_tpu_torch.sde.zoo import VanderPolOscillatorSDE
+
+    grid_np, obs_idx, obs_y = vanderpol_observations(t_size, dtype)
+    grid = torch.tensor(grid_np, device=dev)
+    eye = torch.eye(2, dtype=dtype, device=dev)
+    model = CVISitesSDE.initialize(
+        prior_ssm=None,
+        time_grid=grid,
+        input_data=(grid[torch.tensor(obs_idx, device=dev)], torch.tensor(obs_y, device=dev)),
+        likelihood=Gaussian(0.04, dtype=dtype).to(dev),
+        prior_initial_state=GaussianState(mu=torch.zeros(2, dtype=dtype, device=dev),
+                                          cov=0.5 * eye),
+        prior_sde=VanderPolOscillatorSDE(a=1.0, tau=1.0, q=0.5 * eye, dtype=dtype).to(dev),
+        stabilize_ssm=True,
+        clip_state_transitions=(-2.0, 2.0),
+    )
+    return model.set_linearized_prior(), obs_idx, obs_y
+
+
+def phase_vanderpol(dev, card: str) -> dict:
+    """The full-width d = 2 configuration: 32 packed steps (cold), then two
+    under the profiler.  Returns the record."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed_ch import (
+        pack_state_ch,
+        packed_natgrad_step_ch,
+    )
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, _, _ = vanderpol_model(T_FLAGSHIP, torch.float32, dev)
+    state = pack_state_ch(model)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if state.p_nat1.dtype != torch.float64 or state.fx_mu.dtype != torch.float32:
+        raise AssertionError("vanderpol: expected a float32 model with float64 naturals")
+    torch.cuda.reset_peak_memory_stats()
+    elbos = []
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state, elbo = packed_natgrad_step_ch(model, state, LR_VANDERPOL)
+        elbos.append(elbo)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    trace = torch.stack(elbos).double().cpu().numpy()
+    holder = [state]
+
+    def step():
+        holder[0], _ = packed_natgrad_step_ch(model, holder[0], LR_VANDERPOL)
+
+    prof = profile_calls(step, 2)
+    rate = STEPS / seconds
+    rec = {"steps_per_s": rate, "launches_per_step": prof["launches"],
+           "device_ms_per_step": prof["device_ms"], "busy_share": prof["device_ms"] * rate / 1e3,
+           "peak_mib": peak_mib, "first_elbo": float(trace[0]), "last_elbo": float(trace[-1]),
+           "build_s": build_s}
+    log(f"[vanderpol] T={T_FLAGSHIP} d=2 f32 model, f64 naturals, {STEPS} "
+        f"packed_natgrad_step_ch(lr={LR_VANDERPOL}): ELBO {float(trace[0])!r} -> "
+        f"{float(trace[-1])!r}, "
+        f"{rate:.2f} steps/s on {card} (cold, information only); {prof['launches']:.0f} launches "
+        f"and {prof['device_ms']:.3f} ms of device time per step (busy share "
+        f"{rec['busy_share']:.3f}), peak memory {peak_mib:.0f} MiB; model built and linearized "
+        f"in {build_s:.2f} s; top {json.dumps(prof['top'])}")
+    if not np.all(np.isfinite(trace)):
+        raise AssertionError("vanderpol: an ELBO is not finite")
+    if not trace[-1] > trace[0]:
+        raise AssertionError("vanderpol: the ELBO did not rise from its first value")
+    for name in ("fx_mu", "fx_cov", "g_nat1", "g_nat2d", "g_nat2s"):
+        if not bool(torch.isfinite(getattr(holder[0], name)).all()):
+            raise AssertionError(f"vanderpol: state.{name} is not finite")
+    return rec
+
+
+def phase_vanderpol_reference(dev) -> None:
+    """T = 2,000, float64: three packed steps on the card against the CPU
+    (ELBOs, sites and marginals, 1e-9 of each one's scale), and the
+    Schur-segment UDU' of the stepped posterior's precision on the card
+    against the sequential recursion on the CPU (1e-10)."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed_ch import (
+        pack_state_ch,
+        packed_natgrad_step_ch,
+    )
+    from vi_diffusion_processes_tpu_torch.ops.btd import BTD, btd_udu, btd_udu_parallel
+
+    results = []
+    for device in (dev, torch.device("cpu")):
+        model, _, _ = vanderpol_model(2_000, torch.float64, device)
+        state, elbos = pack_state_ch(model), []
+        for _ in range(3):
+            state, elbo = packed_natgrad_step_ch(model, state, LR_VANDERPOL)
+            elbos.append(float(elbo))
+        results.append((np.array(elbos), state))
+    (e_gpu, s_gpu), (e_cpu, s_cpu) = results
+    rel = float(np.max(np.abs(e_gpu / e_cpu - 1.0)))
+    fields = ("g_nat1", "g_nat2d", "g_nat2s", "d_nat1", "d_nat2", "fx_mu", "fx_cov")
+    worst = max(_scaled_err(getattr(s_gpu, f), getattr(s_cpu, f)) for f in fields)
+    log(f"[vanderpol-reference] T=2000 d=2 f64, 3 steps: ELBOs card {e_gpu.tolist()!r} cpu "
+        f"{e_cpu.tolist()!r} rel {rel:.3e}; sites and marginals scaled err {worst:.3e} "
+        f"(limit 1e-9)")
+    if not (rel <= 1e-9 and worst <= 1e-9):
+        raise AssertionError("vanderpol: the packed step on the card disagrees with the CPU")
+
+    def precision(s):
+        f64 = s.p_nat1.dtype
+        return BTD(diag=-2.0 * (s.p_nat2d + s.g_nat2d.to(f64) + s.d_nat2.to(f64)),
+                   sub=-(s.p_nat2s + s.g_nat2s.to(f64)))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_card, u_card = btd_udu_parallel(precision(s_gpu))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    d_ref, u_ref = btd_udu(precision(s_cpu))
+    err_d, err_u = _scaled_err(d_card, d_ref), _scaled_err(u_card, u_ref)
+    log(f"[vanderpol-reference] Schur-segment UDU' on the card (T=2000, {ms:.2f} ms) against "
+        f"the sequential btd_udu on the CPU: scaled err D {err_d:.3e}, U {err_u:.3e} "
+        f"(limit 1e-10)")
+    if not (err_d <= 1e-10 and err_u <= 1e-10):
+        raise AssertionError("vanderpol: the Schur-segment UDU' disagrees with btd_udu")
+
+
+def phase_vanderpol_trainer(dev) -> None:
+    """``run_cvi_dp`` on the Van der Pol prior at T = 10,000 (the full-width
+    observation rule at that length, split 4:1), then one re-linearization
+    of the trained model alone: the ``vmap(jacrev)`` of the drift over
+    T·100 quadrature points."""
+    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_cvi_dp
+
+    grid_np, obs_idx, obs_y = vanderpol_observations(10_000, torch.float32)
+    dataset = flagship_dataset(torch.tensor(grid_np, device=dev), obs_idx, obs_y, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_cvi_dp(ExperimentConfig(prior_sde="vanderpol", q=0.5, sites_lr=LR_VANDERPOL,
+                                      max_inner_iters=5, max_outer_iters=2,
+                                      clip_state_transitions=(-2.0, 2.0)), dataset)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    model = out["model"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.set_linearized_prior()
+    torch.cuda.synchronize()
+    relin_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[vanderpol-trainer] run_cvi_dp(prior_sde='vanderpol') T=10000, 2 outer and 5 inner "
+        f"iterations: {seconds:.2f} s, ELBO after each outer iteration {out['elbos']!r}, "
+        f"nlpd {out['nlpd']!r} rmse {out['rmse']!r}; one re-linearization {relin_ms:.1f} ms")
+    if not (np.all(np.isfinite(out["elbos"])) and np.isfinite(out["nlpd"])
+            and np.isfinite(out["rmse"])):
+        raise AssertionError("vanderpol trainer: an ELBO or a metric is not finite")
+    covs = out["posterior_covs"]
+    if not (bool(torch.isfinite(covs).all()) and covs.shape[-1] == 2):
+        raise AssertionError("vanderpol trainer: the posterior is not a finite d = 2 path")
+
+
 def phase_x64_off(dev, card: str):
     from vi_diffusion_processes_tpu_torch import config
 
@@ -1207,9 +1426,19 @@ def main() -> None:
     if run_gpr_counts["linear_recurrence"] == 0:
         raise AssertionError("run_gpr did not launch K2 (predict_f's d = 1 marginals)")
     log("[gpr] " + json.dumps(gpr_records))
+    vanderpol_record, vanderpol_counts = _counted(phase_vanderpol, dev, card)
+    _, vanderpol_reference_counts = _counted(phase_vanderpol_reference, dev)
+    _, vanderpol_trainer_counts = _counted(phase_vanderpol_trainer, dev)
+    # the d = 2 path computes its UDU', solves and marginals on the generic scan
+    for label, counts in (("vanderpol", vanderpol_counts),
+                          ("vanderpol trainer", vanderpol_trainer_counts)):
+        if any(counts.values()):
+            raise AssertionError(f"{label}: K1-K4 launched on the d = 2 path: {counts}")
+    log("[vanderpol] " + json.dumps(vanderpol_record))
     paths = (main_counts, trainer_counts, prior_counts, x64_off_counts, batched_counts,
              vdp_counts, generic_counts, scan_counts, gpr_reference_counts, gpr_counts,
-             run_gpr_counts)
+             run_gpr_counts, vanderpol_counts, vanderpol_reference_counts,
+             vanderpol_trainer_counts)
     launches = {name: sum(c[name] for c in paths) for name in kernels}
     for name, n in launches.items():
         if n == 0:

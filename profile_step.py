@@ -2,7 +2,7 @@
 
     python3 profile_step.py [--root DIR] [--label NAME]
         [--x64-off [--k4-windows NB L] | --batched | --vdp | --prior | --k4-shapes
-         | --gpr | --scan]
+         | --gpr | --scan | --vanderpol]
 
 Imports ``vi_diffusion_processes_tpu_torch`` from ``DIR`` (default: this
 checkout), so that two trees can be compared in one run on one card.
@@ -42,6 +42,11 @@ float32 (launches, host-clock and device time per scan), one product of
 100,000 blocks as ``matmul_small`` takes it and as a batched GEMM, and the
 tiny inverses of one compose level (50,000 blocks) in closed form and by the
 batched LU.
+
+``--vanderpol`` times ``packed_natgrad_step_ch`` on ``chip_smoke.py``'s d = 2
+configuration (Van der Pol prior, T = 100,000, float32 model, float64
+naturals, lr 0.2): median of 7 warm runs of 8 steps, then ``torch.profiler``
+over 4 steps, with the peak device memory of the timed runs.
 
 Prints the card's name and power limit, then one JSON line (``--gpr``: two).
 """
@@ -253,6 +258,32 @@ def gpr_profiles(dev, label: str, root: str) -> None:
         }), flush=True)
 
 
+def vanderpol_profile(dev, label: str, root: str) -> None:
+    """One JSON line: the d = 2 packed step at full width."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed_ch import (
+        pack_state_ch,
+        packed_natgrad_step_ch,
+    )
+
+    smoke = _chip_smoke()
+    model = smoke.vanderpol_model(T, torch.float32, dev)[0]
+
+    def advance(state):
+        return packed_natgrad_step_ch(model, state, smoke.LR_VANDERPOL)
+
+    state = pack_state_ch(model)
+    for _ in range(2):
+        state, _ = advance(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    record, _, elbo = time_and_profile(advance, state, runs=7, steps=8, profiled=4)
+    print(json.dumps({
+        "label": label, "root": root, "vanderpol": "vanderpol_d2_cvi_dp_step_100k", "t": T,
+        "elbo": float(elbo), "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20,
+        **record,
+    }), flush=True)
+
+
 def scan_profiles(dev) -> dict:
     """The generic scan alone at T: launches, host-clock ms (median of 7) and
     device ms per scan of the marginals' compose at d = 1, 2, 4, and the tiny
@@ -306,6 +337,7 @@ def main() -> None:
     mode.add_argument("--k4-shapes", action="store_true")
     mode.add_argument("--gpr", action="store_true")
     mode.add_argument("--scan", action="store_true")
+    mode.add_argument("--vanderpol", action="store_true")
     ap.add_argument("--k4-windows", type=int, nargs=2, metavar=("NB", "L"))
     ap.add_argument("--label", default="")
     args = ap.parse_args()
@@ -319,6 +351,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     if args.gpr:
         gpr_profiles(dev, args.label, args.root)
+        return
+    if args.vanderpol:
+        vanderpol_profile(dev, args.label, args.root)
         return
     if args.prior or args.k4_shapes or args.scan:
         result = (prior_learning_ms(dev) if args.prior

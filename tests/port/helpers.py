@@ -137,3 +137,67 @@ def assert_ssm_close(tssm, jssm, rtol):
 def uneven_grid(rng, n, t1=10.0):
     """A sorted grid of ``n`` points on [0, t1] with uneven gaps."""
     return np.sort(rng.uniform(0.0, t1, size=n))
+
+
+def vanderpol_data(t_points, dtype="float64", t1=2.0):
+    """The grid, observation indices and observations of
+    tests/unit/test_cvi_dp_packed_ch.py:24-54: ``(sin 1.1t, cos 1.1t)`` plus
+    0.2·N(0, I₂) from ``default_rng(4)`` every 13 points from index 8."""
+    grid = np.linspace(0.0, t1, t_points).astype(dtype)
+    obs_idx = np.arange(8, t_points - 1, 13)
+    t = grid[obs_idx].astype(np.float64)
+    noise = np.random.default_rng(4).normal(size=(len(obs_idx), 2))
+    obs_y = (np.stack([np.sin(1.1 * t), np.cos(1.1 * t)], -1) + 0.2 * noise).astype(dtype)
+    return grid, obs_idx, obs_y
+
+
+def vanderpol_model_jax(t_points, dtype="float64"):
+    """The JAX ``CVISitesSDE`` of test_cvi_dp_packed_ch.py:24-54 (Van der
+    Pol, a = τ = 1, q = 0.5·I₂, Gaussian likelihood 0.04, p(x₀) = N(0,
+    0.5·I₂), clip (−2, 2)), linearized."""
+    import jax
+    import jax.numpy as jnp
+
+    from vi_diffusion_processes_tpu.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu.models.cvi_dp import CVISitesSDE
+    from vi_diffusion_processes_tpu.sde.utils import Gaussian as GaussianState
+    from vi_diffusion_processes_tpu.sde.zoo import VanderPolOscillatorSDE
+
+    jdtype = getattr(jnp, dtype)
+    grid, obs_idx, obs_y = vanderpol_data(t_points, dtype)
+    sde = VanderPolOscillatorSDE(a=jnp.asarray(1.0, jdtype), tau=jnp.asarray(1.0, jdtype),
+                                 q_mat=0.5 * jnp.eye(2, dtype=jdtype))
+    model = CVISitesSDE.initialize(
+        prior_ssm=None, time_grid=jnp.asarray(grid),
+        input_data=(jnp.asarray(grid[obs_idx]), jnp.asarray(obs_y)),
+        likelihood=Gaussian(variance=jnp.asarray(0.04, jdtype)),
+        prior_initial_state=GaussianState(mu=jnp.zeros((2,), jdtype),
+                                          cov=0.5 * jnp.eye(2, dtype=jdtype)),
+        prior_sde=sde, stabilize_ssm=True, clip_state_transitions=(-2.0, 2.0),
+    )
+    return jax.jit(lambda m: m.set_linearized_prior())(model)
+
+
+def vanderpol_model_port(t_points, dtype="float64", device="cpu"):
+    """The same model built with the port's API alone."""
+    import torch
+
+    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
+    from vi_diffusion_processes_tpu_torch.sde.utils import Gaussian as GaussianState
+    from vi_diffusion_processes_tpu_torch.sde.zoo import VanderPolOscillatorSDE
+
+    tdtype = getattr(torch, dtype)
+    grid, obs_idx, obs_y = vanderpol_data(t_points, dtype)
+    grid = torch.tensor(grid, device=device)
+    eye = torch.eye(2, dtype=tdtype, device=device)
+    model = CVISitesSDE.initialize(
+        prior_ssm=None, time_grid=grid,
+        input_data=(grid[torch.tensor(obs_idx, device=device)], torch.tensor(obs_y, device=device)),
+        likelihood=Gaussian(0.04, dtype=tdtype).to(device),
+        prior_initial_state=GaussianState(mu=torch.zeros(2, dtype=tdtype, device=device),
+                                          cov=0.5 * eye),
+        prior_sde=VanderPolOscillatorSDE(a=1.0, tau=1.0, q=0.5 * eye, dtype=tdtype).to(device),
+        stabilize_ssm=True, clip_state_transitions=(-2.0, 2.0),
+    )
+    return model.set_linearized_prior()

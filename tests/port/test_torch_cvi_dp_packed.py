@@ -24,9 +24,8 @@ from vi_diffusion_processes_tpu_torch import interop
 from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
 from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed as tp
 from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
-from vi_diffusion_processes_tpu_torch.sde.utils import BTDNaturals
 from vi_diffusion_processes_tpu_torch.sde.utils import Gaussian as TGaussian
-from vi_diffusion_processes_tpu_torch.sde.zoo import DoubleWellSDE
+from vi_diffusion_processes_tpu_torch.sde.zoo import DoubleWellSDE, VanderPolOscillatorSDE
 
 from .helpers import assert_close_scaled, to_np
 
@@ -124,18 +123,21 @@ def test_packed_steps_and_elbo_match_jax(models):
 
 
 def test_generic_update_rules_raise_naming_their_slice(models):
-    """The generic route runs at d = 1; at d >= 2 it raises, naming slice E."""
+    """The generic route runs at d = 1 and, on the Van der Pol prior, at
+    d = 2; the d = 1 packed state refuses d = 2 and names its bound."""
     _, _, tmodel = models
     stepped = tmodel.update_data_sites(0.1)
     assert stepped.fx_mus.shape == (T, 1) and bool(torch.isfinite(stepped.fx_mus).all())
     assert not torch.equal(stepped.data_sites.nat1, tmodel.data_sites.nat1)
-    wide = CVISitesSDE.initialize(
-        prior_ssm=None, time_grid=tmodel.time_grid,
-        input_data=(tmodel.time_grid[tmodel.obs_indices], tmodel.observations.repeat(1, 2)),
-        likelihood=tmodel.likelihood,
-        prior_initial_state=TGaussian(mu=torch.zeros(2), cov=torch.eye(2)),
+    dtype = tmodel.time_grid.dtype
+    wide = CVISitesSDE.initialize_sde(
+        VanderPolOscillatorSDE(a=1.0, tau=1.0, q=0.5 * torch.eye(2, dtype=dtype), dtype=dtype),
+        tmodel.time_grid,
+        (tmodel.time_grid[tmodel.obs_indices], tmodel.observations.repeat(1, 2)),
+        tmodel.likelihood, clip_state_transitions=(-2.0, 2.0),
     )
-    # any float64 naturals stand in for the prior's: dist_q must refuse d = 2
-    two_d = wide.replace(prior_nats=BTDNaturals(*(x.double() for x in wide.girsanov_sites)))
-    with pytest.raises(NotImplementedError, match="slice E"):
-        two_d.update_data_sites(0.1)
+    two_d = wide.update_data_sites(0.1)
+    assert two_d.fx_covs.shape == (T, 2, 2) and bool(torch.isfinite(two_d.fx_covs).all())
+    assert not torch.equal(two_d.data_sites.nat1, wide.data_sites.nat1)
+    with pytest.raises(ValueError, match="state_dim == 1"):
+        tp.pack_state(wide)

@@ -118,11 +118,15 @@ def test_gaussian_variational_expectations_matches_jax(rng):
 
 
 def test_d2_paths_raise_naming_their_slice(rng):
-    nat = torch.zeros(5, 2), torch.zeros(5, 2, 2), torch.zeros(4, 2, 2)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        ttr.naturals_to_ssm_params(*nat)
+    """At d = 2 the naturals of a chain give the chain back, and the
+    marginals are the generic associative scan."""
     ssm2 = StateSpaceModel(torch.zeros(2), torch.eye(2), torch.zeros(4, 2, 2),
                            torch.zeros(4, 2), torch.eye(2).expand(4, 2, 2))
+    back = ttr.naturals_to_ssm(*ttr.ssm_to_naturals(ssm2.astype(torch.float64)))
+    for name in ("initial_mean", "chol_initial_covariance", "state_transitions",
+                 "state_offsets", "chol_process_covariances"):
+        torch.testing.assert_close(getattr(back, name), getattr(ssm2, name).double(),
+                                   rtol=0, atol=1e-12, msg=name)
     # d >= 2 marginals no longer raise: they run the generic associative scan
     means, covs = ssm2.marginals()
     assert torch.equal(means, torch.zeros(5, 2))

@@ -77,8 +77,8 @@ def test_build_prior_sde_knows_the_d1_zoo(name, kwargs):
 
 
 def test_build_prior_sde_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice E"):
-        build_prior_sde("vanderpol", device="cpu")
+    # the d = 2 oscillator is in the zoo too
+    assert build_prior_sde("vanderpol", device="cpu").state_dim == 2
     with pytest.raises(ValueError, match="unknown prior sde"):
         build_prior_sde("nope", device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):

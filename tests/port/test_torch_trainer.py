@@ -8,7 +8,6 @@ reproduce ``traces.npz::cvi_dp_elbos`` to rtol 1e-6, as the JAX golden
 test does.
 """
 import numpy as np
-import pytest
 
 from tests.golden.generate import GOLDEN_PATH, SEED
 from vi_diffusion_processes_tpu.exp.runners import ExperimentConfig as JConfig
@@ -39,8 +38,9 @@ def test_run_cvi_dp_reproduces_golden_elbos():
 
 
 def test_trainer_refuses_routes_outside_the_slice():
-    """``use_packed=False`` runs at d = 1; a d >= 2 model raises, naming
-    slice E."""
+    """``use_packed=False`` runs at d = 1 and gives the packed route's
+    ELBOs; a d = 2 model that is not an SDE-CVI model takes the generic
+    update rules."""
     dataset = interop.dataset_from_numpy(
         to_np(make_dataset(JConfig(**CONFIG, **dict(DATA, num_grid=201, num_observations=20)))),
         device="cpu")
@@ -56,5 +56,4 @@ def test_trainer_refuses_routes_outside_the_slice():
     class TwoD:
         state_dim = 2
 
-    with pytest.raises(NotImplementedError, match="slice E"):
-        CVISitesTrainer(model=TwoD())
+    assert CVISitesTrainer(model=TwoD())._packed is None

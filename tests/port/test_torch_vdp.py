@@ -227,8 +227,18 @@ def test_trainer_with_drift_learning_matches_jax():
 
 
 def test_trainer_names_slice_e_at_d2():
+    """A d = 2 model runs ``VDPTrainer`` on the generic ``inference_step``
+    (held against the JAX trainer in test_torch_vanderpol.py)."""
     from vi_diffusion_processes_tpu_torch.optim.trainers import VDPTrainer
+    from vi_diffusion_processes_tpu_torch.sde.zoo import VanderPolOscillatorSDE
 
-    wide = _port_model(_jax_model()).replace(b=torch.zeros(N - 1, 2, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="slice E"):
-        VDPTrainer(wide)
+    narrow = _port_model(_jax_model())
+    obs_times = narrow.grid[narrow.obs_indices]
+    wide = VariationalMarkovGP.initialize(
+        (obs_times, narrow.observations.repeat(1, 2)),
+        VanderPolOscillatorSDE(a=1.0, tau=1.0, q=0.5 * torch.eye(2, dtype=torch.float64)),
+        narrow.grid, narrow.likelihood)
+    trainer = VDPTrainer(wide, lr=0.01, warmup_steps=1, max_iters=2)
+    elbo = trainer.perform_inference()
+    assert not trainer._packed and np.isfinite(elbo) and trainer.model.A.shape == (N - 1, 2, 2)
+    assert float(trainer.model.b.abs().max()) > 0

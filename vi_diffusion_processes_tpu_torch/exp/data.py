@@ -37,8 +37,9 @@ _THETA_SDES = {
 
 
 def build_prior_sde(name: str, dtype=torch.float64, q: float = 1.0, device=None, **kwargs):
-    """Prior SDE by the reference's config name (exp/data.py:85-113); the
-    d = 1 members only.  ``"mlpdrift"`` draws its weights from
+    """Prior SDE by the reference's config name (exp/data.py:85-113).
+    ``"vanderpol"`` takes ``a`` and ``tau`` (1 each by default) and the
+    diffusion ``q·I₂``.  ``"mlpdrift"`` draws its weights from
     ``kwargs["generator"]`` (a CPU ``torch.Generator``; seed 0 when none is
     given).  Built on ``device``: the CUDA card unless the caller names
     another device."""
@@ -58,8 +59,9 @@ def build_prior_sde(name: str, dtype=torch.float64, q: float = 1.0, device=None,
             generator = torch.Generator().manual_seed(0)
         sde = zoo.MLPDrift.initialize(generator, q1, dtype=dtype)
     elif name == "vanderpol":
-        raise NotImplementedError(
-            "prior sde 'vanderpol' is not ported yet (slice E of ROADMAP.md, d >= 2)"
+        sde = zoo.VanderPolOscillatorSDE(
+            a=kwargs.get("a", 1.0), tau=kwargs.get("tau", 1.0), q=q * torch.eye(2, dtype=dtype),
+            dtype=dtype,
         )
     else:
         raise ValueError(f"unknown prior sde: {name}")

@@ -54,7 +54,8 @@ def sde_from_numpy(name: str, leaves: Mapping, device=None):
     """SDE from its JAX leaves, by class name: ``"DoubleWellSDE"`` (``q_mat``,
     ``scale``, ``c``), ``"OrnsteinUhlenbeckSDE"`` (``decay``, ``q_mat``),
     ``"BenesSDE"``, ``"SineDiffusionSDE"``, ``"SqrtDiffusionSDE"`` (``theta``,
-    ``q_mat``) or ``"MLPDrift"`` (``w1``, ``b1``, ``w2``, ``b2``, ``q_mat``)."""
+    ``q_mat``), ``"MLPDrift"`` (``w1``, ``b1``, ``w2``, ``b2``, ``q_mat``) or
+    ``"VanderPolOscillatorSDE"`` (``a``, ``tau``, ``q_mat [2, 2]``)."""
     q = np.asarray(leaves["q_mat"])
     dtype = torch.as_tensor(q).dtype
     if name == "DoubleWellSDE":
@@ -67,8 +68,10 @@ def sde_from_numpy(name: str, leaves: Mapping, device=None):
         sde = zoo.MLPDrift(
             *(np.asarray(leaves[k]) for k in ("w1", "b1", "w2", "b2")), q=q, dtype=dtype
         )
+    elif name == "VanderPolOscillatorSDE":
+        sde = zoo.VanderPolOscillatorSDE(a=leaves["a"], tau=leaves["tau"], q=q, dtype=dtype)
     else:
-        raise NotImplementedError(f"SDE {name!r} is not ported yet (slice E of ROADMAP.md)")
+        raise ValueError(f"unknown SDE {name!r}")
     return sde.to(resolve_device(device))
 
 

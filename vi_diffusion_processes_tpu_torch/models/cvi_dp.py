@@ -8,16 +8,17 @@ natural form.  ``dist_q`` sums them and recovers an SSM by the UDU'
 factorization.  Models are frozen dataclasses of tensors; every update
 returns a new model through :meth:`replace`.
 
-Ported at d = 1: construction, linearization, ``full_sites``, ``dist_q``,
-the variational expectation, ``kl_q_p`` against an SSM and an SDE prior,
-``classic_elbo``, the generic (unpacked) update rules ``update_data_sites``
-and ``update_girsanov_sites`` with ``grad_kl_wrt_exp_param``, and the two
-gradients that drift learning takes with respect to the SDE's parameters,
-which flow through the pivot sweep and the recurrences by their custom
-backward passes.  Every refresh of the cached path goes through
-``dist_q.marginals()``: kernels K1 and K2 on CUDA.  The same loop on packed
-scalars is :mod:`.cvi_dp_packed`.  At d >= 2 ``dist_q`` raises, naming
-slice E of ROADMAP.md.
+Ported at any state dimension: construction, linearization,
+``full_sites``, ``dist_q``, the variational expectation, ``kl_q_p`` against
+an SSM and an SDE prior, ``classic_elbo``, the generic (unpacked) update
+rules ``update_data_sites`` and ``update_girsanov_sites`` with
+``grad_kl_wrt_exp_param``, and the two gradients that drift learning takes
+with respect to the SDE's parameters, which at d = 1 flow through the pivot
+sweep and the recurrences by their custom backward passes.  Every refresh of the cached path goes through
+``dist_q.marginals()``: at d = 1 kernels K1 and K2 on CUDA, at d ≥ 2 the
+Schur-segment UDU' and the marginals on the generic associative scan.  The
+same loop on packed state is :mod:`.cvi_dp_packed` (d = 1) and
+:mod:`.cvi_dp_packed_ch` (2 ≤ d ≤ 8).
 """
 from __future__ import annotations
 

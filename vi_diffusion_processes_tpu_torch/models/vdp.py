@@ -8,9 +8,9 @@ Lagrange-multiplier ODEs ``(λ, ψ)`` integrated backward in time.  One
 gradients (``torch.autograd.grad`` on fresh leaves), the backward Lagrange
 integration and the smoothed ``(A, b)`` update.  Both Euler-discretized
 Lagrange recursions are affine in the multiplier, so they and the marginals
-run as the scalar recurrences of :mod:`..ops.btd` at d = 1: kernel K2 on
-CUDA.  d >= 2 raises in :func:`..ops.btd.affine_scan`, naming slice E of
-ROADMAP.md.  Everything is in the observations' dtype.
+run as the scalar recurrences of :mod:`..ops.btd` at d = 1 (kernel K2 on
+CUDA) and as the matrix ``affine_scan`` on the generic associative scan at
+d ≥ 2.  Everything is in the observations' dtype.
 
 The model is a frozen dataclass of tensors; every update returns a new
 model through :meth:`replace`.  The model carries precomputed

@@ -1,10 +1,13 @@
-"""Block-tridiagonal dispatchers (vi_diffusion_processes_tpu/ops/btd.py).
+"""Block-tridiagonal algebra (vi_diffusion_processes_tpu/ops/btd.py).
 
-The d = 1 slice: the Riccati pivot sweep, the scalar affine recurrences,
-the parallel UDU' built on them, and the scalar-channel ``dist_q``
-composition (naturals → SSM parameters → marginals) of
-``models/cvi_dp_packed.py:125-197``; and the matrix ``affine_scan`` at
-d ≥ 2, on the generic associative scan.  Dispatch is by dtype and device:
+The d = 1 dispatchers: the Riccati pivot sweep, the scalar affine
+recurrences, the parallel UDU' built on them, and the scalar-channel
+``dist_q`` composition (naturals → SSM parameters → marginals) of
+``models/cvi_dp_packed.py:125-197``.  At d ≥ 2: the matrix ``affine_scan``
+and the Schur-segment UDU' :func:`btd_udu_parallel`, both on the generic
+associative scan.  The dense algebra (``btd_to_dense`` … ``btd_solve_sym_vec``)
+and the sequential :func:`btd_udu` are reference tools: their recursions
+are plain loops over the block axis.  Dispatch is by dtype and device:
 float64 sweeps run K1 and float32 sweeps K4; the wrappers launch their
 CUDA kernels for CUDA tensors and run their plain PyTorch versions for CPU
 tensors.  Every wrapper is differentiable.  The JAX package's
@@ -18,13 +21,36 @@ from typing import Tuple
 
 import torch
 
-from ..utils.linalg import matmul_small, matvec_small
+from ..utils.linalg import (
+    chol_psd,
+    cho_solve,
+    eye_like,
+    inv_pd,
+    matmul_small,
+    matvec_small,
+    symmetrize,
+    transpose_last,
+    tri_solve,
+)
 from .blocked_scan import assoc_scan
 from .cuda_riccati import _riccati_d_sweep_f32_unchecked
 from .cuda_scan import _riccati_d_sweep_unchecked, linear_recurrence
 
 __all__ = [
     "BTD",
+    "btd_to_dense",
+    "btd_from_dense",
+    "btd_matvec",
+    "btd_add",
+    "btd_scale",
+    "btd_cholesky",
+    "btd_chol_solve_vec",
+    "btd_tri_solve_vec",
+    "btd_logdet_from_chol",
+    "btd_blocks_of_inverse",
+    "btd_udu",
+    "btd_udu_parallel",
+    "btd_solve_sym_vec",
     "btd_udu_parallel_1d",
     "riccati_d_scalar",
     "scalar_affine_all",
@@ -40,6 +66,211 @@ class BTD:
 
     diag: torch.Tensor
     sub: torch.Tensor
+
+    @property
+    def num_blocks(self) -> int:
+        return self.diag.shape[-3]
+
+    @property
+    def block_dim(self) -> int:
+        return self.diag.shape[-1]
+
+    @property
+    def batch_shape(self) -> Tuple[int, ...]:
+        return tuple(self.diag.shape[:-3])
+
+
+def _stack_blocks(blocks, like: torch.Tensor) -> torch.Tensor:
+    """Per-block results of a loop, stacked on the block axis ``-3``; ``like``
+    (already of the right shape) stands in when the loop ran no step."""
+    return torch.stack(blocks, dim=-3) if blocks else like.clone()
+
+
+def btd_to_dense(m: BTD, symmetric: bool = True) -> torch.Tensor:
+    """Densify to ``[..., N·d, N·d]`` (btd.py:79-93; tests and debugging)."""
+    n, d = m.num_blocks, m.block_dim
+    out = m.diag.new_zeros(m.batch_shape + (n, d, n, d))
+    idx = torch.arange(n, device=m.diag.device)
+    # the two index arrays sit apart, so their axis comes first
+    out[..., idx, :, idx, :] = m.diag.movedim(-3, 0)
+    if n > 1:
+        out[..., idx[1:], :, idx[:-1], :] = m.sub.movedim(-3, 0)
+        if symmetric:
+            out[..., idx[:-1], :, idx[1:], :] = transpose_last(m.sub).movedim(-3, 0)
+    return out.reshape(m.batch_shape + (n * d, n * d))
+
+
+def btd_from_dense(dense: torch.Tensor, n: int, d: int) -> BTD:
+    """The in-band blocks of a dense ``[..., N·d, N·d]`` matrix (btd.py:96-108)."""
+    blocks = dense.reshape(tuple(dense.shape[:-2]) + (n, d, n, d))
+    idx = torch.arange(n, device=dense.device)
+    return BTD(
+        diag=blocks[..., idx, :, idx, :].movedim(0, -3),
+        sub=blocks[..., idx[1:], :, idx[:-1], :].movedim(0, -3),
+    )
+
+
+def btd_matvec(m: BTD, vec: torch.Tensor, symmetric: bool = True) -> torch.Tensor:
+    """``K x`` for ``x [..., N, d]`` (btd.py:111-122)."""
+    y = matvec_small(m.diag, vec)
+    lower = matvec_small(m.sub, vec[..., :-1, :])
+    y = y + torch.cat([torch.zeros_like(vec[..., :1, :]), lower], dim=-2)
+    if symmetric:
+        upper = matvec_small(transpose_last(m.sub), vec[..., 1:, :])
+        y = y + torch.cat([upper, torch.zeros_like(vec[..., :1, :])], dim=-2)
+    return y
+
+
+def btd_add(a: BTD, b: BTD) -> BTD:
+    return BTD(diag=a.diag + b.diag, sub=a.sub + b.sub)
+
+
+def btd_scale(a: BTD, s) -> BTD:
+    return BTD(diag=a.diag * s, sub=a.sub * s)
+
+
+def btd_cholesky(m: BTD) -> BTD:
+    """Blocked Cholesky ``K = L Lᵀ`` of a symmetric PD BTD matrix
+    (btd.py:137-167): ``L₀L₀ᵀ = D₀``, ``Cₖ = BₖLₖ⁻ᵀ``,
+    ``Lₖ₊₁Lₖ₊₁ᵀ = Dₖ₊₁ − CₖCₖᵀ``.  ``L`` is lower block-bidiagonal."""
+    diag, sub = m.diag.movedim(-3, 0), m.sub.movedim(-3, 0)
+    ls, cs = [chol_psd(diag[0])], []
+    for b_k, d_next in zip(sub, diag[1:]):
+        c_k = transpose_last(tri_solve(ls[-1], transpose_last(b_k)))
+        cs.append(c_k)
+        ls.append(chol_psd(d_next - c_k @ transpose_last(c_k)))
+    return BTD(diag=_stack_blocks(ls, m.diag), sub=_stack_blocks(cs, m.sub))
+
+
+def btd_tri_solve_vec(l: BTD, rhs: torch.Tensor, *, transpose: bool = False) -> torch.Tensor:
+    """Solve ``L x = rhs`` (or ``Lᵀ x = rhs``) for lower block-bidiagonal
+    ``L``, ``rhs [..., N, d]`` (btd.py:170-203)."""
+    ld, ls, r = l.diag.movedim(-3, 0), l.sub.movedim(-3, 0), rhs.movedim(-2, 0)
+
+    def solve(lk, v):
+        return tri_solve(lk, v[..., None], transpose=transpose)[..., 0]
+
+    n = ld.shape[0]
+    if not transpose:
+        xs = [solve(ld[0], r[0])]
+        for k in range(n - 1):
+            xs.append(solve(ld[k + 1], r[k + 1] - matvec_small(ls[k], xs[-1])))
+    else:  # Lᵀ is upper block-bidiagonal: backward substitution
+        xs = [solve(ld[-1], r[-1])]
+        for k in range(n - 2, -1, -1):
+            xs.append(solve(ld[k], r[k] - matvec_small(transpose_last(ls[k]), xs[-1])))
+        xs.reverse()
+    return torch.stack(xs, dim=-2)
+
+
+def btd_chol_solve_vec(l: BTD, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve ``(L Lᵀ) x = rhs`` given the BTD Cholesky factor (btd.py:206-208)."""
+    return btd_tri_solve_vec(l, btd_tri_solve_vec(l, rhs), transpose=True)
+
+
+def btd_logdet_from_chol(l: BTD) -> torch.Tensor:
+    """``log |L Lᵀ| = 2 Σ log diag(L)`` (btd.py:211-215)."""
+    diag = torch.diagonal(l.diag, dim1=-2, dim2=-1)
+    return 2.0 * torch.sum(torch.log(torch.abs(diag)), dim=(-1, -2))
+
+
+def btd_blocks_of_inverse(l: BTD) -> BTD:
+    """In-band blocks of ``(L Lᵀ)⁻¹`` from the BTD Cholesky factor by the
+    backward block recursion of btd.py:218-254: ``Σ_NN = L_N⁻ᵀL_N⁻¹``,
+    ``G_k = −L_k⁻ᵀCₖᵀ``, ``Σ_{k,k+1} = G_kΣ_{k+1,k+1}``,
+    ``Σ_kk = L_k⁻ᵀL_k⁻¹ + G_kΣ_{k+1,k+1}G_kᵀ``.  Returns ``diag[k] = Σ_kk``
+    and ``sub[k] = Σ_{k+1,k}``."""
+    ld, ls = l.diag.movedim(-3, 0), l.sub.movedim(-3, 0)
+
+    def inv_from_chol(lk):
+        linv = tri_solve(lk, eye_like(lk).expand(lk.shape))
+        return transpose_last(linv) @ linv
+
+    sigmas, subs = [inv_from_chol(ld[-1])], []
+    for k in range(ld.shape[0] - 2, -1, -1):
+        g_k = -tri_solve(ld[k], transpose_last(ls[k]), transpose=True)
+        cross = g_k @ sigmas[-1]
+        subs.append(transpose_last(cross))
+        sigmas.append(inv_from_chol(ld[k]) + cross @ transpose_last(g_k))
+    return BTD(diag=_stack_blocks(sigmas[::-1], l.diag), sub=_stack_blocks(subs[::-1], l.sub))
+
+
+def btd_udu(k: BTD) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``K = U D Uᵀ`` with unit upper block-bidiagonal ``U`` by the
+    sequential backward recursion ``D_k = K_kk − b_kᵀ D_{k+1}⁻¹ b_k``
+    (btd.py:257-283; ``b_k = K[k+1, k]``).  Returns ``(D [..., N, d, d],
+    U [..., N-1, d, d])`` with ``U[k] = U[k, k+1] = b_kᵀ D_{k+1}⁻¹``.  The
+    plain reference of :func:`btd_udu_parallel`, and the float32 route of
+    ``naturals_to_ssm_params``."""
+    kd, ks = k.diag.movedim(-3, 0), k.sub.movedim(-3, 0)
+    ds, us = [kd[-1]], []
+    for i in range(kd.shape[0] - 2, -1, -1):
+        ut_i = cho_solve(chol_psd(ds[-1]), ks[i])  # U_iᵀ = D_{i+1}⁻¹ b_i
+        us.append(transpose_last(ut_i))
+        ds.append(kd[i] - transpose_last(ut_i) @ ks[i])
+    return _stack_blocks(ds[::-1], k.diag), _stack_blocks(us[::-1], k.sub)
+
+
+def _schur_compose(later, earlier):
+    """Join two adjacent segments by eliminating their shared interface
+    (btd.py:482-492).  A segment ``[i..j]`` is its boundary quadratic form
+    ``(A, B, C)`` over ``x_i²``, ``x_i·x_j``, ``x_j²`` with the interior
+    eliminated; the pivot ``M = C_earlier + A_later`` is positive definite."""
+    a_r, b_r, c_r = later
+    a_l, b_l, c_l = earlier
+    m_inv = inv_pd(c_l + a_r)
+    blm = matmul_small(b_l, m_inv)
+    a_new = symmetrize(a_l - matmul_small(blm, transpose_last(b_l)))
+    b_new = -matmul_small(blm, b_r)
+    c_new = symmetrize(
+        c_r - matmul_small(transpose_last(b_r), matmul_small(m_inv, b_r)))
+    return a_new, b_new, c_new
+
+
+def btd_udu_parallel(k: BTD) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`btd_udu` as one reverse associative scan of Schur segments:
+    the math of ``btd_udu_parallel_ch``, ``udu_channels`` and
+    ``btd_udu_parallel_dense`` (btd.py:286-614) on ``[N-1, d, d]`` stacks.
+
+    ``D_k`` is the Schur complement of the suffix ``K[k:, k:]`` onto
+    ``x_k``.  Segment ``[k, k+1]`` starts as ``(0, b_kᵀ, K_{k+1,k+1})``; the
+    reverse scan gives the suffix ``[k..N-1]`` as ``(A_k, B_k, C_k)``, and
+    ``D_k = K_kk + A_k − B_k C_k⁻¹ B_kᵀ``, ``D_{N-1} = K_{N-1,N-1}``,
+    ``U_k = b_kᵀ D_{k+1}⁻¹``.  Every pivot is positive definite, so the
+    scan is stable where the 2d×2d transfer-matrix product is not.  The
+    scan never pads, so no element needs to be neutral: the JAX package's
+    identity flag and its guarded pivots have no counterpart.  Inverses are
+    :func:`inv_pd`'s (closed forms up to d = 3)."""
+    kd, b = k.diag, k.sub
+    if b.shape[-3] == 0:
+        return kd, b
+    b_t = transpose_last(b)
+    a_s, b_s, c_s = assoc_scan(
+        _schur_compose,
+        (torch.zeros_like(b).movedim(-3, 0), b_t.movedim(-3, 0), kd[..., 1:, :, :].movedim(-3, 0)),
+        reverse=True,
+    )
+    a_s, b_s, c_s = (x.movedim(0, -3) for x in (a_s, b_s, c_s))
+    corr = matmul_small(b_s, matmul_small(inv_pd(c_s), transpose_last(b_s)))
+    d_head = symmetrize(kd[..., :-1, :, :] + a_s - corr)
+    d_blocks = torch.cat([d_head, kd[..., -1:, :, :]], dim=-3)
+    return d_blocks, matmul_small(b_t, inv_pd(d_blocks[..., 1:, :, :]))
+
+
+def btd_solve_sym_vec(k: BTD, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve ``K x = rhs`` through ``K = U D Uᵀ`` (btd.py:940-970): ``U z =
+    rhs`` backward, ``w = D⁻¹z``, ``Uᵀ x = w`` forward."""
+    d_blocks, u_super = btd_udu(k)
+    u, r = u_super.movedim(-3, 0), rhs.movedim(-2, 0)
+    zs = [r[-1]]
+    for i in range(r.shape[0] - 2, -1, -1):
+        zs.append(r[i] - matvec_small(u[i], zs[-1]))
+    z = torch.stack(zs[::-1], dim=-2)
+    w = cho_solve(chol_psd(d_blocks), z[..., None])[..., 0].movedim(-2, 0)
+    xs = [w[0]]
+    for i in range(1, w.shape[0]):
+        xs.append(w[i] - matvec_small(transpose_last(u[i - 1]), xs[-1]))
+    return torch.stack(xs, dim=-2)
 
 
 def riccati_d_scalar(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:

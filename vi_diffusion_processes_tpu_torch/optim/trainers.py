@@ -1,14 +1,15 @@
 """Training loops of the diffusion-process models
 (vi_diffusion_processes_tpu/optim/trainers.py).
 
-:class:`CVISitesTrainer` at d = 1, on the packed state or
-(``use_packed=False``, or an SSM prior) on the generic update rules: site
-updates with learning-rate decay on an ELBO decrease, re-linearization of
-an SDE prior between inner loops, drift learning (Adam on the SDE's
-parameters after each outer iteration), and zigzag detection.
-:class:`VDPTrainer`: the VDP fixed-point loop with warm-up, on the packed
-state at d = 1.  The control flow is plain Python, as in the reference.
-d >= 2 belongs to slice E of ROADMAP.md.
+:class:`CVISitesTrainer`: site updates with learning-rate decay on an
+ELBO decrease, re-linearization of an SDE prior between inner loops, drift
+learning (Adam on the SDE's parameters after each outer iteration), and
+zigzag detection.  Its inner loop runs the packed step of
+:mod:`..models.cvi_dp_packed` at d = 1 or of :mod:`..models.cvi_dp_packed_ch`
+at 2 ≤ d ≤ 8, and the generic update rules otherwise (``use_packed=False``,
+an SSM prior, or d > 8).  :class:`VDPTrainer`: the VDP fixed-point loop with
+warm-up, on the packed state at d = 1 and on the generic ``inference_step``
+above.  The control flow is plain Python, as in the reference.
 """
 from __future__ import annotations
 
@@ -73,27 +74,30 @@ class CVISitesTrainer:
     elbo_trace: List[float] = field(default_factory=list)
 
     def __post_init__(self):
-        if self.model.state_dim != 1:
-            raise NotImplementedError(
-                "CVISitesTrainer: d >= 2 (cvi_dp_packed_ch and the d >= 2 "
-                "naturals_to_ssm_params) belongs to slice E of ROADMAP.md"
-            )
-        self._packed = self.use_packed and isinstance(self.model, CVISitesSDE)
+        # (pack, unpack, step, elbo) of the packed loop, or None for the
+        # generic update rules (trainers.py:53-78)
+        self._packed = None
+        if self.use_packed and isinstance(self.model, CVISitesSDE):
+            if self.model.state_dim == 1:
+                from ..models import cvi_dp_packed as p
+
+                self._packed = (p.pack_state, p.unpack_state, p.packed_natgrad_step,
+                                p.packed_elbo)
+            else:
+                from ..models import cvi_dp_packed_ch as p
+
+                if self.model.state_dim <= p.MAX_STATE_DIM:
+                    self._packed = (p.pack_state_ch, p.unpack_state_ch,
+                                    p.packed_natgrad_step_ch, p.packed_elbo_ch)
         if self.learn_prior_sde:
             self._prior_learner = _PriorSDELearner(self.model.prior_sde, self.prior_sde_lr)
 
     def optimize_sites(self) -> float:
         """Inner loop with lr decay on an ELBO decrease (trainers.py:84-124),
         on the packed state or on the generic update rules: the same updates."""
-        from ..models.cvi_dp_packed import (
-            pack_state,
-            packed_elbo,
-            packed_natgrad_step,
-            unpack_state,
-        )
-
         # both routes share a carry: the packed state, or the model itself
-        if self._packed:
+        if self._packed is not None:
+            pack_state, unpack_state, packed_natgrad_step, packed_elbo = self._packed
             carry = pack_state(self.model)
             prev = float(packed_elbo(self.model, carry))
 
@@ -124,7 +128,7 @@ class CVISitesTrainer:
                 prev = elbo
                 break
             prev = elbo
-        self.model = unpack_state(self.model, carry) if self._packed else carry
+        self.model = carry if self._packed is None else unpack_state(self.model, carry)
         return prev
 
     def perform_inference(self) -> float:
@@ -164,8 +168,9 @@ class CVISitesTrainer:
 
 @dataclass
 class VDPTrainer:
-    """VDP fixed-point loop with warm-up (trainers.py:165-251), at d = 1 on
-    the packed state (models/vdp_packed)."""
+    """VDP fixed-point loop with warm-up (trainers.py:165-251): at d = 1 on
+    the packed state (models/vdp_packed), above on the model's own
+    ``inference_step`` and ``elbo`` (the matrix ``affine_scan``)."""
 
     model: VariationalMarkovGP
     lr: float = 0.05
@@ -180,18 +185,15 @@ class VDPTrainer:
     elbo_trace: List[float] = field(default_factory=list)
 
     def __post_init__(self):
-        if self.model.state_dim != 1:
-            raise NotImplementedError(
-                "VDPTrainer: d >= 2 (the matrix affine_scan) belongs to slice E of ROADMAP.md"
-            )
+        self._packed = self.model.state_dim == 1
         if self.learn_prior_sde:
             self._prior_learner = _PriorSDELearner(self.model.prior_sde, self.prior_sde_lr)
 
     def perform_inference(self) -> float:
-        """Warm-up at a tiny rate, then fixed-point steps on the packed
-        state: a NaN ELBO reverts the step and shrinks the rate; a step whose
-        ELBO fell is accepted and only damps the rate, since VDP steps
-        transiently decrease the ELBO (trainers.py:202-234)."""
+        """Warm-up at a tiny rate, then fixed-point steps: a NaN ELBO reverts
+        the step and shrinks the rate; a step whose ELBO fell is accepted and
+        only damps the rate, since VDP steps transiently decrease the ELBO
+        (trainers.py:202-234)."""
         from ..models.vdp_packed import (
             pack_vdp,
             packed_inference_step,
@@ -199,14 +201,32 @@ class VDPTrainer:
             unpack_vdp,
         )
 
-        state = pack_vdp(self.model)
+        # both routes share a carry: the packed state, or the model itself
+        if self._packed:
+            state = pack_vdp(self.model)
+
+            def step(carry, lr, x0_lr):
+                return packed_inference_step(self.model, carry, lr, x0_lr)
+
+            def elbo_of(carry):
+                return packed_vdp_elbo(self.model, carry)
+        else:
+            state = self.model
+
+            def step(carry, lr, x0_lr):
+                return carry.inference_step(lr, x0_lr)
+
+            @torch.no_grad()
+            def elbo_of(carry):
+                return carry.elbo()
+
         for _ in range(self.warmup_steps):
-            state = packed_inference_step(self.model, state, self.warmup_lr, 0.0)
+            state = step(state, self.warmup_lr, 0.0)
         lr = self.lr
-        prev = float(packed_vdp_elbo(self.model, state))
+        prev = float(elbo_of(state))
         for _ in range(self.max_iters):
-            candidate = packed_inference_step(self.model, state, lr, self.x0_lr)
-            elbo = float(packed_vdp_elbo(self.model, candidate))
+            candidate = step(state, lr, self.x0_lr)
+            elbo = float(elbo_of(candidate))
             if math.isnan(elbo):
                 lr *= self.lr_decay
                 if lr < 1e-7:
@@ -220,7 +240,7 @@ class VDPTrainer:
                 prev = elbo
                 break
             prev = elbo
-        self.model = unpack_vdp(self.model, state)
+        self.model = unpack_vdp(self.model, state) if self._packed else state
         return prev
 
     def optimize_prior_sde(self) -> None:

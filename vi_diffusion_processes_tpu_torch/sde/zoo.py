@@ -1,7 +1,7 @@
-"""The SDE zoo, its d = 1 members (vi_diffusion_processes_tpu/sde/zoo.py); the
-2-D Van der Pol oscillator belongs to slice E of ROADMAP.md.
+"""The SDE zoo (vi_diffusion_processes_tpu/sde/zoo.py): the d = 1 members and
+the 2-D Van der Pol oscillator.
 
-Parameters are 0-d (or ``[1, 1]`` for ``q_mat``) ``nn.Parameter``s.  A 0-d
+Parameters are 0-d (or ``[d, d]`` for ``q_mat``) ``nn.Parameter``s.  A 0-d
 float64 parameter times a float32 tensor stays float32 under PyTorch's
 promotion rules, as a weakly-typed JAX scalar does.
 """
@@ -19,6 +19,7 @@ __all__ = [
     "SineDiffusionSDE",
     "SqrtDiffusionSDE",
     "MLPDrift",
+    "VanderPolOscillatorSDE",
 ]
 
 
@@ -27,7 +28,7 @@ def _param(value, dtype) -> nn.Parameter:
 
 
 class _ConstantDiffusionSDE(SDE):
-    """Shared diffusion plumbing: constant covariance ``q_mat [1, 1]``."""
+    """Shared diffusion plumbing: constant covariance ``q_mat [d, d]``."""
 
     def __init__(self, q, dtype=torch.float64):
         super().__init__()
@@ -132,3 +133,26 @@ class MLPDrift(_ConstantDiffusionSDE):
 
     def drift(self, x, t=None):
         return torch.relu(x @ self.w1 + self.b1) @ self.w2 + self.b2
+
+
+class VanderPolOscillatorSDE(_ConstantDiffusionSDE):
+    """The 2-D Van der Pol oscillator (zoo.py:137-159):
+    ``dx₁ = τa(x₁ − x₁³/3 − x₂)``, ``dx₂ = (τ/a)x₁``, ``q_mat [2, 2]``."""
+
+    def __init__(self, a, tau, q, dtype=torch.float64):
+        super().__init__(q, dtype)
+        self.a = _param(a, dtype)
+        self.tau = _param(tau, dtype)
+
+    @property
+    def state_dim(self) -> int:
+        return 2
+
+    def drift(self, x, t=None):
+        dx1 = self.a * (x[..., 0] - x[..., 0] ** 3 / 3.0 - x[..., 1])
+        dx2 = x[..., 0] / self.a
+        return self.tau * torch.stack([dx1, dx2], dim=-1)
+
+    def drift_ch(self, xs, t=None):
+        x1, x2 = xs
+        return self.tau * self.a * (x1 - x1**3 / 3.0 - x2), self.tau * x1 / self.a

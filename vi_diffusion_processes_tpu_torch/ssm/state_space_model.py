@@ -14,7 +14,7 @@ import torch
 
 from ..utils.linalg import chol_psd, matmul_small, matvec_small, mvn_logpdf, transpose_last
 
-__all__ = ["StateSpaceModel", "ssm_from_covariances"]
+__all__ = ["StateSpaceModel", "chain_marginals", "ssm_from_covariances"]
 
 
 def _affine_gaussian_compose(e1, e2):
@@ -25,6 +25,22 @@ def _affine_gaussian_compose(e1, e2):
     a2, b2, q2 = e2
     q = matmul_small(matmul_small(a2, q1), transpose_last(a2)) + q2
     return matmul_small(a2, a1), matvec_small(a2, b1) + b2, q
+
+
+def chain_marginals(a, b, q, mu0, p0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Marginal means ``[..., N+1, d]`` and covariances ``[..., N+1, d, d]``
+    of the chain ``x_{k+1} = A_k x_k + b_k + N(0, Q_k)`` from
+    ``x₀ ~ N(μ₀, P₀)``: one associative scan over ``(A, b, Q)``
+    (state_space_model.py:201-218), then the initial Gaussian pushed
+    through each cumulative map."""
+    from ..ops.blocked_scan import assoc_scan
+
+    ca, cb, cq = assoc_scan(
+        _affine_gaussian_compose, (a.movedim(-3, 0), b.movedim(-2, 0), q.movedim(-3, 0)))
+    means = torch.cat([mu0[None], matvec_small(ca, mu0) + cb], dim=0)
+    covs = torch.cat(
+        [p0[None], matmul_small(matmul_small(ca, p0), transpose_last(ca)) + cq], dim=0)
+    return means.movedim(0, -2), covs.movedim(0, -3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,21 +135,10 @@ class StateSpaceModel:
         return means[..., None], varis[..., None, None]
 
     def _marginals_dense(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        from ..ops.blocked_scan import assoc_scan
-
-        ca, cb, cq = assoc_scan(
-            _affine_gaussian_compose,
-            (
-                self.state_transitions.movedim(-3, 0),
-                self.state_offsets.movedim(-2, 0),
-                self.process_covariances.movedim(-3, 0),
-            ),
+        return chain_marginals(
+            self.state_transitions, self.state_offsets, self.process_covariances,
+            self.initial_mean, self.initial_covariance,
         )
-        mu0, p0 = self.initial_mean, self.initial_covariance
-        means = torch.cat([mu0[None], matvec_small(ca, mu0) + cb], dim=0)
-        covs = torch.cat(
-            [p0[None], matmul_small(matmul_small(ca, p0), transpose_last(ca)) + cq], dim=0)
-        return means.movedim(0, -2), covs.movedim(0, -3)
 
     @property
     def marginal_means(self) -> torch.Tensor:

@@ -4,16 +4,14 @@ Conventions match the reference: the density is ``∝ exp(θᵀx + Θ·xxᵀ)``,
 so the precision is ``K = −2Θ_diag`` on the diagonal and ``−Θ_sub`` on the
 sub-diagonal, and the means solve ``K μ = θ``; the expectation parameters
 are ``η = E[x]`` and the in-band blocks of ``E[xxᵀ]`` (diagonal
-``Σ_k + μ_kμ_kᵀ``, sub-diagonal ``A_kΣ_k + μ_{k+1}μ_kᵀ``).  Only the d = 1
-branch of ``naturals_to_ssm_params`` is ported; d ≥ 2 is slice E of
-ROADMAP.md.  The expectation transforms are batched ``[N, d, d]`` algebra
-for any d.
+``Σ_k + μ_kμ_kᵀ``, sub-diagonal ``A_kΣ_k + μ_{k+1}μ_kᵀ``).  Every transform
+takes any state dimension and leading batch dimensions.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.btd import BTD, affine_scan, btd_udu_parallel_1d
+from ..ops.btd import BTD, affine_scan, btd_udu, btd_udu_parallel, btd_udu_parallel_1d
 from ..utils.linalg import cho_solve, chol_psd, transpose_last, tri_solve
 from .state_space_model import StateSpaceModel
 
@@ -22,7 +20,9 @@ __all__ = [
     "expectations_to_ssm_params",
     "expectations_to_ssm",
     "ssm_to_naturals",
+    "ssm_to_naturals_no_smoothing",
     "naturals_to_ssm_params",
+    "naturals_to_ssm_params_no_smoothing",
     "naturals_to_ssm",
 ]
 
@@ -104,19 +104,41 @@ def ssm_to_naturals(ssm: StateSpaceModel):
     return theta_linear, theta_diag, theta_sub
 
 
+def ssm_to_naturals_no_smoothing(ssm: StateSpaceModel):
+    """Natural parameters without the smoothing terms (transforms.py:122-130;
+    Lin et al. 2019): ``θ_k = Q_k⁻¹b_k``, ``Θ_diag = −½Q_k⁻¹``,
+    ``Θ_sub = Q_{k+1}⁻¹A_{k+1}``."""
+    chols = ssm.concatenated_cholesky_process_covariance
+    theta_sub = cho_solve(chols[..., 1:, :, :], ssm.state_transitions)
+    theta_linear = cho_solve(chols, ssm.concatenated_state_offsets[..., None])[..., 0]
+    return theta_linear, -0.5 * _precisions(ssm), theta_sub
+
+
+def _udu(prec: BTD):
+    """``K = U D Uᵀ`` by the route for the state dimension and dtype."""
+    if prec.block_dim == 1:
+        return btd_udu_parallel_1d(prec)
+    if prec.diag.dtype == torch.float64:
+        return btd_udu_parallel(prec)
+    # the Schur pivots are untested under float32 association noise
+    # (transforms.py:183-186): float32 keeps the sequential recursion
+    return btd_udu(prec)
+
+
 def naturals_to_ssm_params(theta_linear, theta_diag, theta_sub):
     """Natural parameters → ``(A, b, chol P₀, chol Q, μ₀)`` (transforms.py:133-207).
 
-    Factor ``K = U D Uᵀ`` (kernel K1 through ``btd_udu_parallel_1d``), so
-    ``A_k = −U[k,k+1]ᵀ``, ``Q_{k+1} = D_{k+1}⁻¹``, ``P₀ = D₀⁻¹``; the means
-    solve ``K μ = θ`` by two bidiagonal recurrences (kernel K2)."""
-    d = theta_linear.shape[-1]
-    if d != 1:
-        raise NotImplementedError(
-            "naturals_to_ssm_params: d >= 2 belongs to slice E of ROADMAP.md (d>=2 CVI-DP)"
-        )
+    Factor ``K = U D Uᵀ``, so ``A_k = −U[k,k+1]ᵀ``, ``Q_{k+1} = D_{k+1}⁻¹``,
+    ``P₀ = D₀⁻¹``; the means solve ``K μ = θ`` by two bidiagonal recurrences.
+    The factorization's route: at d = 1 the pivot sweep
+    (``btd_udu_parallel_1d``: kernel K1 in float64, K4 in float32) and the
+    recurrences on K2; at d ≥ 2 in float64 the Schur-segment scan
+    ``btd_udu_parallel`` at any N and batch (the JAX package's ``N ≥ 4096``
+    gate is a compile-time heuristic), in float32 the sequential ``btd_udu``,
+    as in the JAX package; the recurrences then run the matrix
+    ``affine_scan``."""
     prec = BTD(diag=-2.0 * theta_diag, sub=-theta_sub)
-    d_blocks, u_super = btd_udu_parallel_1d(prec)
+    d_blocks, u_super = _udu(prec)
     a_s = -transpose_last(u_super)
 
     chols_dinv = chol_psd(d_blocks)
@@ -143,3 +165,15 @@ def naturals_to_ssm(theta_linear, theta_diag, theta_sub) -> StateSpaceModel:
         theta_linear, theta_diag, theta_sub
     )
     return StateSpaceModel(mu0, chol_p0, a_s, offsets, chol_qs)
+
+
+def naturals_to_ssm_params_no_smoothing(theta_linear, theta_diag, theta_sub):
+    """Inverse of :func:`ssm_to_naturals_no_smoothing`, block by block
+    (transforms.py:217-236): ``Q_k = (−2Θ_diag,k)⁻¹``, ``A_k = Q_kΘ_sub,k``,
+    ``b_k = Q_kθ_k``."""
+    chol_prec = chol_psd(-2.0 * theta_diag)
+    covs = cho_solve(chol_prec, _eye_like(chol_prec))
+    chol_covs = chol_psd(covs)
+    a_s = covs[..., 1:, :, :] @ theta_sub
+    bs = torch.einsum("...ij,...j->...i", covs, theta_linear)
+    return a_s, bs[..., 1:, :], chol_covs[..., 0, :, :], chol_covs[..., 1:, :, :], bs[..., 0, :]

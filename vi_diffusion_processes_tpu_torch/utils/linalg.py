@@ -35,6 +35,7 @@ __all__ = [
     "chol_psd",
     "gaussian_kl",
     "inv_small",
+    "inv_pd",
 ]
 
 
@@ -162,6 +163,15 @@ def inv_small(a: torch.Tensor) -> torch.Tensor:
         adj, det = _adjugate2(a) if d == 2 else _adjugate3(a)
         return adj / det[..., None, None]
     return torch.linalg.inv_ex(a, check_errors=False)[0]
+
+
+def inv_pd(a: torch.Tensor) -> torch.Tensor:
+    """``a⁻¹`` of symmetric positive-definite blocks ``[..., d, d]``
+    (chmat.py ``minv_pd``): the closed forms of :func:`inv_small` up to
+    d = 3, the Cholesky inverse ``L⁻ᵀL⁻¹`` beyond."""
+    if a.shape[-1] <= 3:
+        return inv_small(a)
+    return cho_solve(chol_psd(a), eye_like(a).expand(a.shape))
 
 
 def solve_psd(
