@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's d=1 CVI-DP and VDP paths, its d=2 CVI-DP path and
-its exact-GPR path (any state dimension) on one CUDA card.
+"""Drive the PyTorch port's d=1 CVI-DP and VDP paths, its d=2 CVI-DP path, its
+exact-GPR path (any state dimension) and its non-conjugate CVI (generic,
+packed and sparse) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -68,16 +69,43 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     Schur-segment UDU' on the card against the sequential ``btd_udu`` (1e-10);
 18. vanderpol trainer: ``run_cvi_dp(prior_sde="vanderpol")`` at T = 10,000 (2
     outer and 5 inner iterations), and one re-linearization timed alone;
-19. reference: on small float64 inputs the packed step, the prior gradient,
+19. cvi poisson: ``cvi_poisson_site_step_100k`` of
+    ``benchmarks/secondary.py:208-244`` (Matern32, d = 2, Poisson, N = 100,000
+    on [0, 100], float32, lr 0.3): one warm-up ``update_sites``, then 16 from
+    the initial model; ``pack_cvi`` and 16 ``packed_site_step`` from it too;
+    steps/s (cold), launches and device time per step, peak memory; the
+    packed f-marginals against the generic ones (2e-3); the classic ELBO of a
+    float64 copy must rise over the 16 steps (the float32 one beside it);
+    K1-K4 must launch 0 times;
+20. cvi poisson d1: the same data under Matern12 (d = 1): ``update_sites``
+    launches no kernel and ``classic_elbo`` K2 exactly twice; ``pack_cvi``
+    and 16 ``packed_site_step`` launch K3 exactly 17 times and K1, K2, K4
+    never; the packed marginals against the generic ones (2e-3);
+21. sparse cvi: the golden ``sparse_poisson_elbos`` on the card in float64
+    (n = 4,000, m = 150, Matern32, 8 steps, rtol 1e-6), then Matern12 in
+    float64 on the 100,000 points of phase 19 with 10,000 inducing points,
+    8 steps, the classic ELBO never falling by more than 1e-6; K1 exactly
+    once and K2 exactly 4 times per ``dist_q`` with its marginals;
+22. cvi reference: float64 on the card against the CPU (1e-9; the packed
+    route at d = 2 3e-8, see ``PACKED_D2_CARD_RTOL``): generic and packed CVI
+    (N = 2,000, Matern12 and Matern32, Poisson and Bernoulli, 3 steps),
+    sparse CVI (n = 2,000, m = 200, 3 steps); 8,192 samples of
+    ``StateSpaceModel.sample`` at N = 200 (d = 1 through K2, d = 2) within 5
+    standard errors of ``marginals()``;
+23. path inputs: K1 and K2 against their plain versions on the tensors that
+    phase 21's full-size sparse model (``dist_q`` and its marginals, M =
+    10,000) and ``sample``'s ``[8192, 200]`` batch hand them;
+24. reference: on small float64 inputs the packed step, the prior gradient,
     the batched step (B = 3, T = 300) and three VDP steps (T = 500) on the
     card against the same on the CPU.
 
-Launch counts are set to 0 just before each of phases 5-18 and read just
+Launch counts are set to 0 just before each of phases 5-22 and read just
 after.  The second-to-last line is a JSON object with each kernel's
 launches in those phases, its max error, times (host clock ``ms``, device
 ``device_ms``) and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -98,6 +126,20 @@ GPR_STEPS = 8
 GPR_CONFIGS = ("gpr_loglik_grad_100k", "gpr_d4_sum_loglik_grad_100k")
 #: the d = 2 configuration of benchmarks/secondary.py:339-385: its learning rate
 LR_VANDERPOL = 0.2
+#: cvi_poisson_site_step_100k (benchmarks/secondary.py:208-244): points, the
+#: benchmark's ``inner`` steps, learning rate
+N_CVI, CVI_STEPS, LR_CVI = 100_000, 16, 0.3
+#: the sparse CVI configurations: the golden (tests/golden/generate.py:120-158)
+#: and the d = 1 model at full size
+SPARSE_STEPS, LR_SPARSE, M_SPARSE = 8, 0.8, 10_000
+#: the float64 card-against-CPU limits of phase_cvi_reference, as a share of
+#: each output's scale.  The packed step at d >= 2 solves for its marginals in
+#: precision form (entries grow as dt^-3 under Matern32): on these inputs a
+#: one-ulp change of the lengthscale moves its outputs by up to 4.0e-9 in the
+#: port and 9.6e-9 in the JAX package's packed step, on the CPU
+#: (``python -m tests.port.packed_sensitivity [--jax]``), and on an H100 the
+#: card differed from the CPU by 5.0e-9.  Every other route is held to 1e-9.
+CARD_RTOL, PACKED_D2_CARD_RTOL = 1e-9, 3e-8
 REPS = 20
 #: the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 #: bytes/s, and FLOP/s outside the tensor cores in float64 and float32
@@ -1269,6 +1311,395 @@ def phase_vanderpol_trainer(dev) -> None:
         raise AssertionError("vanderpol trainer: the posterior is not a finite d = 2 path")
 
 
+def cvi_poisson_data(n: int = None, t1: float = 100.0):
+    """``cvi_poisson_site_step_100k``'s data as numpy arrays: ``n`` float32
+    points on [0, t1] and counts ``y ~ Poisson(exp(0.8 sin 0.3t))`` from
+    ``default_rng(0)`` (benchmarks/secondary.py:217-220); ``n`` is ``N_CVI``
+    unless given."""
+    n = N_CVI if n is None else n
+    t = np.linspace(0.0, t1, n).astype(np.float32)
+    y = np.random.default_rng(0).poisson(np.exp(0.8 * np.sin(0.3 * t)))[:, None]
+    return t, y.astype(np.float32)
+
+
+def cvi_model(kernel: str, likelihood: str, t, y, dtype, dev, lr: float = LR_CVI):
+    """A ``CVIGaussianProcess`` with ``kernel(1, 1)`` (``"Matern12"`` or
+    ``"Matern32"``) and a ``"Poisson"`` or ``"Bernoulli"`` likelihood."""
+    from vi_diffusion_processes_tpu_torch.kernels import matern
+    from vi_diffusion_processes_tpu_torch.likelihoods import discrete
+    from vi_diffusion_processes_tpu_torch.models.cvi import CVIGaussianProcess
+
+    k = getattr(matern, kernel)(lengthscale=1.0, variance=1.0, dtype=dtype).to(dev)
+    return CVIGaussianProcess.initialize(
+        k, getattr(discrete, likelihood)().to(dev), torch.tensor(t, dtype=dtype, device=dev),
+        torch.tensor(y, dtype=dtype, device=dev), learning_rate=lr)
+
+
+def _as_float64(model):
+    """A float64 copy of a CVI model: kernel, data and sites."""
+    import copy
+
+    from vi_diffusion_processes_tpu_torch.models.cvi import GaussianSites
+
+    return model.replace(
+        kernel=copy.deepcopy(model.kernel).double(),
+        time_points=model.time_points.double(), observations=model.observations.double(),
+        sites=GaussianSites(*(x.double() for x in model.sites)))
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _cvi_routes(kernel: str, dev, card: str, label: str) -> dict:
+    """The generic and packed routes of one CVI configuration at full width:
+    16 steps of each from the initial model (the generic after one warm-up
+    step), cold; each route's launches and device time per step under the
+    profiler; the packed f-marginals against the generic ones (2e-3); the
+    classic ELBO before and after, in float32 and of a float64 copy."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_packed import pack_cvi, packed_site_step
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
+    t, y = cvi_poisson_data()
+    model, build_s = _timed(lambda: cvi_model(kernel, "Poisson", t, y, torch.float32, dev))
+    counts = [cs.launch_counts()]
+
+    def generic_steps():
+        m = model
+        for _ in range(CVI_STEPS):
+            m = m.update_sites()
+        return m
+
+    _timed(model.update_sites)  # warm-up
+    counts.append(cs.launch_counts())
+    torch.cuda.reset_peak_memory_stats()
+    generic, generic_s = _timed(generic_steps)
+    generic_peak = torch.cuda.max_memory_allocated() / 2**20
+    counts.append(cs.launch_counts())
+
+    def packed_steps():
+        state = pack_cvi(model)
+        for _ in range(CVI_STEPS):
+            state = packed_site_step(model, state)
+        return state
+
+    torch.cuda.reset_peak_memory_stats()
+    state, packed_s = _timed(packed_steps)
+    packed_peak = torch.cuda.max_memory_allocated() / 2**20
+    counts.append(cs.launch_counts())
+    with torch.no_grad():
+        f_mu, f_var = (x[:, 0] for x in generic.posterior_marginals_f())
+    err_mu = float((state.fx_mu - f_mu).abs().max() / f_mu.abs().max())
+    err_var = float((state.fx_var - f_var).abs().max() / f_var.abs().max())
+
+    holder = [generic, state]
+
+    def generic_step():
+        holder[0] = holder[0].update_sites()
+
+    def packed_step():
+        holder[1] = packed_site_step(model, holder[1])
+
+    prof_generic, prof_packed = profile_calls(generic_step, 2), profile_calls(packed_step, 2)
+    counts.append(cs.launch_counts())
+    with torch.no_grad():
+        elbo32 = [float(m.classic_elbo()) for m in (model, generic)]
+        torch.cuda.synchronize()
+        counts.append(cs.launch_counts())
+        elbo64 = [float(_as_float64(m).classic_elbo()) for m in (model, generic)]
+    deltas = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
+    rec = {
+        "kernel": kernel, "n": N_CVI, "steps": CVI_STEPS, "build_s": build_s,
+        "generic_steps_per_s": CVI_STEPS / generic_s, "packed_steps_per_s": CVI_STEPS / packed_s,
+        "generic_launches_per_step": prof_generic["launches"],
+        "generic_device_ms_per_step": prof_generic["device_ms"],
+        "packed_launches_per_step": prof_packed["launches"],
+        "packed_device_ms_per_step": prof_packed["device_ms"],
+        "generic_peak_mib": generic_peak, "packed_peak_mib": packed_peak,
+        "packed_vs_generic_fx_mu": err_mu, "packed_vs_generic_fx_var": err_var,
+        "classic_elbo_f32_start_end": elbo32, "classic_elbo_f64_start_end": elbo64,
+        "kernel_launches": {"warm_up": deltas[0], "generic": deltas[1], "packed": deltas[2],
+                            "two_classic_elbos": deltas[4]},
+    }
+    log(f"[{label}] {kernel} Poisson N={N_CVI} f32, lr {LR_CVI}: generic {CVI_STEPS} "
+        f"update_sites {rec['generic_steps_per_s']:.2f} steps/s, packed pack_cvi + {CVI_STEPS} "
+        f"packed_site_step {rec['packed_steps_per_s']:.2f} steps/s on {card} (cold, information "
+        f"only); per step generic {prof_generic['launches']:.0f} launches "
+        f"{prof_generic['device_ms']:.3f} ms device, packed {prof_packed['launches']:.0f} "
+        f"launches {prof_packed['device_ms']:.3f} ms device; peak {generic_peak:.0f} and "
+        f"{packed_peak:.0f} MiB; packed against generic after {CVI_STEPS} steps: fx_mu "
+        f"{err_mu:.3e}, fx_var {err_var:.3e} (limit 2e-3); classic ELBO start -> end f32 "
+        f"{elbo32!r}, float64 copy {elbo64!r}; kernel launches {json.dumps(rec['kernel_launches'])}"
+        f"; top generic {json.dumps(prof_generic['top'])}, packed {json.dumps(prof_packed['top'])}")
+    if not (err_mu <= 2e-3 and err_var <= 2e-3):
+        raise AssertionError(f"{label}: the packed marginals disagree with the generic route")
+    if not (np.all(np.isfinite(elbo64)) and elbo64[1] > elbo64[0]):
+        raise AssertionError(f"{label}: the float64 classic ELBO did not rise: {elbo64}")
+    for name in ("d_nat1", "d_nat2", "fx_mu", "fx_var"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"{label}: state.{name} is not finite")
+    return rec
+
+
+def phase_cvi_poisson(dev, card: str) -> dict:
+    """``cvi_poisson_site_step_100k`` at full width (Matern32, d = 2):
+    both routes, and no kernel of the port on either."""
+    return _cvi_routes("Matern32", dev, card, "cvi-poisson")
+
+
+def phase_cvi_poisson_d1(dev, card: str) -> dict:
+    """The same data under Matern12 (d = 1): the generic step launches no
+    kernel, its classic ELBO K2 twice (q's marginals in the KL), and the
+    packed route K3 once in ``pack_cvi`` and once a step."""
+    rec = _cvi_routes("Matern12", dev, card, "cvi-poisson-d1")
+    launches = rec["kernel_launches"]
+    if any(launches["warm_up"].values()) or any(launches["generic"].values()):
+        raise AssertionError(f"cvi d1: update_sites launched a kernel: {launches}")
+    want = {k: 0 for k in launches["packed"]}
+    want["dist_q_1d_planes"] = CVI_STEPS + 1
+    if launches["packed"] != want:
+        raise AssertionError(f"cvi d1: pack_cvi and {CVI_STEPS} packed steps launched "
+                             f"{launches['packed']}, expected {want}")
+    want = {k: 0 for k in launches["two_classic_elbos"]}
+    want["linear_recurrence"] = 4
+    if launches["two_classic_elbos"] != want:
+        raise AssertionError(f"cvi d1: two classic_elbo launched "
+                             f"{launches['two_classic_elbos']}, expected {want}")
+    return rec
+
+
+def sparse_golden_data():
+    """``tests/golden/generate.py:138-143``: 4,000 sorted points on [0, 100]
+    and Poisson counts of rate ``exp(sin 0.4t + 0.5)`` from
+    ``default_rng(SEED + 4)``."""
+    rng = np.random.default_rng(71892305 + 4)
+    t = np.sort(rng.uniform(0.0, 100.0, size=4000))
+    y = rng.poisson(np.exp(np.sin(0.4 * t) + 0.5))[:, None].astype(np.float64)
+    return t, y
+
+
+def _sparse_run(kernel, z, data, steps: int, lr: float):
+    from vi_diffusion_processes_tpu_torch.likelihoods.discrete import Poisson
+    from vi_diffusion_processes_tpu_torch.models.sparse_cvi import SparseCVIGaussianProcess
+
+    model = SparseCVIGaussianProcess.initialize(kernel, Poisson(), z, learning_rate=lr)
+    trace = []
+    for _ in range(steps):
+        model = model.update_sites(data)
+        with torch.no_grad():
+            trace.append(float(model.classic_elbo(data)))
+    return model, trace
+
+
+def phase_sparse_cvi(dev, card: str) -> dict:
+    """The golden sparse Poisson CVI in float64 on the card, then the d = 1
+    model at full size with its exact K1 and K2 counts; returns its record
+    and the d = 1 model."""
+    import os
+
+    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12, Matern32
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
+    f64 = torch.float64
+    t, y = sparse_golden_data()
+    data = (torch.tensor(t, device=dev), torch.tensor(y, device=dev))
+    z = torch.linspace(-0.5, 100.5, 150, dtype=f64, device=dev)
+    before = cs.launch_counts()
+    (_, trace), golden_s = _timed(lambda: _sparse_run(
+        Matern32(lengthscale=2.0, variance=1.0).to(dev), z, data, SPARSE_STEPS, LR_SPARSE))
+    if any(cs.launch_counts()[k] - v for k, v in before.items()):
+        raise AssertionError("sparse golden (d = 2): a kernel of the port was launched")
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "tests", "golden", "traces.npz"))["sparse_poisson_elbos"]
+    rel = float(np.max(np.abs(np.asarray(trace) / golden - 1.0)))
+    log(f"[sparse-cvi] golden n=4000 m=150 Matern32 f64, {SPARSE_STEPS} steps in "
+        f"{golden_s:.2f} s: classic ELBOs {trace!r}, against sparse_poisson_elbos rel "
+        f"{rel:.3e} (rtol 1e-6)")
+    if not rel <= 1e-6:
+        raise AssertionError("sparse CVI on the card does not reproduce sparse_poisson_elbos")
+
+    t32, y32 = cvi_poisson_data()
+    data = (torch.tensor(t32, dtype=f64, device=dev), torch.tensor(y32, dtype=f64, device=dev))
+    z = torch.linspace(-0.005, 100.005, M_SPARSE, dtype=f64, device=dev)
+    before = cs.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (model, trace), full_s = _timed(lambda: _sparse_run(
+        Matern12(lengthscale=1.0, variance=1.0, dtype=f64).to(dev), z, data, SPARSE_STEPS,
+        LR_SPARSE))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    delta = {k: v - before[k] for k, v in cs.launch_counts().items()}
+    # per step: update_sites takes dist_q (K1 once, K2 twice) and its
+    # marginals (K2 twice); classic_elbo that twice, and the KL's marginals
+    want = {k: 0 for k in delta}
+    want.update(riccati_d_sweep=3 * SPARSE_STEPS, linear_recurrence=12 * SPARSE_STEPS)
+    holder = [model]
+
+    def step():
+        holder[0] = holder[0].update_sites(data)
+
+    prof = profile_calls(step, 2)
+    rec = {"golden_rel": rel, "golden_s": golden_s, "n": N_CVI, "m": M_SPARSE,
+           "seconds": full_s, "steps_per_s": SPARSE_STEPS / full_s, "elbos": trace,
+           "peak_mib": peak, "launches_per_update": prof["launches"],
+           "device_ms_per_update": prof["device_ms"], "kernel_launches": delta}
+    log(f"[sparse-cvi] Matern12 f64 n={N_CVI} m={M_SPARSE}, {SPARSE_STEPS} steps (update_sites "
+        f"and classic_elbo) in {full_s:.2f} s on {card}: classic ELBOs {trace!r}; peak "
+        f"{peak:.0f} MiB; per update_sites {prof['launches']:.0f} launches, "
+        f"{prof['device_ms']:.3f} ms device, top {json.dumps(prof['top'])}; kernel launches "
+        f"{json.dumps(delta)}")
+    if delta != want:
+        raise AssertionError(f"sparse d1: launched {delta}, expected {want}")
+    if not (np.all(np.isfinite(trace)) and np.all(np.diff(trace) > -1e-6)):
+        raise AssertionError(f"sparse d1: the classic ELBO fell: {trace}")
+    return rec, holder[0]
+
+
+def _cvi_route_outputs(kernel: str, lik: str, t, y, device) -> dict:
+    """Three float64 steps of the generic and of the packed route: their
+    sites, marginals and (generic) ELBOs, by route."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_packed import pack_cvi, packed_site_step
+
+    model = cvi_model(kernel, lik, t, y, torch.float64, device)
+    generic, state = model, pack_cvi(model)
+    for _ in range(3):
+        generic = generic.update_sites()
+        state = packed_site_step(model, state)
+    with torch.no_grad():
+        return {"generic": [generic.sites.nat1, generic.sites.nat2,
+                            *generic.posterior_marginals_f(), generic.elbo(),
+                            generic.classic_elbo()],
+                "packed": [state.d_nat1, state.d_nat2, state.fx_mu, state.fx_var]}
+
+
+def phase_cvi_reference(dev) -> None:
+    """float64 on the card against the CPU: generic and packed CVI, sparse
+    CVI (``CARD_RTOL`` of each output's scale; the packed route at d = 2
+    ``PACKED_D2_CARD_RTOL``), and sample moments on the card."""
+    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12, Matern32
+
+    f64 = torch.float64
+    t = np.linspace(0.0, 20.0, 2_000)
+    labels = {"Poisson": cvi_poisson_data(2_000, 20.0)[1].astype(np.float64),
+              "Bernoulli": (np.random.default_rng(1).uniform(size=(2_000, 1))
+                            < 1.0 / (1.0 + np.exp(-np.sin(0.3 * t)))[:, None]).astype(np.float64)}
+    worst, failed = {}, []
+    for kernel in ("Matern12", "Matern32"):
+        for lik, y in labels.items():
+            card = _cvi_route_outputs(kernel, lik, t, y, dev)
+            for route, ref in _cvi_route_outputs(kernel, lik, t, y, torch.device("cpu")).items():
+                limit = PACKED_D2_CARD_RTOL if (route, kernel) == ("packed", "Matern32") \
+                    else CARD_RTOL
+                err = max(_scaled_err(a, b) for a, b in zip(card[route], ref))
+                worst[f"{kernel}-{lik}-{route}"] = [err, limit]
+                if not err <= limit:
+                    failed.append(f"{kernel}-{lik}-{route}")
+
+    rng = np.random.default_rng(6)
+    ts = np.sort(rng.uniform(0.0, 20.0, size=2_000))
+    ys = rng.poisson(np.exp(np.sin(0.9 * ts) + 0.3))[:, None].astype(np.float64)
+    for kernel_cls in (Matern12, Matern32):
+        results = []
+        for device in (dev, torch.device("cpu")):
+            data = (torch.tensor(ts, device=device), torch.tensor(ys, device=device))
+            model, trace = _sparse_run(
+                kernel_cls(lengthscale=1.3, variance=0.8).to(device),
+                torch.linspace(-0.05, 20.05, 200, dtype=f64, device=device), data, 3, LR_SPARSE)
+            results.append([model.nat1, model.nat2, torch.tensor(trace)])
+        err = max(_scaled_err(a, b) for a, b in zip(*results))
+        worst[f"sparse-{kernel_cls.__name__}"] = [err, CARD_RTOL]
+        if not err <= CARD_RTOL:
+            failed.append(f"sparse-{kernel_cls.__name__}")
+    log(f"[cvi-reference] f64 card against CPU, 3 steps, [scaled err, limit]: "
+        f"{json.dumps(worst)}")
+    if failed:
+        raise AssertionError(f"CVI on the card disagrees with the CPU: {failed}")
+
+    s = 8_192
+    grid = torch.linspace(0.0, 5.0, 200, dtype=f64, device=dev)
+    for kernel_cls in (Matern12, Matern32):
+        ssm = kernel_cls(lengthscale=0.7, variance=1.3).to(dev).state_space_model(grid)
+        with torch.no_grad():
+            samples = ssm.sample(torch.Generator(device=dev).manual_seed(0), (s,)).cpu().numpy()
+            means, covs = (x.cpu().numpy() for x in ssm.marginals())
+        var = np.diagonal(covs, axis1=-2, axis2=-1)
+        z_mean = np.max(np.abs(samples.mean(0) - means) / np.sqrt(var / s))
+        z_var = np.max(np.abs(samples.var(0, ddof=1) - var) / (var * np.sqrt(2.0 / (s - 1))))
+        log(f"[cvi-reference] {s} samples of the {kernel_cls.__name__} prior at N=200 on the "
+            f"card: largest |z| of the means {z_mean:.2f}, of the variances {z_var:.2f} (limit 5)")
+        if not (z_mean < 5.0 and z_var < 5.0):
+            raise AssertionError("StateSpaceModel.sample on the card misses its marginals")
+
+
+@contextlib.contextmanager
+def _btd_kernel_inputs():
+    """Record copies of the inputs of every float64 K1 and every K2 call that
+    ``ops/btd.py`` makes inside the block (the names it calls them by)."""
+    from vi_diffusion_processes_tpu_torch.ops import btd
+
+    calls = []
+    sweep, linrec = btd._riccati_d_sweep_unchecked, btd.linear_recurrence
+
+    def record_sweep(kd, b2):
+        calls.append(("riccati_d_sweep", (kd.detach().clone(), b2.detach().clone())))
+        return sweep(kd, b2)
+
+    def record_linrec(t, c, x0, reverse=False):
+        x0 = x0.detach().clone() if isinstance(x0, torch.Tensor) else x0
+        calls.append(("linear_recurrence", (t.detach().clone(), c.detach().clone(), x0, reverse)))
+        return linrec(t, c, x0, reverse)
+
+    btd._riccati_d_sweep_unchecked, btd.linear_recurrence = record_sweep, record_linrec
+    try:
+        yield calls
+    finally:
+        btd._riccati_d_sweep_unchecked, btd.linear_recurrence = sweep, linrec
+
+
+def phase_path_inputs(dev, kernels: dict, sparse_model) -> None:
+    """K1 and K2 against their plain versions on the tensors two paths hand
+    them: the full-size sparse d = 1 model's ``dist_q`` and its marginals
+    (M = 10,000, float64: K1 once, K2 four times) and the ``[8192, 200]``
+    batch that ``StateSpaceModel.sample`` sends K2 for 8,192 samples of a
+    Matern12 chain at N = 200.  Phase 3's tolerances: K1 rtol 1e-10, K2
+    1e-11 of the scale.  Not counted: these launches are the comparison's."""
+    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
+    with torch.no_grad(), _btd_kernel_inputs() as sparse_calls:
+        sparse_model.dist_q.marginals()
+    grid = torch.linspace(0.0, 5.0, 200, dtype=torch.float64, device=dev)
+    ssm = Matern12(lengthscale=0.7, variance=1.3).to(dev).state_space_model(grid)
+    with torch.no_grad(), _btd_kernel_inputs() as sample_calls:
+        ssm.sample(torch.Generator(device=dev).manual_seed(0), (8_192,))
+    for label, calls, want in (
+            ("sparse d1 dist_q and marginals", sparse_calls,
+             ["riccati_d_sweep"] + ["linear_recurrence"] * 4),
+            ("sample", sample_calls, ["linear_recurrence"])):
+        if [name for name, _ in calls] != want:
+            raise AssertionError(f"{label}: calls {[name for name, _ in calls]}, expected {want}")
+        for name, args in calls:
+            if name == "riccati_d_sweep":
+                got, ref = cs.riccati_d_sweep(*args), cs.riccati_d_sweep_plain(*args)
+                err = float((got - ref).abs().max())
+                rel, tol, what = float(((got - ref).abs() / ref.abs()).max()), 1e-10, "rel"
+            else:
+                t, c, x0, reverse = args
+                got = cs.linear_recurrence(t, c, x0, reverse)
+                ref = cs.linear_recurrence_plain(t, c, x0, reverse)
+                err = float((got - ref).abs().max())
+                rel, tol, what = err / float(ref.abs().max()), 1e-11, "scaled"
+            log(f"[path-inputs] {label}: {name} on {list(args[0].shape)} "
+                f"{str(args[0].dtype)[6:]} max_abs_err={err:.3e} {what}_err={rel:.3e} "
+                f"(limit {tol:g})")
+            if not rel <= tol:
+                raise AssertionError(f"{label}: {name} disagrees with its plain version")
+            kernels[name]["err"] = max(kernels[name]["err"], err)
+
+
 def phase_x64_off(dev, card: str):
     from vi_diffusion_processes_tpu_torch import config
 
@@ -1435,14 +1866,23 @@ def main() -> None:
         if any(counts.values()):
             raise AssertionError(f"{label}: K1-K4 launched on the d = 2 path: {counts}")
     log("[vanderpol] " + json.dumps(vanderpol_record))
+    cvi_record, cvi_counts = _counted(phase_cvi_poisson, dev, card)
+    if any(cvi_counts.values()):
+        raise AssertionError(f"cvi poisson: K1-K4 launched on the d = 2 routes: {cvi_counts}")
+    cvi_d1_record, cvi_d1_counts = _counted(phase_cvi_poisson_d1, dev, card)
+    (sparse_record, sparse_model), sparse_counts = _counted(phase_sparse_cvi, dev, card)
+    _, cvi_reference_counts = _counted(phase_cvi_reference, dev)
+    log("[cvi] " + json.dumps({"d2": cvi_record, "d1": cvi_d1_record, "sparse": sparse_record}))
     paths = (main_counts, trainer_counts, prior_counts, x64_off_counts, batched_counts,
              vdp_counts, generic_counts, scan_counts, gpr_reference_counts, gpr_counts,
              run_gpr_counts, vanderpol_counts, vanderpol_reference_counts,
-             vanderpol_trainer_counts)
+             vanderpol_trainer_counts, cvi_counts, cvi_d1_counts, sparse_counts,
+             cvi_reference_counts)
     launches = {name: sum(c[name] for c in paths) for name in kernels}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
+    phase_path_inputs(dev, kernels, sparse_model)
     phase_reference(dev)
     log(f"[time] {time.perf_counter() - started:.0f} s in all, the build included")
 

@@ -2,7 +2,7 @@
 
     python3 profile_step.py [--root DIR] [--label NAME]
         [--x64-off [--k4-windows NB L] | --batched | --vdp | --prior | --k4-shapes
-         | --gpr | --scan | --vanderpol]
+         | --gpr | --scan | --vanderpol | --cvi-poisson]
 
 Imports ``vi_diffusion_processes_tpu_torch`` from ``DIR`` (default: this
 checkout), so that two trees can be compared in one run on one card.
@@ -48,7 +48,15 @@ configuration (Van der Pol prior, T = 100,000, float32 model, float64
 naturals, lr 0.2): median of 7 warm runs of 8 steps, then ``torch.profiler``
 over 4 steps, with the peak device memory of the timed runs.
 
-Prints the card's name and power limit, then one JSON line (``--gpr``: two).
+``--cvi-poisson`` times non-conjugate CVI on ``chip_smoke.py``'s
+``cvi_poisson_site_step_100k`` data (Poisson, N = 100,000, float32, lr
+0.3): the generic ``update_sites`` and the packed ``packed_site_step``,
+each under Matern32 (d = 2) and Matern12 (d = 1, where the packed step is
+one K3 launch), median of 7 warm runs of 16 steps, then ``torch.profiler``
+over 4 steps, with the peak device memory of the timed runs.
+
+Prints the card's name and power limit, then one JSON line (``--gpr``: two;
+``--cvi-poisson``: four).
 """
 import argparse
 import importlib.util
@@ -284,6 +292,33 @@ def vanderpol_profile(dev, label: str, root: str) -> None:
     }), flush=True)
 
 
+def cvi_poisson_profiles(dev, label: str, root: str) -> None:
+    """One JSON line per route and kernel of the CVI Poisson configuration."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_packed import pack_cvi, packed_site_step
+
+    smoke = _chip_smoke()
+    t, y = smoke.cvi_poisson_data()
+    for kernel in ("Matern32", "Matern12"):
+        model = smoke.cvi_model(kernel, "Poisson", t, y, torch.float32, dev)
+        routes = {
+            "generic": (lambda m: (m.update_sites(), None), model),
+            "packed": ((lambda s, model=model: (packed_site_step(model, s), None)),
+                       pack_cvi(model)),
+        }
+        for route, (advance, state) in routes.items():
+            for _ in range(2):
+                state, _ = advance(state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            record, _, _ = time_and_profile(advance, state, runs=7, steps=smoke.CVI_STEPS,
+                                            profiled=4)
+            print(json.dumps({
+                "label": label, "root": root, "cvi_poisson": route, "kernel": kernel,
+                "d": model.kernel.state_dim, "n": smoke.N_CVI,
+                "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20, **record,
+            }), flush=True)
+
+
 def scan_profiles(dev) -> dict:
     """The generic scan alone at T: launches, host-clock ms (median of 7) and
     device ms per scan of the marginals' compose at d = 1, 2, 4, and the tiny
@@ -338,6 +373,7 @@ def main() -> None:
     mode.add_argument("--gpr", action="store_true")
     mode.add_argument("--scan", action="store_true")
     mode.add_argument("--vanderpol", action="store_true")
+    mode.add_argument("--cvi-poisson", action="store_true")
     ap.add_argument("--k4-windows", type=int, nargs=2, metavar=("NB", "L"))
     ap.add_argument("--label", default="")
     args = ap.parse_args()
@@ -354,6 +390,9 @@ def main() -> None:
         return
     if args.vanderpol:
         vanderpol_profile(dev, args.label, args.root)
+        return
+    if args.cvi_poisson:
+        cvi_poisson_profiles(dev, args.label, args.root)
         return
     if args.prior or args.k4_shapes or args.scan:
         result = (prior_learning_ms(dev) if args.prior

@@ -201,3 +201,35 @@ def vanderpol_model_port(t_points, dtype="float64", device="cpu"):
         stabilize_ssm=True, clip_state_transitions=(-2.0, 2.0),
     )
     return model.set_linearized_prior()
+
+
+def cvi_data(likelihood: str, n: int = 64):
+    """``(t, y [n, 1])`` of tests/unit/test_cvi_packed.py:24-37: Poisson
+    counts of rate ``exp(0.8 sin 1.1t)`` or Bernoulli labels of probability
+    ``sigmoid(sin t)`` at ``n`` points on [0, 6], from ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    t = np.linspace(0.0, 6.0, n)
+    if likelihood == "Poisson":
+        y = rng.poisson(np.exp(0.8 * np.sin(1.1 * t))).astype(np.float64)
+    else:
+        y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-np.sin(t)))).astype(np.float64)
+    return t, y[:, None]
+
+
+def cvi_model_port(kernel: str, likelihood: str, n: int = 64, dtype="float64", device="cpu",
+                   lr: float = 0.3):
+    """A CVI model of those data built with the port's API alone: ``kernel``
+    ``"Matern12"`` or ``"Matern32"`` (lengthscale 1.2, variance 0.9),
+    ``likelihood`` ``"Poisson"`` or ``"Bernoulli"``."""
+    import torch
+
+    from vi_diffusion_processes_tpu_torch.kernels import matern
+    from vi_diffusion_processes_tpu_torch.likelihoods import discrete
+    from vi_diffusion_processes_tpu_torch.models.cvi import CVIGaussianProcess
+
+    tdtype = getattr(torch, dtype)
+    t, y = cvi_data(likelihood, n)
+    k = getattr(matern, kernel)(lengthscale=1.2, variance=0.9, dtype=tdtype).to(device)
+    return CVIGaussianProcess.initialize(
+        k, getattr(discrete, likelihood)().to(device), torch.tensor(t, dtype=tdtype, device=device),
+        torch.tensor(y, dtype=tdtype, device=device), learning_rate=lr)

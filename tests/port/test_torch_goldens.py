@@ -1,5 +1,5 @@
-"""The port against the JAX package's golden traces of GPR, of VDP and of
-batched drift learning (``tests/golden/traces.npz``).
+"""The port against the JAX package's golden traces of GPR, of VDP, of
+batched drift learning and of sparse Poisson CVI (``tests/golden/traces.npz``).
 
 The GPR goldens are one log-likelihood and its three gradients, rtol 1e-6.
 The other two runs take discrete branches on ELBO comparisons or accumulate Adam
@@ -22,9 +22,11 @@ from vi_diffusion_processes_tpu.sde.zoo import DoubleWellSDE as JDoubleWell
 from vi_diffusion_processes_tpu_torch import interop
 from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_vdp
 from vi_diffusion_processes_tpu_torch.kernels.matern import Matern32, OrnsteinUhlenbeck
+from vi_diffusion_processes_tpu_torch.likelihoods.discrete import Poisson
 from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
 from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
 from vi_diffusion_processes_tpu_torch.models.gpr import GaussianProcessRegression
+from vi_diffusion_processes_tpu_torch.models.sparse_cvi import SparseCVIGaussianProcess
 from vi_diffusion_processes_tpu_torch.sde.zoo import DoubleWellSDE
 
 from .helpers import to_np
@@ -122,3 +124,25 @@ def test_batched_learning_reproduces_golden_trace_and_parameters():
     np.testing.assert_allclose(mean_trace, golden["batched_learning_elbos"], rtol=1e-6)
     np.testing.assert_allclose([float(sde.scale.detach()), float(sde.c.detach())],
                                golden["batched_learned_params"], rtol=1e-5)
+
+
+def test_sparse_poisson_cvi_reproduces_golden_elbos():
+    """``tests/golden/generate.py:120-158``: Poisson counts of rate
+    ``exp(sin 0.4t + 0.5)`` at 4,000 sorted uniform points on [0, 100], 150
+    inducing points on [−0.5, 100.5], Matern32(2, 1), lr 0.8; the classic
+    ELBO after each of 8 joint site updates, never falling by more than
+    1e-6."""
+    rng = np.random.default_rng(SEED + 4)
+    t = np.sort(rng.uniform(0.0, 100.0, size=4000))
+    y = rng.poisson(np.exp(np.sin(0.4 * t) + 0.5))[:, None].astype(np.float64)
+    data = (torch.tensor(t), torch.tensor(y))
+    model = SparseCVIGaussianProcess.initialize(
+        Matern32(lengthscale=2.0, variance=1.0), Poisson(),
+        torch.linspace(-0.5, 100.5, 150, dtype=torch.float64), learning_rate=0.8)
+    trace = []
+    for _ in range(8):
+        model = model.update_sites(data)
+        with torch.no_grad():
+            trace.append(float(model.classic_elbo(data)))
+    assert np.all(np.diff(trace) > -1e-6), trace
+    np.testing.assert_allclose(trace, np.load(GOLDEN_PATH)["sparse_poisson_elbos"], rtol=1e-6)

@@ -172,12 +172,20 @@ def test_the_model_reads_its_kernel_at_call_time():
 
 
 def test_sampling_waits_for_its_slice():
+    """Slice D3 has come: the GPR posterior's three sampling methods give
+    finite samples of their shapes (their moments are held in
+    test_torch_posterior_sampling.py)."""
     _, _, tmodel, _ = _models("ou")
+    t_new = torch.tensor([0.5, 1.5], dtype=torch.float64)
     with torch.no_grad():
         post = tmodel.posterior
-    for name in ("sample_state_trajectories", "sample_state", "sample_f"):
-        with pytest.raises(NotImplementedError, match="D3"):
-            getattr(post, name)(torch.zeros(2, dtype=torch.float64), None)
+        s, u = post.sample_state_trajectories(t_new, torch.Generator().manual_seed(0), (3,))
+        states = post.sample_state(t_new, torch.Generator().manual_seed(0), (3,))
+        f = post.sample_f(t_new, torch.Generator().manual_seed(0), (3,))
+    assert tuple(s.shape) == (3, 2, 1) and tuple(u.shape) == (3, N, 1)
+    assert torch.equal(states, s)
+    assert tuple(f.shape) == (3, 2, 1)
+    assert all(bool(torch.isfinite(x).all()) for x in (s, u, f))
 
 
 def test_gpr_from_numpy_round_trip():

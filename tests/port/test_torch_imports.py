@@ -29,7 +29,8 @@ ops._build ops.btd ops.cuda_riccati ops.cuda_scan ops.quadrature optim.trainers
 sde.base sde.drift sde.utils sde.zoo ssm.state_space_model ssm.transforms utils.linalg
 utils.shapes ops.blocked_scan ssm.emission ssm.mean_functions ssm.conditionals
 kernels.base kernels.matern kernels.misc parallel.pskf parallel.sites parallel.kalman
-models.posterior models.gpr models.cvi_dp_packed_ch
+models.posterior models.gpr models.cvi_dp_packed_ch likelihoods.discrete models.cvi
+models.cvi_packed models.sparse_cvi
 """.split()
 SCRIPTS = ["chip_smoke.py", "profile_step.py"]
 

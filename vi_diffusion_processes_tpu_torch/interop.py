@@ -19,11 +19,15 @@ from .config import resolve_device
 from .exp.data import DPDataset
 from .kernels import base as kernels_base
 from .kernels import matern, misc
+from .likelihoods.discrete import Bernoulli, Poisson
 from .likelihoods.gaussian import Gaussian as GaussianLikelihood
+from .models.cvi import CVIGaussianProcess, GaussianSites
 from .models.cvi_dp import CVISitesSDE, DataSites
 from .models.cvi_dp_packed import PackedCVIState
 from .models.cvi_dp_packed_batched import BatchedPackedCVIState
+from .models.cvi_packed import PackedCVIGPState
 from .models.gpr import GaussianProcessRegression
+from .models.sparse_cvi import SparseCVIGaussianProcess
 from .models.vdp import VariationalMarkovGP
 from .models.vdp_packed import PackedVDPState
 from .sde import zoo
@@ -43,6 +47,9 @@ __all__ = [
     "kernel_from_numpy",
     "kernel_params_to_numpy",
     "gpr_from_numpy",
+    "cvi_from_numpy",
+    "packed_cvi_state_from_numpy",
+    "sparse_cvi_from_numpy",
 ]
 
 
@@ -75,10 +82,18 @@ def sde_from_numpy(name: str, leaves: Mapping, device=None):
     return sde.to(resolve_device(device))
 
 
-def likelihood_from_numpy(leaves: Mapping, device=None) -> GaussianLikelihood:
-    """Gaussian likelihood from its JAX leaves (``variance``)."""
-    variance = np.asarray(leaves["variance"])
-    lik = GaussianLikelihood(variance, dtype=torch.as_tensor(variance).dtype)
+def likelihood_from_numpy(leaves: Mapping, device=None, name: str = "Gaussian"):
+    """Likelihood from its JAX leaves, by class name: ``"Gaussian"``
+    (``variance``), ``"Poisson"`` (``binsize``) or ``"Bernoulli"`` (none)."""
+    if name == "Gaussian":
+        variance = np.asarray(leaves["variance"])
+        lik = GaussianLikelihood(variance, dtype=torch.as_tensor(variance).dtype)
+    elif name == "Poisson":
+        lik = Poisson(binsize=float(leaves.get("binsize", 1.0)))
+    elif name == "Bernoulli":
+        lik = Bernoulli()
+    else:
+        raise ValueError(f"unknown likelihood {name!r}")
     return lik.to(resolve_device(device))
 
 
@@ -250,4 +265,58 @@ def gpr_from_numpy(
         kernel=kernel,
         mean_function=mean_function,
         **{k: _t(tree[k], device) for k in ("time_points", "observations", "chol_obs_covariance")},
+    )
+
+
+def cvi_from_numpy(
+    tree: Mapping, kernel, likelihood, mean_function=None, device=None
+) -> CVIGaussianProcess:
+    """``CVIGaussianProcess`` from the JAX model's fields (``time_points``,
+    ``observations``, ``sites`` with ``nat1`` and ``nat2``,
+    ``learning_rate``); ``kernel``, ``likelihood`` and ``mean_function`` are
+    port objects (see :func:`kernel_from_numpy`, :func:`likelihood_from_numpy`)."""
+    device = resolve_device(device)
+    return CVIGaussianProcess(
+        kernel=kernel,
+        likelihood=likelihood,
+        time_points=_t(tree["time_points"], device),
+        observations=_t(tree["observations"], device),
+        sites=GaussianSites(nat1=_t(tree["sites"]["nat1"], device),
+                            nat2=_t(tree["sites"]["nat2"], device)),
+        mean_function=mean_function,
+        learning_rate=float(tree["learning_rate"]),
+    )
+
+
+def packed_cvi_state_from_numpy(tree: Mapping, device=None) -> PackedCVIGPState:
+    """``PackedCVIGPState`` from the JAX state's fields.  The JAX state keeps
+    the prior naturals as channel tuples (``p_nat1`` a d-tuple of ``[T]``,
+    ``p_nat2d`` d × d of ``[T]``, ``p_nat2s`` d × d of ``[T−1]``); they are
+    stacked into ``[T, d]``, ``[T, d, d]`` and ``[T−1, d, d]``."""
+    device = resolve_device(device)
+
+    def mat(rows):
+        return np.stack([np.stack([np.asarray(x) for x in row], -1) for row in rows], -2)
+
+    fields = {f: _t(tree[f], device) for f in ("d_nat1", "d_nat2", "fx_mu", "fx_var", "h", "y")}
+    return PackedCVIGPState(
+        p_nat1=_t(np.stack([np.asarray(x) for x in tree["p_nat1"]], -1), device),
+        p_nat2d=_t(mat(tree["p_nat2d"]), device),
+        p_nat2s=_t(mat(tree["p_nat2s"]), device),
+        **fields,
+    )
+
+
+def sparse_cvi_from_numpy(
+    tree: Mapping, kernel, likelihood, mean_function=None, device=None
+) -> SparseCVIGaussianProcess:
+    """``SparseCVIGaussianProcess`` from the JAX model's fields
+    (``inducing_points``, ``nat1``, ``nat2``, ``learning_rate``)."""
+    device = resolve_device(device)
+    return SparseCVIGaussianProcess(
+        kernel=kernel,
+        likelihood=likelihood,
+        mean_function=mean_function,
+        learning_rate=float(tree["learning_rate"]),
+        **{k: _t(tree[k], device) for k in ("inducing_points", "nat1", "nat2")},
     )

@@ -3,9 +3,9 @@
 Shapes follow the reference: ``f_means/f_vars/y: [..., n, m]``, with
 per-datum results ``[..., n]``.  A likelihood without a closed form gives
 ``_elementwise_log_prob`` and inherits the Gauss–Hermite
-``variational_expectations``; the quadrature defaults of ``predict_density``
-and ``predict_mean_and_var`` serve the non-conjugate likelihoods of slice F
-and are not ported yet.
+``variational_expectations`` and ``predict_density``; with the hooks
+``conditional_mean`` and ``conditional_variance`` it also inherits
+``predict_mean_and_var``.
 """
 from __future__ import annotations
 
@@ -20,6 +20,15 @@ __all__ = ["Likelihood", "quad_expectation", "DEFAULT_NUM_GAUSS_HERMITE"]
 DEFAULT_NUM_GAUSS_HERMITE = 20
 
 
+def _hermite_points(f_means, f_vars, n_points: int = DEFAULT_NUM_GAUSS_HERMITE):
+    """The Gauss–Hermite points ``f = μ + √(2σ²)·z`` on a new last axis, and
+    their weights ``w/√π``."""
+    z, w = np.polynomial.hermite.hermgauss(n_points)
+    z = torch.as_tensor(z, dtype=f_means.dtype, device=f_means.device)
+    w = torch.as_tensor(w / np.sqrt(np.pi), dtype=f_means.dtype, device=f_means.device)
+    return f_means[..., None] + torch.sqrt(2.0 * torch.clamp(f_vars, min=0.0))[..., None] * z, w
+
+
 def quad_expectation(
     func: Callable[[torch.Tensor], torch.Tensor],
     f_means: torch.Tensor,
@@ -28,10 +37,7 @@ def quad_expectation(
 ) -> torch.Tensor:
     """``E_{f ~ N(μ, σ²)}[func(f)]`` elementwise by 1-D Gauss–Hermite
     (base.py:26); ``func`` is applied elementwise."""
-    z, w = np.polynomial.hermite.hermgauss(n_points)
-    z = torch.as_tensor(z, dtype=f_means.dtype, device=f_means.device)
-    w = torch.as_tensor(w / np.sqrt(np.pi), dtype=f_means.dtype, device=f_means.device)
-    f = f_means[..., None] + torch.sqrt(2.0 * torch.clamp(f_vars, min=0.0))[..., None] * z
+    f, w = _hermite_points(f_means, f_vars, n_points)
     return torch.sum(func(f) * w, dim=-1)
 
 
@@ -52,6 +58,30 @@ class Likelihood(nn.Module):
         )
         return torch.sum(lp, dim=-1)
 
+    def predict_density(self, f_means, f_vars, y) -> torch.Tensor:
+        """``log ∫ q(f) p(y|f) df`` per datum (base.py:62-73): a log-sum-exp
+        over the Gauss–Hermite points, summed over output dims."""
+        f, w = _hermite_points(f_means, f_vars)
+        lp = self._elementwise_log_prob(f, y[..., None])  # [..., n, m, P]
+        return torch.sum(torch.logsumexp(lp + torch.log(w), dim=-1), dim=-1)
+
+    def predict_mean_and_var(self, f_means, f_vars):
+        """Predictive mean and variance of y by quadrature (base.py:75-84)."""
+        ey = quad_expectation(self.conditional_mean, f_means, f_vars)
+        ey2 = quad_expectation(
+            lambda f: self.conditional_variance(f) + self.conditional_mean(f) ** 2,
+            f_means,
+            f_vars,
+        )
+        return ey, ey2 - ey**2
+
+    # --- hooks of the quadrature defaults
     def _elementwise_log_prob(self, f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """``log p(y|f)`` elementwise, with no reduction."""
+        raise NotImplementedError
+
+    def conditional_mean(self, f: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def conditional_variance(self, f: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError

@@ -24,8 +24,7 @@ from typing import Tuple
 import torch
 
 from ..config import default_jitter
-from ..ops.btd import dist_q_1d_core
-from ..ops.cuda_scan import dist_q_1d_planes
+from ..ops.btd import dist_q_1d
 from ..ops.quadrature import gauss_hermite_grid
 from ..sde.utils import BTDNaturals
 from .cvi_dp import CVISitesSDE, DataSites, _prior_nats_f64
@@ -124,11 +123,7 @@ def _dist_q_1d(state: PackedCVIState, compute_dtype):
     nat1 = state.p_nat1 + state.g_nat1.to(nat_dtype) + state.d_nat1.to(nat_dtype)
     nat2d = state.p_nat2d + state.g_nat2d.to(nat_dtype) + state.d_nat2.to(nat_dtype)
     nat2s = state.p_nat2s + state.g_nat2s.to(nat_dtype)
-    if nat_dtype == torch.float64:
-        out = dist_q_1d_planes(nat1, nat2d, nat2s, compute_dtype)
-    else:
-        out = dist_q_1d_core(nat1, nat2d, nat2s, compute_dtype)
-    a, b, qv, mu0, p0v, means, varis = out
+    a, b, qv, mu0, p0v, means, varis = dist_q_1d(nat1, nat2d, nat2s, compute_dtype)
     return (a, b, qv, mu0, p0v), means, varis
 
 

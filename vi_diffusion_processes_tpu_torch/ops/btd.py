@@ -34,7 +34,7 @@ from ..utils.linalg import (
 )
 from .blocked_scan import assoc_scan
 from .cuda_riccati import _riccati_d_sweep_f32_unchecked
-from .cuda_scan import _riccati_d_sweep_unchecked, linear_recurrence
+from .cuda_scan import _riccati_d_sweep_unchecked, dist_q_1d_planes, linear_recurrence
 
 __all__ = [
     "BTD",
@@ -56,6 +56,7 @@ __all__ = [
     "scalar_affine_all",
     "affine_scan",
     "dist_q_1d_core",
+    "dist_q_1d",
 ]
 
 
@@ -370,3 +371,13 @@ def dist_q_1d_core(nat1, nat2d, nat2s, compute_dtype):
     a, b, qv, mu0, p0v = (x.to(compute_dtype) for x in (a, b, qv, mu0, p0v))
     means, varis = _marginals_1d(a, b, qv, mu0, p0v)
     return a, b, qv, mu0, p0v, means, varis
+
+
+def dist_q_1d(nat1, nat2d, nat2s, compute_dtype):
+    """The d = 1 naturals → SSM params → marginals chain by the naturals'
+    dtype: float64 (the x64 policy) takes kernel K3, one launch on CUDA;
+    float32 (x64 off) takes its composition :func:`dist_q_1d_core`, one K4
+    and four float32 K2 launches."""
+    if nat1.dtype == torch.float64:
+        return dist_q_1d_planes(nat1, nat2d, nat2s, compute_dtype)
+    return dist_q_1d_core(nat1, nat2d, nat2s, compute_dtype)

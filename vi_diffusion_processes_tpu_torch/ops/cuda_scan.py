@@ -87,7 +87,8 @@ def _blockify(x: torch.Tensor, nb: int, l: int, fill: float) -> torch.Tensor:
 
 
 def _unblockify(x: torch.Tensor, n: int) -> torch.Tensor:
-    return x.reshape(x.shape[:-2] + (-1,))[..., :n]
+    # the length spelled out: ``-1`` is ambiguous for an empty batch
+    return x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))[..., :n]
 
 
 def _shift(x: torch.Tensor, sh: int, fill: float, toward_start: bool) -> torch.Tensor:

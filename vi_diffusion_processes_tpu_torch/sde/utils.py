@@ -14,7 +14,14 @@ import torch
 from ..ops.quadrature import mvnquad
 from ..ssm.state_space_model import StateSpaceModel
 from ..ssm.transforms import expectations_to_ssm_params, ssm_to_expectations, ssm_to_naturals
-from ..utils.linalg import cho_solve, chol_psd, gaussian_kl, inv_small, transpose_last
+from ..utils.linalg import (
+    cho_solve,
+    chol_psd,
+    gaussian_kl,
+    inv_small,
+    mvn_logpdf,
+    transpose_last,
+)
 from .base import SDE
 from .drift import LinearDrift, linear_drift_to_ssm
 
@@ -24,6 +31,7 @@ __all__ = [
     "euler_maruyama",
     "linearize_sde",
     "squared_drift_difference_along_Gaussian_path",
+    "gaussian_log_predictive_density",
     "ssm_kl_along_gaussian_path",
     "ssm_to_btd_nat",
     "ssm_kl_with_grads_wrt_exp_params",
@@ -124,6 +132,11 @@ def squared_drift_difference_along_Gaussian_path(
         return torch.einsum("npi,ij,npj->np", diff, sigma_inv, diff)
 
     return 0.5 * torch.sum(mvnquad(func, m, s, quadrature_pnts)) * dt
+
+
+def gaussian_log_predictive_density(mean, chol_covariance, x) -> torch.Tensor:
+    """``log N(x; mean, LLᵀ)`` (sde/utils.py:134-138)."""
+    return mvn_logpdf(x, mean, chol_covariance)
 
 
 def ssm_kl_along_gaussian_path(

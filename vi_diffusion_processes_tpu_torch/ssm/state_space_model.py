@@ -3,16 +3,30 @@
 
 The joint density over states ``x₀ … x_N`` is
 ``p(x) = N(x₀; μ₀, P₀) Π_k N(x_{k+1}; A_k x_k + b_k, Q_k)``.  The model is
-a frozen dataclass of five tensors, updated with :meth:`replace`.
+a frozen dataclass of five tensors, updated with :meth:`replace`.  Its
+block-tridiagonal precision ``K = A⁻ᵀ Q⁻¹ A⁻¹`` comes out of
+:meth:`precision` as a :class:`~..ops.btd.BTD`; the log-determinant,
+log-density, KL divergence and joint sampling use the Markov factorization.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
-from ..utils.linalg import chol_psd, matmul_small, matvec_small, mvn_logpdf, transpose_last
+from ..utils.linalg import (
+    cho_solve,
+    chol_psd,
+    eye_like,
+    gaussian_kl,
+    matmul_small,
+    matvec_small,
+    mvn_logpdf,
+    transpose_last,
+    tri_solve,
+)
 
 __all__ = ["StateSpaceModel", "chain_marginals", "ssm_from_covariances"]
 
@@ -152,6 +166,37 @@ class StateSpaceModel:
         """``Cov(x_{k+1}, x_k) = A_k P_k`` (state_space_model.py:228)."""
         return matmul_small(self.state_transitions, marginal_covariances[..., :-1, :, :])
 
+    # --------------------------------------------------------------- sampling
+    def sample(
+        self, generator: Optional[torch.Generator] = None, sample_shape: Tuple[int, ...] = ()
+    ) -> torch.Tensor:
+        """Joint samples of the whole trajectory, ``[*S, ..., N+1, d]``
+        (state_space_model.py:233-266): white noise shifts the offsets,
+        ``b̃_k = b_k + chol Q_k ε_k``, and the trajectory
+        ``x_k = A_k x_{k−1} + b̃_k`` from ``x₀ = μ₀ + chol P₀ ε₀`` is one
+        :func:`~..ops.btd.affine_scan`: at d = 1 a batched call of
+        ``scalar_affine_all`` (kernel K2 on CUDA, one row per sample), at
+        d ≥ 2 the associative scan over ``(A, b̃)``.  ``generator`` must live
+        on the tensors' device; the stream is PyTorch's own, so samples agree
+        with the JAX package's in their moments only."""
+        from ..ops.btd import affine_scan
+
+        sample_shape = tuple(sample_shape)
+        d, n = self.state_dim, self.num_transitions
+        like = self.initial_mean
+        lead = sample_shape + self.batch_shape
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+        eps0 = normal(lead + (d,))
+        eps = normal(lead + (n, d))
+        x0 = self.initial_mean + matvec_small(self.chol_initial_covariance, eps0)
+        shifted_b = self.state_offsets + matvec_small(self.chol_process_covariances, eps)
+        a = torch.broadcast_to(self.state_transitions, lead + (n, d, d))
+        xs = affine_scan(a, shifted_b, x0)
+        return torch.cat([x0[..., None, :], xs], dim=-2)
+
     # ------------------------------------------------------------- densities
     def log_det_precision(self) -> torch.Tensor:
         """``log |K| = −log |P₀| − Σ log |Q_k|`` (state_space_model.py:269)."""
@@ -168,6 +213,63 @@ class StateSpaceModel:
         lp_init = mvn_logpdf(states[..., 0, :], self.initial_mean, self.chol_initial_covariance)
         lp_trans = mvn_logpdf(states[..., 1:, :], pred, self.chol_process_covariances)
         return lp_init + torch.sum(lp_trans, dim=-1)
+
+    def kl_divergence(self, other: "StateSpaceModel") -> torch.Tensor:
+        """``KL(self ‖ other)`` between two chains on one grid
+        (state_space_model.py:291-332), by the Markov decomposition
+
+            ``KL = KL(q₀‖p₀) + Σ_k E_{q(x_k)} KL(q(x_{k+1}|x_k) ‖ p(x_{k+1}|x_k))``
+
+        whose terms need only q's marginals (kernel K2 at d = 1)."""
+        q, p = self, other
+        d = q.state_dim
+        kl0 = gaussian_kl(q.initial_mean, q.chol_initial_covariance,
+                          p.initial_mean, p.chol_initial_covariance)
+        means, covs = q.marginals()
+        m_k = means[..., :-1, :]
+        s_k = covs[..., :-1, :, :]
+
+        lq = q.chol_process_covariances
+        lp = p.chol_process_covariances
+        trace = torch.sum(tri_solve(lp, lq) ** 2, dim=(-1, -2))
+        logdet_q = 2.0 * torch.sum(torch.log(torch.abs(torch.diagonal(lq, dim1=-2, dim2=-1))), -1)
+        logdet_p = 2.0 * torch.sum(torch.log(torch.abs(torch.diagonal(lp, dim1=-2, dim2=-1))), -1)
+
+        da = q.state_transitions - p.state_transitions
+        db = q.state_offsets - p.state_offsets
+        # E‖ΔA x + Δb‖²_{Qp⁻¹} = tr(Qp⁻¹ ΔA S ΔAᵀ) + ‖ΔA m + Δb‖²_{Qp⁻¹}
+        lp_inv_da = tri_solve(lp, da)
+        quad_cov = torch.einsum("...ij,...jk,...ik->...", lp_inv_da, s_k, lp_inv_da)
+        alpha = tri_solve(lp, (matvec_small(da, m_k) + db)[..., None])[..., 0]
+        quad_mean = torch.sum(alpha**2, dim=-1)
+
+        per_step = 0.5 * (trace - d + logdet_p - logdet_q + quad_cov + quad_mean)
+        return kl0 + torch.sum(per_step, dim=-1)
+
+    def normalizer(self) -> torch.Tensor:
+        """Log-partition of the Gaussian in natural form,
+        ``½ (D·log 2π − log|K| + μᵀKμ)`` (state_space_model.py:334-347)."""
+        from ..ops.btd import btd_matvec
+
+        dim = (self.num_transitions + 1) * self.state_dim
+        means, _ = self.marginals()
+        maha = torch.sum(means * btd_matvec(self.precision(), means), dim=(-1, -2))
+        return 0.5 * (dim * math.log(2.0 * math.pi) - self.log_det_precision() + maha)
+
+    def precision(self):
+        """The block-tridiagonal precision ``K = A⁻ᵀ Q⁻¹ A⁻¹`` as a
+        :class:`~..ops.btd.BTD` (state_space_model.py:350-368):
+        ``K_kk = Q_k⁻¹ + A_{k+1}ᵀQ_{k+1}⁻¹A_{k+1}`` (``Q₀ = P₀``),
+        ``K_NN = Q_N⁻¹``, ``K_{k+1,k} = −Q_{k+1}⁻¹A_{k+1}``."""
+        from ..ops.btd import BTD
+
+        chols = self.concatenated_cholesky_process_covariance  # [..., N+1, d, d]
+        precisions = cho_solve(chols, torch.broadcast_to(eye_like(chols), chols.shape))
+        q_inv_a = matmul_small(precisions[..., 1:, :, :], self.state_transitions)
+        at_qinv_a = matmul_small(transpose_last(self.state_transitions), q_inv_a)
+        diag = torch.cat(
+            [precisions[..., :-1, :, :] + at_qinv_a, precisions[..., -1:, :, :]], dim=-3)
+        return BTD(diag=diag, sub=-q_inv_a)
 
 
 def ssm_from_covariances(

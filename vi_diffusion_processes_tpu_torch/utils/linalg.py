@@ -36,6 +36,7 @@ __all__ = [
     "gaussian_kl",
     "inv_small",
     "inv_pd",
+    "qr_solve",
 ]
 
 
@@ -172,6 +173,15 @@ def inv_pd(a: torch.Tensor) -> torch.Tensor:
     if a.shape[-1] <= 3:
         return inv_small(a)
     return cho_solve(chol_psd(a), eye_like(a).expand(a.shape))
+
+
+def qr_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``a x = b`` for general square ``a`` by Householder QR
+    (linalg.py:324), batch dims broadcast.  Kept for the API: the JAX package
+    takes QR to avoid LU on the TPU, and :func:`solve_small` keeps its own
+    route here."""
+    q, r = torch.linalg.qr(a)
+    return torch.linalg.solve_triangular(r, transpose_last(q) @ b, upper=True)
 
 
 def solve_psd(
