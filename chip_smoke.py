@@ -1,6 +1,8 @@
 """Drive the PyTorch port's d=1 CVI-DP and VDP paths, its d=2 CVI-DP path, its
-exact-GPR path (any state dimension) and its non-conjugate CVI (generic,
-packed and sparse) on one CUDA card.
+exact-GPR path (any state dimension), its non-conjugate CVI (generic,
+packed and sparse), its spatio-temporal CVI and its remaining variational
+models (natural gradients, VGP, SVGP, composite kernels, PEP, sparse PEP,
+IWVI) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -95,12 +97,32 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
 23. path inputs: K1 and K2 against their plain versions on the tensors that
     phase 21's full-size sparse model (``dist_q`` and its marginals, M =
     10,000) and ``sample``'s ``[8192, 200]`` batch hand them;
-24. reference: on small float64 inputs the packed step, the prior gradient,
+24. spatio: both cells of ``benchmarks/secondary.py:437-549`` (N = 20,000
+    observations, Mt = 10,000 inducing times, SpatialRBF(1, 0.5) ×
+    Matern32(5, 1), Gaussian(0.05), lr 0.5, float64 model): d = 6 (3 spatial
+    inducing points) and d = 14 (7); ``pack_spatio`` on the card, then 64 and
+    16 float32 ``packed_spatio_site_step`` calls: steps/s (cold), launches
+    and device time per step, busy share, peak memory; the float64 ELBO must
+    rise; K1-K4 must launch 0 times;
+25. spatio reference: the generic step at N = 2,000, Mt = 1,000, d = 6 and
+    14, float64, card against CPU (1e-9); at full width and d = 6 the packed
+    step against the generic one on the card (``SPATIO_PACKED_RTOL``), and
+    the float32 packed step beside them;
+26. natgrad VGP: docs/examples/natgrad_vgp.py at N = 100,000 on [0, 100]
+    (Matern12, float64): one γ = 1 ``natgrad_step`` is exact inference, its
+    ELBO the GPR log-likelihood (1e-8) and its marginals the GPR posterior's
+    (``NATGRAD_MARGINALS_RTOL``); K1 and K2 must launch;
+27. models H: the stacked-kernel and factor-analysis SVGPs with natural
+    gradients, the multi-stage VGP, PEP, sparse PEP (d = 3, and d = 1, which
+    must launch K1) and IWVI (40 DREGS Adam steps on draws made once) at
+    their ``docs/examples`` configurations, float64, card against CPU
+    (1e-9; the multi-stage VGP ``MODELS_H_RTOL``);
+28. reference: on small float64 inputs the packed step, the prior gradient,
     the batched step (B = 3, T = 300) and three VDP steps (T = 500) on the
     card against the same on the CPU.
 
-Launch counts are set to 0 just before each of phases 5-22 and read just
-after.  The second-to-last line is a JSON object with each kernel's
+Launch counts are set to 0 just before each of phases 5-22 and 24-27 and
+read just after.  The second-to-last line is a JSON object with each kernel's
 launches in those phases, its max error, times (host clock ``ms``, device
 ``device_ms``) and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -140,6 +162,33 @@ SPARSE_STEPS, LR_SPARSE, M_SPARSE = 8, 0.8, 10_000
 #: (``python -m tests.port.packed_sensitivity [--jax]``), and on an H100 the
 #: card differed from the CPU by 5.0e-9.  Every other route is held to 1e-9.
 CARD_RTOL, PACKED_D2_CARD_RTOL = 1e-9, 3e-8
+#: the spatio-temporal configurations of benchmarks/secondary.py:437-549:
+#: observations, inducing times, learning rate, and by state dimension the
+#: spatial inducing points and the benchmark's timed site steps
+N_SPATIO, MT_SPATIO, LR_SPATIO = 20_000, 10_000, 0.5
+SPATIO_CONFIGS = {6: (3, 64), 14: (7, 16)}
+#: the packed spatio step against the generic step in float64 at full width
+#: (d = 6, three steps), as a share of the sites' scale.  Both routes take the
+#: naturals through the same Schur-segment UDU' and agree to 2.1e-16 on the
+#: CPU and on an H100, while a one-ulp change of the temporal lengthscale moves
+#: either by 1.0e-8 and the card differs from the CPU by 1.2e-8
+#: (``python -m tests.port.packed_sensitivity --spatio``): the generic limit
+#: holds, well below the route's own sensitivity
+SPATIO_PACKED_RTOL = 1e-9
+#: the natgrad VGP of docs/examples/natgrad_vgp.py at full size, and the limit
+#: of its marginals against exact GPR.  Its 100,000 sorted uniform times leave
+#: a smallest gap of 2.4e-9, and the natural-parameter route solves for the
+#: marginals in precision form (entries up to 1/Q ≈ 1e8): a one-ulp change of
+#: the lengthscale moves its marginals by 5.1e-8 of their scale on the CPU,
+#: the GPR route's by 3.8e-16, and on an H100 they met the GPR's to 1.8e-8
+#: (4.0e-8 on the CPU); the limit is four one-ulp changes.  The ELBO is held
+#: to 1e-8
+N_NATGRAD, NATGRAD_MARGINALS_RTOL = 100_000, 2e-7
+#: slice-H examples held to a limit other than CARD_RTOL, card against CPU:
+#: the multi-stage VGP's 80 sorted uniform times leave a gap of 3.2e-4 and
+#: Matern32 naturals of 6e9; a one-ulp change of one lengthscale moves its
+#: 25-step outputs by 1.8e-6 of their scale on the CPU
+MODELS_H_RTOL = {"multistage_vgp": 1e-5}
 REPS = 20
 #: the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 #: bytes/s, and FLOP/s outside the tensor cores in float64 and float32
@@ -1750,7 +1799,7 @@ def phase_reference(dev) -> None:
 
 
 def _scaled_err(a, b) -> float:
-    b = b.double()
+    b = b.double().cpu()
     return float((a.double().cpu() - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
 
@@ -1815,6 +1864,399 @@ def _reference_vdp(dev) -> None:
         raise AssertionError("the VDP step on the card disagrees with the CPU")
 
 
+def spatio_data(n: int = N_SPATIO, seed: int = 0):
+    """``(inputs [n, 2], y [n, 1])`` of benchmarks/secondary.py:450-457: a
+    spatial coordinate x ~ U(0, 1), sorted times t ~ U(0, 100) (the last
+    column) and y = sin 2t · cos 3x + 0.1·N(0, 1), from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    x_space = rng.uniform(0, 1, size=(n, 1))
+    t = np.sort(rng.uniform(0, 100.0, size=n))
+    y = (np.sin(2 * t) * np.cos(3 * x_space[:, 0]) + 0.1 * rng.normal(size=n))[:, None]
+    return np.concatenate([x_space, t[:, None]], axis=-1), y
+
+
+def spatio_model(m_space: int, dev, mt: int = MT_SPATIO, lengthscale: float = 5.0):
+    """``SpatioTemporalSparseCVI`` of benchmarks/secondary.py:458-465 in
+    float64: ``m_space`` spatial inducing points on [0.05, 0.95], ``mt``
+    inducing times on [0, 100], SpatialRBF(1, 0.5) × Matern32(``lengthscale``,
+    1), Gaussian(0.05), lr 0.5; d = 2·m_space."""
+    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern32
+    from vi_diffusion_processes_tpu_torch.kernels.spatial import SpatialRBF
+    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu_torch.models.spatio_temporal import SpatioTemporalSparseCVI
+
+    f64 = torch.float64
+    return SpatioTemporalSparseCVI.initialize(
+        torch.linspace(0.05, 0.95, m_space, dtype=f64, device=dev)[:, None],
+        torch.linspace(0.0, 100.0, mt, dtype=f64, device=dev),
+        SpatialRBF(variance=1.0, lengthscale=0.5).to(dev),
+        Matern32(lengthscale=lengthscale, variance=1.0).to(dev), Gaussian(0.05).to(dev),
+        learning_rate=LR_SPATIO)
+
+
+def _on(arrays, dev):
+    return tuple(torch.tensor(a, device=dev) for a in arrays)
+
+
+def phase_spatio(dev, card: str) -> dict:
+    """Both full-width spatio configurations: ``pack_spatio`` on the card,
+    then the benchmark's float32 ``packed_spatio_site_step`` calls (64 at
+    d = 6, 16 at d = 14) after one warm-up, four more under the profiler;
+    the float64 ELBO must rise.  Returns one record per state dimension."""
+    from vi_diffusion_processes_tpu_torch.models.spatio_packed import (
+        pack_spatio,
+        packed_spatio_site_step,
+        unpack_spatio,
+    )
+
+    xy = _on(spatio_data(), dev)
+    records = {}
+    for d, (m_space, steps) in SPATIO_CONFIGS.items():
+        model = spatio_model(m_space, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, state = pack_spatio(model, xy)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        with torch.no_grad():
+            elbo0 = float(model.elbo(xy))
+
+        def step(s):
+            return packed_spatio_site_step(model, cache, s, torch.float32)
+
+        state = step(state)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = step(state)
+        torch.cuda.synchronize()
+        rate = steps / (time.perf_counter() - t0)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        holder = [state]
+
+        def one():
+            holder[0] = step(holder[0])
+
+        prof = profile_calls(one, 4)
+        with torch.no_grad():
+            elbo1 = float(unpack_spatio(model, holder[0]).elbo(xy))
+        rec = {"d": d, "n": N_SPATIO, "mt": MT_SPATIO, "steps": steps, "steps_per_s": rate,
+               "launches_per_step": prof["launches"], "device_ms_per_step": prof["device_ms"],
+               "busy_share": prof["device_ms"] * rate / 1e3, "peak_mib": peak_mib,
+               "pack_s": pack_s, "elbo_f64_before": elbo0, "elbo_f64_after": elbo1}
+        records[d] = rec
+        log(f"[spatio] d={d} N={N_SPATIO} Mt={MT_SPATIO}, pack_spatio {pack_s:.3f} s, {steps} "
+            f"float32 packed_spatio_site_step(lr={LR_SPATIO}): {rate:.2f} steps/s on {card} "
+            f"(cold, information only); {prof['launches']:.0f} launches and "
+            f"{prof['device_ms']:.3f} ms of device time per step (busy share "
+            f"{rec['busy_share']:.3f}), peak memory {peak_mib:.0f} MiB; float64 ELBO "
+            f"{elbo0!r} -> {elbo1!r}; top {json.dumps(prof['top'])}")
+        if not all(bool(torch.isfinite(x).all()) for x in (holder[0].nat1, holder[0].nat2)):
+            raise AssertionError(f"spatio d={d}: the site naturals are not finite")
+        if not elbo1 > elbo0:
+            raise AssertionError(f"spatio d={d}: the ELBO did not rise")
+    return records
+
+
+def _spatio_generic(m_space, xy, device, steps: int = 3, mt: int = MT_SPATIO):
+    model = spatio_model(m_space, device, mt)
+    for _ in range(steps):
+        model = model.update_sites(xy)
+    return model
+
+
+def _spatio_packed(m_space, xy, device, compute, steps: int = 3):
+    from vi_diffusion_processes_tpu_torch.models.spatio_packed import (
+        pack_spatio,
+        packed_spatio_site_step,
+    )
+
+    model = spatio_model(m_space, device)
+    cache, state = pack_spatio(model, xy)
+    for _ in range(steps):
+        state = packed_spatio_site_step(model, cache, state, compute)
+    return state
+
+
+def phase_spatio_reference(dev) -> None:
+    """float64: the generic spatio step at N = 2,000, Mt = 1,000, d = 6 and
+    14, three steps and the ELBO, on the card against the CPU
+    (``CARD_RTOL``); at full width and d = 6, the packed step against the
+    generic one on the card after three steps (``SPATIO_PACKED_RTOL``), and
+    the float32 packed step against the float64 generic step beside it."""
+    small = spatio_data(2_000)
+    worst = {}
+    for d, (m_space, _) in SPATIO_CONFIGS.items():
+        outs = []
+        for device in (dev, torch.device("cpu")):
+            xy = _on(small, device)
+            model = _spatio_generic(m_space, xy, device, mt=1_000)
+            with torch.no_grad():
+                outs.append([model.nat1, model.nat2, model.elbo(xy)])
+        worst[f"generic-d{d}"] = max(_scaled_err(a, b) for a, b in zip(*outs))
+    log(f"[spatio-reference] float64 generic step, N=2000, Mt=1000, 3 steps and the ELBO, card "
+        f"against CPU (scaled err, limit {CARD_RTOL}): {json.dumps(worst)}")
+    if not all(err <= CARD_RTOL for err in worst.values()):
+        raise AssertionError("the generic spatio step on the card disagrees with the CPU")
+
+    xy = _on(spatio_data(), dev)
+    generic = _spatio_generic(3, xy, dev)
+    packed64 = _spatio_packed(3, xy, dev, torch.float64)
+    packed32 = _spatio_packed(3, xy, dev, torch.float32)
+    err64 = max(_scaled_err(a, b) for a, b in ((packed64.nat1, generic.nat1),
+                                                (packed64.nat2, generic.nat2)))
+    err32 = max(_scaled_err(a, b) for a, b in ((packed32.nat1, generic.nat1),
+                                                (packed32.nat2, generic.nat2)))
+    log(f"[spatio-reference] full width d=6, 3 steps on the card: float64 packed against float64 "
+        f"generic {err64:.3e} (limit {SPATIO_PACKED_RTOL}); float32 packed against float64 "
+        f"generic {err32:.3e} (information only)")
+    if not err64 <= SPATIO_PACKED_RTOL:
+        raise AssertionError("the packed spatio step disagrees with the generic step")
+    if not (bool(torch.isfinite(packed32.nat1).all()) and bool(torch.isfinite(packed32.nat2).all())):
+        raise AssertionError("the float32 packed spatio step is not finite")
+
+
+def natgrad_vgp_model(n: int, dev):
+    """docs/examples/natgrad_vgp.py:19-25 at ``n`` points on [0, 100]:
+    Matern12(0.7, 1), Gaussian(0.04), y = sin 2t + 0.2·N(0, 1) from
+    ``default_rng(7)``, float64."""
+    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12
+    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu_torch.models.variational import VariationalGaussianProcess
+
+    rng = np.random.default_rng(7)
+    t = np.sort(rng.uniform(0, 100.0, n))
+    y = np.sin(2 * t)[:, None] + 0.2 * rng.normal(size=(n, 1))
+    t, y = _on((t, y), dev)
+    kernel = Matern12(lengthscale=0.7, variance=1.0).to(dev)
+    return VariationalGaussianProcess.initialize(kernel, Gaussian(0.04).to(dev), t, y)
+
+
+def phase_natgrad_vgp(dev, card: str) -> dict:
+    """One γ = 1 ``natgrad_step`` on the natgrad VGP at N = 100,000: exact
+    inference, so its ELBO equals ``GaussianProcessRegression``'s log
+    marginal likelihood and its marginals the GPR posterior's (1e-8)."""
+    from vi_diffusion_processes_tpu_torch.models.gpr import GaussianProcessRegression
+    from vi_diffusion_processes_tpu_torch.optim.natgrad import natgrad_step
+
+    vgp = natgrad_vgp_model(N_NATGRAD, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q1, _, loss0 = natgrad_step(vgp.loss, vgp.dist_q, gamma=1.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    gpr = GaussianProcessRegression(vgp.kernel, vgp.time_points, vgp.observations,
+                                    torch.tensor([[0.2]], dtype=torch.float64, device=dev))
+    with torch.no_grad():
+        elbo, loglik = float(vgp.elbo(q1)), float(gpr.log_likelihood())
+        means, covs = q1.marginals()
+        ref_means, ref_covs = gpr.posterior_state_space_model().marginals()
+    rec = {"n": N_NATGRAD, "step_s": seconds, "loss_before": float(loss0), "elbo_after": elbo,
+           "gpr_loglik": loglik, "elbo_rel_err": abs(elbo - loglik) / abs(loglik),
+           "means_err": _scaled_err(means, ref_means), "covs_err": _scaled_err(covs, ref_covs)}
+    log(f"[natgrad-vgp] N={N_NATGRAD} Matern12 f64, one natgrad_step(gamma=1) in {seconds:.3f} s "
+        f"on {card}: ELBO {elbo!r} against the GPR log-likelihood {loglik!r} (rel "
+        f"{rec['elbo_rel_err']:.3e}, limit 1e-8), marginals scaled err {rec['means_err']:.3e} "
+        f"(means), {rec['covs_err']:.3e} (covariances), limit {NATGRAD_MARGINALS_RTOL}")
+    if not (rec["elbo_rel_err"] <= 1e-8
+            and max(rec["means_err"], rec["covs_err"]) <= NATGRAD_MARGINALS_RTOL):
+        raise AssertionError("one gamma = 1 natgrad step is not exact inference on the card")
+    return rec
+
+
+@contextlib.contextmanager
+def _fed_normals(draws):
+    """``torch.randn`` replaced, inside the block, by the next of ``draws``
+    (CPU tensors) moved to the requested device and dtype: the same draws on
+    the card and on the CPU."""
+    queue, real = list(draws), torch.randn
+
+    def randn(*size, generator=None, dtype=None, device=None, **_):
+        shape = tuple(size[0]) if len(size) == 1 and not isinstance(size[0], int) else size
+        out = queue.pop(0)
+        if tuple(out.shape) != tuple(shape):
+            raise AssertionError(f"fed draw of shape {tuple(out.shape)} where {shape} was asked")
+        return out.to(dtype=dtype, device=device)
+
+    torch.randn = randn
+    try:
+        yield
+    finally:
+        torch.randn = real
+
+
+def _models_h_outputs(device) -> dict:
+    """The slice-H examples of docs/examples at their configurations and
+    numbers of steps, float64, on ``device``: name → (outputs, launches of
+    K1 and K2 on the card)."""
+    from vi_diffusion_processes_tpu_torch.kernels import composite
+    from vi_diffusion_processes_tpu_torch.kernels.base import IndependentMultiOutput
+    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12, Matern32, Matern52
+    from vi_diffusion_processes_tpu_torch.likelihoods.discrete import Bernoulli
+    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu_torch.likelihoods.multistage import MultiStageLikelihood
+    from vi_diffusion_processes_tpu_torch.likelihoods.pep import PEPScalarLikelihood
+    from vi_diffusion_processes_tpu_torch.models.iwvi import ImportanceWeightedVI
+    from vi_diffusion_processes_tpu_torch.models.pep import PowerExpectationPropagation
+    from vi_diffusion_processes_tpu_torch.models.sparse_pep import SparsePowerExpectationPropagation
+    from vi_diffusion_processes_tpu_torch.models.svgp import SparseVariationalGaussianProcess
+    from vi_diffusion_processes_tpu_torch.models.variational import VariationalGaussianProcess
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+    from vi_diffusion_processes_tpu_torch.optim.natgrad import natgrad_init, natgrad_step
+    from vi_diffusion_processes_tpu_torch.ssm.state_space_model import StateSpaceModel
+
+    f64 = torch.float64
+    out = {}
+
+    def run(name, fn):
+        before = cs.launch_counts()
+        values = fn()
+        after = cs.launch_counts()
+        out[name] = ([v.detach() for v in values],
+                     {k: after[k] - before[k] for k in ("riccati_d_sweep", "linear_recurrence")})
+
+    def natgrad_svgp(kernel, z, t, y, steps):
+        model = SparseVariationalGaussianProcess.initialize(kernel, Gaussian(0.01).to(device), z)
+        q, losses = model.dist_q, []
+        for _ in range(steps):
+            q, _, loss = natgrad_step(lambda qq: model.replace(dist_q=qq).loss((t, y)), q,
+                                      gamma=0.5)
+            losses.append(loss)
+        with torch.no_grad():
+            f_mu, f_var = model.replace(dist_q=q).posterior.predict_f(t)
+        return [torch.stack(losses), f_mu, f_var]
+
+    def stacked():  # docs/examples/stacked_kernels.py
+        rng = np.random.default_rng(13)
+        t = np.sort(rng.uniform(0, 4, 80))
+        y = np.stack([np.sin(2 * t), np.cos(t) * t / 2.0], -1) + 0.1 * rng.normal(size=(80, 2))
+        kernel = composite.IndependentMultiOutputStack(
+            [Matern12(0.6, 1.0), Matern32(1.0, 1.0)]).to(device)
+        return natgrad_svgp(kernel, torch.linspace(0, 4, 25, dtype=f64, device=device),
+                            *_on((t, y), device), 10)
+
+    def weights(t):
+        a = torch.stack([torch.ones_like(t), 0.5 * torch.sin(t), 0.3 * t / 6.0,
+                         torch.ones_like(t), torch.cos(t), -0.5 * torch.ones_like(t)], dim=-1)
+        return a.reshape(t.shape + (3, 2))
+
+    def factor_analysis():  # docs/examples/factor_analysis.py
+        rng = np.random.default_rng(11)
+        t = np.sort(rng.uniform(0, 6, size=120))
+        g = np.stack([np.sin(t), np.cos(3.0 * t)], axis=-1)
+        f = np.einsum("nom,nm->no", weights(torch.tensor(t)).numpy(), g)
+        y = f + 0.1 * rng.normal(size=(120, 3))
+        kernel = composite.FactorAnalysisKernel.create(
+            weights, [Matern32(1.5, 1.0), Matern12(0.4, 1.0)], 3).to(device)
+        return natgrad_svgp(kernel, torch.linspace(0, 6, 40, dtype=f64, device=device),
+                            *_on((t, y), device), 15)
+
+    def multistage():  # docs/examples/multistage_demand.py; counts drawn once, on the CPU
+        t = torch.tensor(np.sort(np.random.default_rng(11).uniform(0, 5, 80)))
+        lik = MultiStageLikelihood()
+        f_true = torch.stack([torch.sin(1.5 * t), torch.cos(2.0 * t), 0.3 * t - 0.5], dim=-1)
+        y = lik.sample_y(f_true, torch.Generator().manual_seed(11))
+        kernel = IndependentMultiOutput([Matern32(1.0, 1.0) for _ in range(3)]).to(device)
+        vgp = VariationalGaussianProcess.initialize(kernel, lik, t.to(device), y.to(device))
+        q, state, losses = vgp.dist_q, natgrad_init(vgp.dist_q), []
+        for _ in range(25):
+            q, state, loss = natgrad_step(vgp.loss, q, gamma=0.2, state=state)
+            losses.append(loss)
+        with torch.no_grad():
+            f_mu, f_var = vgp.replace(dist_q=q).posterior.predict_f(vgp.time_points)
+        return [torch.stack(losses), f_mu, f_var]
+
+    def pep():  # docs/examples/pep_classification.py
+        rng = np.random.default_rng(3)
+        t = np.sort(rng.uniform(0, 6, size=100))
+        y = (rng.uniform(size=100) < 1.0 / (1.0 + np.exp(-4.0 * np.sin(1.5 * t))))
+        t, y = _on((t, y.astype(float)[:, None]), device)
+        model = PowerExpectationPropagation.initialize(
+            Matern52(1.0, 4.0).to(device), PEPScalarLikelihood(Bernoulli()), t, y,
+            alpha=0.9, learning_rate=0.5)
+        for _ in range(20):
+            model = model.update_sites()
+        with torch.no_grad():
+            return [model.sites.nat1, model.sites.nat2, model.site_log_norm, model.elbo(),
+                    *model.posterior.predict_f(t)]
+
+    def sparse_pep(kernel):  # docs/examples/sparse_pep_classification.py
+        rng = np.random.default_rng(0)
+        t = np.linspace(0.0, 1.0, 120)
+        y = ((np.cos(t * 20.0) + rng.normal(size=120)) > 0).astype(float)[:, None]
+        data = _on((t, y), device)
+        model = SparsePowerExpectationPropagation.initialize(
+            kernel.to(device), PEPScalarLikelihood(Bernoulli()),
+            torch.linspace(0.0, 1.0, 25, dtype=f64, device=device), alpha=1.0, learning_rate=0.5)
+        for _ in range(15):
+            model = model.update_sites(data)
+        with torch.no_grad():
+            return [model.nat1, model.nat2, model.log_norm, model.classic_elbo(data),
+                    model.energy(data)]
+
+    def iwvi():  # docs/examples/iwvi_importance_weighted.py, on draws made once
+        rng = np.random.default_rng(2)
+        t = np.sort(rng.uniform(0, 4, 40))
+        data = _on((t, (np.sin(2 * t) + 0.3 * rng.normal(size=40))[:, None]), device)
+        model = ImportanceWeightedVI.initialize(
+            Matern32(0.8, 1.2).to(device), Gaussian(0.1).to(device),
+            torch.linspace(0, 4, 12, dtype=f64, device=device), num_importance_samples=32)
+        q = model.dist_q
+        leaves = {k: getattr(q, k).detach().clone().requires_grad_()
+                  for k in ("initial_mean", "chol_initial_covariance", "state_transitions",
+                            "state_offsets", "chol_process_covariances")}
+        model = model.replace(dist_q=StateSpaceModel(**leaves))
+        opt = torch.optim.Adam(list(leaves.values()), lr=0.02)
+        with _fed_normals(_iwvi_draws(56)):
+            for _ in range(40):
+                opt.zero_grad()
+                (-model.dregs_objective(data)).backward()
+                opt.step()
+            with torch.no_grad():
+                elbos = torch.stack([model.elbo(data) for _ in range(16)])
+        return [elbos, *(v.detach() for v in leaves.values())]
+
+    run("stacked_svgp", stacked)
+    run("factor_analysis_svgp", factor_analysis)
+    run("multistage_vgp", multistage)
+    run("pep", pep)
+    run("sparse_pep", lambda: sparse_pep(Matern52(0.08, 1.0)))
+    run("sparse_pep_d1", lambda: sparse_pep(Matern12(0.15, 1.0)))
+    run("iwvi", iwvi)
+    return out
+
+
+def _iwvi_draws(sets: int, k: int = 32, m: int = 12, n: int = 40, d: int = 2):
+    """The standard normals of ``sets`` Matheron samples of the IWVI example,
+    made once on the CPU."""
+    gen = torch.Generator().manual_seed(0)
+    draws = []
+    for _ in range(sets):
+        for shape in ((k, d), (k, m - 1, d), (k, d), (k, m + n - 1, d)):
+            draws.append(torch.randn(shape, generator=gen, dtype=torch.float64))
+    return draws
+
+
+def phase_models_h(dev) -> dict:
+    """The slice-H examples on the card against the CPU, float64
+    (``CARD_RTOL`` of each output's scale, or ``MODELS_H_RTOL``); the
+    launches of K1 and K2 of each on the card."""
+    card = _models_h_outputs(dev)
+    cpu = _models_h_outputs(torch.device("cpu"))
+    rec, failed = {}, []
+    for name, (values, launches) in card.items():
+        err = max(_scaled_err(a, b) for a, b in zip(values, cpu[name][0]))
+        limit = MODELS_H_RTOL.get(name, CARD_RTOL)
+        rec[name] = {"scaled_err": err, "limit": limit, "launches": launches}
+        if not err <= limit:
+            failed.append(name)
+    log(f"[models-h] float64 card against CPU: {json.dumps(rec)}")
+    if failed:
+        raise AssertionError(f"slice-H models on the card disagree with the CPU: {failed}")
+    return rec
+
+
 def main() -> None:
     started = time.perf_counter()
     card = phase_device()
@@ -1873,11 +2315,27 @@ def main() -> None:
     (sparse_record, sparse_model), sparse_counts = _counted(phase_sparse_cvi, dev, card)
     _, cvi_reference_counts = _counted(phase_cvi_reference, dev)
     log("[cvi] " + json.dumps({"d2": cvi_record, "d1": cvi_d1_record, "sparse": sparse_record}))
+    spatio_records, spatio_counts = _counted(phase_spatio, dev, card)
+    _, spatio_reference_counts = _counted(phase_spatio_reference, dev)
+    # the spatio paths (d = 6 and 14) run the Schur UDU' and the generic scans
+    for label, counts in (("spatio", spatio_counts), ("spatio reference", spatio_reference_counts)):
+        if any(counts.values()):
+            raise AssertionError(f"{label}: K1-K4 launched on the d = 6 and 14 paths: {counts}")
+    log("[spatio] " + json.dumps(spatio_records))
+    natgrad_record, natgrad_counts = _counted(phase_natgrad_vgp, dev, card)
+    for name in ("riccati_d_sweep", "linear_recurrence"):
+        if natgrad_counts[name] == 0:
+            raise AssertionError(f"{name} was not launched by the natgrad VGP step (d = 1)")
+    log("[natgrad-vgp] " + json.dumps({**natgrad_record, "launches": natgrad_counts}))
+    models_h_record, models_h_counts = _counted(phase_models_h, dev)
+    if models_h_record["sparse_pep_d1"]["launches"]["riccati_d_sweep"] == 0:
+        raise AssertionError("sparse PEP at d = 1 did not launch K1")
     paths = (main_counts, trainer_counts, prior_counts, x64_off_counts, batched_counts,
              vdp_counts, generic_counts, scan_counts, gpr_reference_counts, gpr_counts,
              run_gpr_counts, vanderpol_counts, vanderpol_reference_counts,
              vanderpol_trainer_counts, cvi_counts, cvi_d1_counts, sparse_counts,
-             cvi_reference_counts)
+             cvi_reference_counts, spatio_counts, spatio_reference_counts, natgrad_counts,
+             models_h_counts)
     launches = {name: sum(c[name] for c in paths) for name in kernels}
     for name, n in launches.items():
         if n == 0:

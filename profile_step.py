@@ -2,7 +2,7 @@
 
     python3 profile_step.py [--root DIR] [--label NAME]
         [--x64-off [--k4-windows NB L] | --batched | --vdp | --prior | --k4-shapes
-         | --gpr | --scan | --vanderpol | --cvi-poisson]
+         | --gpr | --scan | --vanderpol | --cvi-poisson | --spatio]
 
 Imports ``vi_diffusion_processes_tpu_torch`` from ``DIR`` (default: this
 checkout), so that two trees can be compared in one run on one card.
@@ -55,8 +55,15 @@ each under Matern32 (d = 2) and Matern12 (d = 1, where the packed step is
 one K3 launch), median of 7 warm runs of 16 steps, then ``torch.profiler``
 over 4 steps, with the peak device memory of the timed runs.
 
-Prints the card's name and power limit, then one JSON line (``--gpr``: two;
-``--cvi-poisson``: four).
+``--spatio`` times the packed spatio-temporal CVI step on ``chip_smoke.py``'s
+two full-width configurations (N = 20,000, Mt = 10,000, d = 6 and d = 14,
+float64 model, float32 compute, lr 0.5): ``pack_spatio`` once, then the
+median of 7 warm runs of the benchmark's 64 (d = 6) or 16 (d = 14) steps,
+then ``torch.profiler`` over 4 steps, with the peak device memory of the
+timed runs.
+
+Prints the card's name and power limit, then one JSON line (``--gpr`` and
+``--spatio``: two; ``--cvi-poisson``: four).
 """
 import argparse
 import importlib.util
@@ -319,6 +326,38 @@ def cvi_poisson_profiles(dev, label: str, root: str) -> None:
             }), flush=True)
 
 
+def spatio_profiles(dev, label: str, root: str) -> None:
+    """One JSON line per state dimension of the spatio configurations."""
+    from vi_diffusion_processes_tpu_torch.models.spatio_packed import (
+        pack_spatio,
+        packed_spatio_site_step,
+    )
+
+    smoke = _chip_smoke()
+    xy = tuple(torch.tensor(a, device=dev) for a in smoke.spatio_data())
+    for d, (m_space, steps) in smoke.SPATIO_CONFIGS.items():
+        model = smoke.spatio_model(m_space, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, state = pack_spatio(model, xy)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+
+        def advance(s, model=model, cache=cache):
+            return packed_spatio_site_step(model, cache, s, torch.float32), None
+
+        for _ in range(2):
+            state, _ = advance(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        record, _, _ = time_and_profile(advance, state, runs=7, steps=steps, profiled=4)
+        print(json.dumps({
+            "label": label, "root": root, "spatio": f"spatio_temporal_cvi_d{d}_site_step_10k",
+            "d": d, "n": smoke.N_SPATIO, "mt": smoke.MT_SPATIO, "pack_s": pack_s,
+            "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20, **record,
+        }), flush=True)
+
+
 def scan_profiles(dev) -> dict:
     """The generic scan alone at T: launches, host-clock ms (median of 7) and
     device ms per scan of the marginals' compose at d = 1, 2, 4, and the tiny
@@ -374,6 +413,7 @@ def main() -> None:
     mode.add_argument("--scan", action="store_true")
     mode.add_argument("--vanderpol", action="store_true")
     mode.add_argument("--cvi-poisson", action="store_true")
+    mode.add_argument("--spatio", action="store_true")
     ap.add_argument("--k4-windows", type=int, nargs=2, metavar=("NB", "L"))
     ap.add_argument("--label", default="")
     args = ap.parse_args()
@@ -393,6 +433,9 @@ def main() -> None:
         return
     if args.cvi_poisson:
         cvi_poisson_profiles(dev, args.label, args.root)
+        return
+    if args.spatio:
+        spatio_profiles(dev, args.label, args.root)
         return
     if args.prior or args.k4_shapes or args.scan:
         result = (prior_learning_ms(dev) if args.prior

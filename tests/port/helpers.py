@@ -104,6 +104,10 @@ def kernel_spec(jkernel):
     ``interop.kernel_from_numpy`` takes: numpy leaves by field name for a
     leaf kernel, the list of its parts' pairs for a combinator."""
     name = type(jkernel).__name__
+    if name == "SparseSpatioTemporalKernel":
+        return name, {"kernel_space": kernel_spec(jkernel.kernel_space),
+                      "kernel_time": kernel_spec(jkernel.kernel_time),
+                      "inducing_space": np.array(jkernel.inducing_space)}
     if hasattr(jkernel, "kernels"):
         return name, [kernel_spec(k) for k in jkernel.kernels]
     return name, {k: v for k, v in to_np(jkernel).items() if v is not None}
@@ -125,6 +129,15 @@ def port_ssm(jssm):
 
 SSM_FIELDS = ("initial_mean", "chol_initial_covariance", "state_transitions",
               "state_offsets", "chol_process_covariances")
+
+
+def trainable_ssm(ssm):
+    """A copy of a port ``StateSpaceModel`` whose fields are leaves that
+    require gradients."""
+    from vi_diffusion_processes_tpu_torch.ssm.state_space_model import StateSpaceModel
+
+    return StateSpaceModel(**{f: getattr(ssm, f).detach().clone().requires_grad_()
+                              for f in SSM_FIELDS})
 
 
 def assert_ssm_close(tssm, jssm, rtol):

@@ -10,6 +10,14 @@ grow as Δt⁻³ under Matern32; the generic step runs the filter and smoother.
 
     python -m tests.port.packed_sensitivity          # the port, on the CPU
     python -m tests.port.packed_sensitivity --jax    # the JAX package, on the CPU
+    python -m tests.port.packed_sensitivity --spatio # the packed spatio step
+
+``--spatio`` instead probes the packed spatio-temporal step
+(``models/spatio_packed.py``) at ``chip_smoke.py``'s full width at d = 6
+(N = 20,000 on [0, 100], Mt = 10,000, Δt = 1.0e-2, Matern32 of lengthscale
+5 in time, float64, three steps): the one-ulp change of the temporal
+lengthscale by route, the packed step against the generic one, and on a
+card each route on the card against the CPU.
 
 With ``--jax`` the JAX package runs the same cases; without it, where a CUDA
 device is present, the port's routes on the card are also held against the
@@ -123,12 +131,55 @@ def port_outputs(t, y, likelihood: str, lengthscale: float, variance: float, dev
     return {route: [x.detach().cpu().numpy() for x in xs] for route, xs in out.items()}
 
 
+def spatio_outputs(lengthscale: float, device) -> dict:
+    """The port's packed and generic spatio steps at full width, d = 6:
+    the site naturals after three float64 steps, by route."""
+    import torch
+
+    import chip_smoke
+    from vi_diffusion_processes_tpu_torch.models.spatio_packed import (
+        pack_spatio,
+        packed_spatio_site_step,
+    )
+
+    xy = tuple(torch.tensor(a, device=device) for a in chip_smoke.spatio_data())
+    model = chip_smoke.spatio_model(3, device, lengthscale=lengthscale)
+    cache, state = pack_spatio(model, xy)
+    generic = model
+    for _ in range(STEPS):
+        state = packed_spatio_site_step(model, cache, state)
+        generic = generic.update_sites(xy)
+    return {"packed": [state.nat1.cpu().numpy(), state.nat2.cpu().numpy()],
+            "generic": [generic.nat1.cpu().numpy(), generic.nat2.cpu().numpy()]}
+
+
+def spatio_main(card) -> None:
+    base, moved = (spatio_outputs(ls, "cpu") for ls in (5.0, float(np.nextafter(5.0, 6.0))))
+    rec = {"side": "port", "case": "spatio-d6-full", "n": 20_000, "mt": 10_000,
+           "dt": 100.0 / 9_999, "one_ulp_change": _spread(moved, base),
+           "packed_against_generic": max(_scaled(a, b) for a, b in zip(base["packed"],
+                                                                        base["generic"]))}
+    if card is not None:
+        on_card = spatio_outputs(5.0, card)
+        rec["card_against_cpu"] = _spread(on_card, base)
+        rec["packed_against_generic_on_the_card"] = max(
+            _scaled(a, b) for a, b in zip(on_card["packed"], on_card["generic"]))
+    print(json.dumps(rec), flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--jax", action="store_true", help="run the JAX package's routes")
     parser.add_argument("--full", action="store_true",
                         help="add the packed step at N = 100,000, on the card and the CPU")
+    parser.add_argument("--spatio", action="store_true",
+                        help="probe the packed spatio step at full width instead")
     args = parser.parse_args(argv)
+    if args.spatio:
+        import torch
+
+        spatio_main(torch.device("cuda", 0) if torch.cuda.is_available() else None)
+        return 0
     if args.jax:
         import jax
 

@@ -195,8 +195,8 @@ def test_gpr_from_numpy_round_trip():
     model = interop.gpr_from_numpy(tree, tmodel.kernel, device="cpu")
     with torch.no_grad():
         assert float(model.log_likelihood()) == float(tmodel.log_likelihood())
-    with pytest.raises(NotImplementedError, match="slice H"):
-        interop.kernel_from_numpy("PiecewiseKernel", {}, device="cpu")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        interop.kernel_from_numpy("NoSuchKernel", {}, device="cpu")
 
 
 def test_entry_points_raise_without_a_card_unless_the_cpu_is_named():

@@ -30,7 +30,10 @@ sde.base sde.drift sde.utils sde.zoo ssm.state_space_model ssm.transforms utils.
 utils.shapes ops.blocked_scan ssm.emission ssm.mean_functions ssm.conditionals
 kernels.base kernels.matern kernels.misc parallel.pskf parallel.sites parallel.kalman
 models.posterior models.gpr models.cvi_dp_packed_ch likelihoods.discrete models.cvi
-models.cvi_packed models.sparse_cvi
+models.cvi_packed models.sparse_cvi kernels.spatial kernels.spatio_temporal
+models.spatio_temporal models.spatio_packed optim.bijectors optim.natgrad models.variational
+models.svgp kernels.composite likelihoods.multistage likelihoods.pep models.pep
+models.sparse_pep models.iwvi
 """.split()
 SCRIPTS = ["chip_smoke.py", "profile_step.py"]
 

@@ -18,16 +18,26 @@ import torch
 from .config import resolve_device
 from .exp.data import DPDataset
 from .kernels import base as kernels_base
-from .kernels import matern, misc
+from .kernels import composite, matern, misc, spatial
+from .kernels.spatio_temporal import SparseSpatioTemporalKernel
 from .likelihoods.discrete import Bernoulli, Poisson
 from .likelihoods.gaussian import Gaussian as GaussianLikelihood
+from .likelihoods.multistage import MultiStageLikelihood
+from .likelihoods.pep import PEPGaussian, PEPScalarLikelihood
 from .models.cvi import CVIGaussianProcess, GaussianSites
 from .models.cvi_dp import CVISitesSDE, DataSites
 from .models.cvi_dp_packed import PackedCVIState
 from .models.cvi_dp_packed_batched import BatchedPackedCVIState
 from .models.cvi_packed import PackedCVIGPState
 from .models.gpr import GaussianProcessRegression
+from .models.iwvi import ImportanceWeightedVI
+from .models.pep import PowerExpectationPropagation
+from .models.sparse_pep import SparsePowerExpectationPropagation
+from .models.svgp import SparseVariationalGaussianProcess
+from .models.variational import VariationalGaussianProcess
 from .models.sparse_cvi import SparseCVIGaussianProcess
+from .models.spatio_packed import PackedSpatioState
+from .models.spatio_temporal import SpatioTemporalSparseCVI, SpatioTemporalSparseVariational
 from .models.vdp import VariationalMarkovGP
 from .models.vdp_packed import PackedVDPState
 from .sde import zoo
@@ -50,6 +60,15 @@ __all__ = [
     "cvi_from_numpy",
     "packed_cvi_state_from_numpy",
     "sparse_cvi_from_numpy",
+    "spatio_cvi_from_numpy",
+    "spatio_variational_from_numpy",
+    "packed_spatio_state_from_numpy",
+    "vgp_from_numpy",
+    "svgp_from_numpy",
+    "pep_from_numpy",
+    "sparse_pep_from_numpy",
+    "iwvi_from_numpy",
+    "fields_to_numpy",
 ]
 
 
@@ -84,8 +103,16 @@ def sde_from_numpy(name: str, leaves: Mapping, device=None):
 
 def likelihood_from_numpy(leaves: Mapping, device=None, name: str = "Gaussian"):
     """Likelihood from its JAX leaves, by class name: ``"Gaussian"``
-    (``variance``), ``"Poisson"`` (``binsize``) or ``"Bernoulli"`` (none)."""
-    if name == "Gaussian":
+    (``variance``), ``"Poisson"`` (``binsize``), ``"Bernoulli"`` or
+    ``"MultiStageLikelihood"`` (none); the power-EP wrappers
+    ``"PEPScalarLikelihood"`` and ``"PEPGaussian"`` take their base's
+    ``(name, leaves)`` pair."""
+    if name in ("PEPScalarLikelihood", "PEPGaussian"):
+        base = likelihood_from_numpy(leaves[1], device, name=leaves[0])
+        return (PEPGaussian if name == "PEPGaussian" else PEPScalarLikelihood)(base)
+    if name == "MultiStageLikelihood":
+        lik = MultiStageLikelihood()
+    elif name == "Gaussian":
         variance = np.asarray(leaves["variance"])
         lik = GaussianLikelihood(variance, dtype=torch.as_tensor(variance).dtype)
     elif name == "Poisson":
@@ -205,10 +232,17 @@ _LEAF_KERNELS = {
     "Constant": (misc.Constant, ("variance",)),
     "HarmonicOscillator": (misc.HarmonicOscillator, ("variance", "period")),
 }
+_SPATIAL_KERNELS = {
+    "SpatialRBF": spatial.SpatialRBF,
+    "SpatialMatern12": spatial.SpatialMatern12,
+    "SpatialMatern32": spatial.SpatialMatern32,
+}
 _COMBINATORS = {
     "Sum": kernels_base.Sum,
     "Product": kernels_base.Product,
     "IndependentMultiOutput": kernels_base.IndependentMultiOutput,
+    "StackKernel": composite.StackKernel,
+    "IndependentMultiOutputStack": composite.IndependentMultiOutputStack,
 }
 
 
@@ -220,11 +254,39 @@ def kernel_from_numpy(
     family, ``decay`` and ``diffusion`` for ``"OrnsteinUhlenbeck"``,
     ``variance`` for ``"Constant"``, ``variance`` and ``period`` for
     ``"HarmonicOscillator"``, each with an optional ``state_mean``; ``N`` and
-    ``R`` for ``"LatentExponentiallyGenerated"``).  A combinator (``"Sum"``,
-    ``"Product"``, ``"IndependentMultiOutput"``) takes the list of its parts,
-    each a ``(name, leaves)`` pair.  The parameters take the dtype of the
-    leaves."""
+    ``R`` for ``"LatentExponentiallyGenerated"``; ``variance`` and
+    ``lengthscale`` for the spatial kernels ``"SpatialRBF"``,
+    ``"SpatialMatern12"``, ``"SpatialMatern32"``).  A combinator (``"Sum"``,
+    ``"Product"``, ``"IndependentMultiOutput"``, ``"StackKernel"``,
+    ``"IndependentMultiOutputStack"``) takes the list of its parts, each a
+    ``(name, leaves)`` pair; ``"PiecewiseKernel"`` a mapping of ``kernels``
+    (that list) and ``change_points``; ``"FactorAnalysisKernel"`` a mapping
+    of ``kernels``, ``loading_matrix``, ``output_dim`` and
+    ``weight_function``, a function of the time points' tensor to
+    ``[..., N, o, m]`` written in torch.  ``"SparseSpatioTemporalKernel"`` takes a
+    mapping of ``kernel_space`` and ``kernel_time``, each a ``(name, leaves)``
+    pair, and ``inducing_space``: its one temporal kernel serves every
+    spatial inducing point, as in the JAX package, whose tuple holds the same
+    kernel M times.  The parameters take the dtype of the leaves."""
     device = resolve_device(device)
+    if name == "SparseSpatioTemporalKernel":
+        return SparseSpatioTemporalKernel.build(
+            kernel_from_numpy(*leaves["kernel_space"], device=device),
+            kernel_from_numpy(*leaves["kernel_time"], device=device),
+            _t(leaves["inducing_space"], device),
+        )
+    if name == "PiecewiseKernel":
+        return composite.PiecewiseKernel(
+            [kernel_from_numpy(part, sub, device=device) for part, sub in leaves["kernels"]],
+            _t(leaves["change_points"], device),
+        )
+    if name == "FactorAnalysisKernel":
+        loading = np.asarray(leaves["loading_matrix"])
+        return composite.FactorAnalysisKernel(
+            [kernel_from_numpy(part, sub, device=device) for part, sub in leaves["kernels"]],
+            loading, leaves["weight_function"], leaves["output_dim"],
+            dtype=torch.as_tensor(loading).dtype,
+        ).to(device)
     if name in _COMBINATORS:
         parts = [kernel_from_numpy(part, sub, device=device) for part, sub in leaves]
         return _COMBINATORS[name](parts)
@@ -232,6 +294,11 @@ def kernel_from_numpy(
         n = np.asarray(leaves["N"])
         kernel = misc.LatentExponentiallyGenerated(
             N=n, R=np.asarray(leaves["R"]), dtype=torch.as_tensor(n).dtype
+        )
+    elif name in _SPATIAL_KERNELS:
+        variance = np.asarray(leaves["variance"])
+        kernel = _SPATIAL_KERNELS[name](
+            variance, np.asarray(leaves["lengthscale"]), dtype=torch.as_tensor(variance).dtype
         )
     elif name in _LEAF_KERNELS:
         cls, fields = _LEAF_KERNELS[name]
@@ -243,14 +310,16 @@ def kernel_from_numpy(
             dtype=torch.as_tensor(values[fields[0]]).dtype,
         )
     else:
-        raise NotImplementedError(f"kernel {name!r} is not ported yet (slice H of ROADMAP.md)")
+        raise ValueError(f"unknown kernel {name!r}")
     return kernel.to(device)
 
 
 def kernel_params_to_numpy(kernel) -> dict:
     """``{parameter name: numpy array}`` of a kernel's ``nn.Parameter``s: the
     JAX dataclass's field names, prefixed ``kernels.<i>.`` inside a
-    combinator."""
+    combinator.  A module that a kernel holds several times (the temporal
+    kernel of ``SparseSpatioTemporalKernel``) is named once, under its first
+    place."""
     return {name: p.detach().cpu().numpy() for name, p in kernel.named_parameters()}
 
 
@@ -320,3 +389,151 @@ def sparse_cvi_from_numpy(
         learning_rate=float(tree["learning_rate"]),
         **{k: _t(tree[k], device) for k in ("inducing_points", "nat1", "nat2")},
     )
+
+
+def spatio_cvi_from_numpy(
+    tree: Mapping, kernel, likelihood, mean_function=None, device=None
+) -> SpatioTemporalSparseCVI:
+    """``SpatioTemporalSparseCVI`` from the JAX model's fields
+    (``inducing_time``, ``nat1``, ``nat2``, ``num_data``, ``learning_rate``);
+    ``kernel`` is a port ``SparseSpatioTemporalKernel``."""
+    device = resolve_device(device)
+    return SpatioTemporalSparseCVI(
+        kernel=kernel,
+        likelihood=likelihood,
+        mean_function=mean_function,
+        num_data=tree.get("num_data"),
+        learning_rate=float(tree["learning_rate"]),
+        **{k: _t(tree[k], device) for k in ("inducing_time", "nat1", "nat2")},
+    )
+
+
+def spatio_variational_from_numpy(
+    tree: Mapping, kernel, likelihood, mean_function=None, device=None
+) -> SpatioTemporalSparseVariational:
+    """``SpatioTemporalSparseVariational`` from the JAX model's fields
+    (``inducing_time``, ``dist_q``, ``num_data``)."""
+    device = resolve_device(device)
+    return SpatioTemporalSparseVariational(
+        kernel=kernel,
+        likelihood=likelihood,
+        inducing_time=_t(tree["inducing_time"], device),
+        dist_q=_ssm(tree["dist_q"], device),
+        mean_function=mean_function,
+        num_data=tree.get("num_data"),
+    )
+
+
+def packed_spatio_state_from_numpy(tree: Mapping, device=None) -> PackedSpatioState:
+    """``PackedSpatioState`` from the JAX state's fields: ``nat1 [Mt+1, 2d]``
+    and ``nat2_sym [Mt+1, C]``, the upper triangle of each symmetric block
+    row by row (spatio_packed.py:81-98), which is unfolded to ``nat2
+    [Mt+1, 2d, 2d]``."""
+    nat1 = np.asarray(tree["nat1"])
+    folded = np.asarray(tree["nat2_sym"])
+    two_d = nat1.shape[-1]
+    rows, cols = np.triu_indices(two_d)
+    nat2 = np.zeros(folded.shape[:-1] + (two_d, two_d), folded.dtype)
+    nat2[..., rows, cols] = folded
+    nat2[..., cols, rows] = folded
+    device = resolve_device(device)
+    return PackedSpatioState(nat1=_t(nat1, device), nat2=_t(nat2, device))
+
+
+def vgp_from_numpy(
+    tree: Mapping, kernel, likelihood, mean_function=None, device=None
+) -> VariationalGaussianProcess:
+    """``VariationalGaussianProcess`` from the JAX model's fields
+    (``time_points``, ``observations``, ``dist_q``)."""
+    device = resolve_device(device)
+    return VariationalGaussianProcess(
+        kernel=kernel,
+        likelihood=likelihood,
+        time_points=_t(tree["time_points"], device),
+        observations=_t(tree["observations"], device),
+        dist_q=_ssm(tree["dist_q"], device),
+        mean_function=mean_function,
+    )
+
+
+def svgp_from_numpy(
+    tree: Mapping, kernel, likelihood, mean_function=None, device=None
+) -> SparseVariationalGaussianProcess:
+    """``SparseVariationalGaussianProcess`` from the JAX model's fields
+    (``inducing_points``, ``dist_q``, ``num_data``)."""
+    device = resolve_device(device)
+    return SparseVariationalGaussianProcess(
+        kernel=kernel,
+        likelihood=likelihood,
+        inducing_points=_t(tree["inducing_points"], device),
+        dist_q=_ssm(tree["dist_q"], device),
+        mean_function=mean_function,
+        num_data=tree.get("num_data"),
+    )
+
+
+def pep_from_numpy(
+    tree: Mapping, kernel, likelihood, mean_function=None, device=None
+) -> PowerExpectationPropagation:
+    """``PowerExpectationPropagation`` from the JAX model's fields
+    (``time_points``, ``observations``, ``sites`` with ``nat1`` and ``nat2``,
+    ``site_log_norm``, ``alpha``, ``learning_rate``); ``likelihood`` is a
+    port power-EP wrapper."""
+    device = resolve_device(device)
+    return PowerExpectationPropagation(
+        kernel=kernel,
+        likelihood=likelihood,
+        sites=GaussianSites(nat1=_t(tree["sites"]["nat1"], device),
+                            nat2=_t(tree["sites"]["nat2"], device)),
+        mean_function=mean_function,
+        alpha=float(tree["alpha"]),
+        learning_rate=float(tree["learning_rate"]),
+        **{k: _t(tree[k], device) for k in ("time_points", "observations", "site_log_norm")},
+    )
+
+
+def sparse_pep_from_numpy(
+    tree: Mapping, kernel, likelihood, mean_function=None, device=None
+) -> SparsePowerExpectationPropagation:
+    """``SparsePowerExpectationPropagation`` from the JAX model's fields
+    (``inducing_points``, ``nat1``, ``nat2``, ``log_norm``, ``alpha``,
+    ``learning_rate``)."""
+    device = resolve_device(device)
+    return SparsePowerExpectationPropagation(
+        kernel=kernel,
+        likelihood=likelihood,
+        mean_function=mean_function,
+        alpha=float(tree["alpha"]),
+        learning_rate=float(tree["learning_rate"]),
+        **{k: _t(tree[k], device) for k in ("inducing_points", "nat1", "nat2", "log_norm")},
+    )
+
+
+def iwvi_from_numpy(
+    tree: Mapping, kernel, likelihood, mean_function=None, device=None
+) -> ImportanceWeightedVI:
+    """``ImportanceWeightedVI`` from the JAX model's fields
+    (``inducing_points``, ``dist_q``, ``num_importance_samples``)."""
+    device = resolve_device(device)
+    return ImportanceWeightedVI(
+        kernel=kernel,
+        likelihood=likelihood,
+        inducing_points=_t(tree["inducing_points"], device),
+        dist_q=_ssm(tree["dist_q"], device),
+        mean_function=mean_function,
+        num_importance_samples=int(tree["num_importance_samples"]),
+    )
+
+
+def fields_to_numpy(obj):
+    """A port dataclass or named tuple of tensors as nested dicts of numpy
+    arrays keyed by field name (the inverse of the ``*_from_numpy``
+    converters on their array fields); other values are returned as they
+    are, modules included."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: fields_to_numpy(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, tuple) and hasattr(obj, "_asdict"):
+        return {k: fields_to_numpy(v) for k, v in obj._asdict().items()}
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    return obj
