@@ -1,8 +1,9 @@
 """Drive the PyTorch port's d=1 CVI-DP and VDP paths, its d=2 CVI-DP path, its
 exact-GPR path (any state dimension), its non-conjugate CVI (generic,
-packed and sparse), its spatio-temporal CVI and its remaining variational
+packed and sparse), its spatio-temporal CVI, its remaining variational
 models (natural gradients, VGP, SVGP, composite kernels, PEP, sparse PEP,
-IWVI) on one CUDA card.
+IWVI), its experiment harness (CLI, runners, checkpoint, serving, tracing)
+and its time-sharded CVI-DP (``torch.distributed``) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -117,18 +118,47 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     must launch K1) and IWVI (40 DREGS Adam steps on draws made once) at
     their ``docs/examples`` configurations, float64, card against CPU
     (1e-9; the multi-stage VGP ``MODELS_H_RTOL``);
-28. reference: on small float64 inputs the packed step, the prior gradient,
+28. harness: the CLI's ``generate_data`` and ``run_cvi_dp`` at the
+    flagship's grid and density (T = 100,000 on [0, 10], 200 observations,
+    q 0.8, noise 0.2), on the card by default: K3 exactly twice per packed
+    step and once per ``packed_elbo``, K1 and K2 in the re-linearizations and
+    marginals; one JSONL record per ELBO plus the summary; the npz files, and
+    whether the PNGs were written (matplotlib);
+29. runners: ``run_vdp``, ``run_gpr`` and ``run_sgpr`` on one npz dataset at
+    T = 2,000, float64, card against CPU (1e-9; 1e-6 for the Adam runners);
+30. checkpoint: phase 28's trained model saved and restored on the card:
+    ELBO and marginals equal the live model to 1e-12;
+31. serving: ``predict_f`` of a Matern12 GPR on ``gpr_loglik_grad_100k``'s
+    100,000 points exported at 1,000 new times, loaded and run: K2 twice
+    inside the loaded program, outputs equal to the eager call (1e-12),
+    host ms of both; the flagship's steps/s with the kernels launched
+    directly and through their custom ops (direct, ops, ops, direct);
+32. tracing: ``trace_to`` around two flagship packed steps in an
+    ``annotate``d region: the Chrome trace names ``dist_q_kernel`` and the
+    region, and K3 launches 4 times;
+33. sharded: ``dryrun_multichip`` on two gloo ranks sharing the card (the
+    sharded step at T = 8,192 and at T = 100,000), then one NCCL rank: the
+    time-sharded packed step in float64 against the unsharded one (ELBO
+    1e-8, sites 1e-6, at T = 100,000 four times the unsharded step's own
+    change under a one-ulp input change or K3's composition where larger,
+    ``parallel/dryrun.py``; K1 exactly 2, K2
+    exactly ``2·k2_launches_per_dist_q()``, K3 0 launches on every rank),
+    the time-sharded Matern32 filter and smoother at N = 100,000 (1e-8), and
+    the data-parallel batched step and trainer iteration on 4 flagship
+    models at T = 10,000; seconds of each;
+34. reference: on small float64 inputs the packed step, the prior gradient,
     the batched step (B = 3, T = 300) and three VDP steps (T = 500) on the
     card against the same on the CPU.
 
-Launch counts are set to 0 just before each of phases 5-22 and 24-27 and
-read just after.  The second-to-last line is a JSON object with each kernel's
+Launch counts are set to 0 just before each of phases 5-22 and 24-33 and
+read just after (phase 33's on each rank, around its sharded step).  The second-to-last line is a JSON object with each kernel's
 launches in those phases, its max error, times (host clock ``ms``, device
 ``device_ms``) and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -665,28 +695,10 @@ def flagship_observations(t_size: int, dtype, seed: int = 0):
 def flagship_model(t_size: int, dtype, dev, seed: int = 0):
     """bench.py:30-69 with the port's API; ``seed`` draws the observation
     noise (0 is the benchmark's own)."""
-    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
-    from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
-    from vi_diffusion_processes_tpu_torch.sde.utils import Gaussian as GaussianState
-    from vi_diffusion_processes_tpu_torch.sde.zoo import DoubleWellSDE
+    from vi_diffusion_processes_tpu_torch.parallel.dryrun import flagship_model as build
 
-    grid_np, obs_idx, obs_y = flagship_observations(t_size, dtype, seed)
-    obs_t = grid_np[obs_idx]
-    grid = torch.tensor(grid_np, device=dev)
-    model = CVISitesSDE.initialize(
-        prior_ssm=None,
-        time_grid=grid,
-        input_data=(torch.tensor(obs_t, device=dev), torch.tensor(obs_y, device=dev)),
-        likelihood=Gaussian(0.04, dtype=dtype).to(dev),
-        prior_initial_state=GaussianState(
-            mu=torch.zeros(1, dtype=dtype, device=dev),
-            cov=torch.tensor([[0.8]], dtype=dtype, device=dev),
-        ),
-        prior_sde=DoubleWellSDE(q=[[0.8]], dtype=dtype).to(dev),
-        stabilize_ssm=True,
-        clip_state_transitions=(-1.0, 1.0),
-    )
-    return model.set_linearized_prior(), obs_idx, obs_y
+    _, obs_idx, obs_y = flagship_observations(t_size, dtype, seed)
+    return build(t_size, dtype, dev, seed), obs_idx, obs_y
 
 
 def _packed_steps(model, label: str, card: str):
@@ -2257,6 +2269,322 @@ def phase_models_h(dev) -> dict:
     return rec
 
 
+def _work_dir(name: str) -> str:
+    """A fresh directory under the checkout's ``build/`` (listed in
+    .gitignore) for a phase's files."""
+    import shutil
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke" / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return str(path)
+
+
+def _cli(args) -> dict:
+    """``python -m vi_diffusion_processes_tpu_torch.exp`` in process; returns
+    the JSON line it prints."""
+    import io
+
+    from vi_diffusion_processes_tpu_torch.exp import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    if rc != 0:
+        raise AssertionError(f"exp {args[0]} exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_harness(dev, card: str):
+    """``generate_data`` and ``run_cvi_dp`` through the CLI at the flagship's
+    grid and density (bench.py:44-52), on the card by default: K3 exactly
+    twice per packed step and once per ``packed_elbo``, K1 and K2 in the
+    re-linearizations and marginals; one JSONL record per ELBO plus the
+    summary; the run's npz files, and the PNGs where matplotlib imports.
+    Returns the trained model and its dataset."""
+    from vi_diffusion_processes_tpu_torch.exp import cli
+    from vi_diffusion_processes_tpu_torch.exp.data import load_exp_data
+    from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed as packed
+
+    work = _work_dir("harness")
+    data = [f"num_grid={T_FLAGSHIP}", "t1=10", "num_observations=200", "q=0.8",
+            "noise_stddev=0.2"]
+    t0 = time.perf_counter()
+    gen = _cli(["generate_data", *data, "--out", f"{work}/flagship.npz"])
+    gen_s = time.perf_counter() - t0
+    calls = {"steps": 0, "elbos": 0}
+    step, elbo = packed.packed_natgrad_step, packed.packed_elbo
+    run, captured = cli._RUNNERS["run_cvi_dp"], {}
+
+    def counted_step(*a):
+        calls["steps"] += 1
+        return step(*a)
+
+    def counted_elbo(*a):
+        calls["elbos"] += 1
+        return elbo(*a)
+
+    def capturing_run(config, dataset):
+        captured.update(run(config, dataset), dataset=dataset)
+        return captured
+
+    packed.packed_natgrad_step, packed.packed_elbo = counted_step, counted_elbo
+    cli._RUNNERS["run_cvi_dp"] = capturing_run
+    try:
+        from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
+        before = cs.launch_counts()
+        t0 = time.perf_counter()
+        summary = _cli(["run_cvi_dp", *data, f"output_dir={work}/run", "--out",
+                        f"{work}/run/metrics.jsonl"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in cs.launch_counts().items()}
+    finally:
+        packed.packed_natgrad_step, packed.packed_elbo = step, elbo
+        cli._RUNNERS["run_cvi_dp"] = run
+    k3 = 2 * calls["steps"] + calls["elbos"]
+    with open(f"{work}/run/metrics.jsonl") as fh:
+        records = [json.loads(line) for line in fh]
+    files = sorted(os.listdir(f"{work}/run"))
+    pngs = [f for f in files if f.endswith(".png")]
+    log(f"[harness] generate_data {json.dumps(gen)} in {gen_s:.1f} s; run_cvi_dp "
+        f"{json.dumps(summary)} in {run_s:.1f} s on {card}: {calls['steps']} packed steps, "
+        f"{calls['elbos']} packed_elbo, launches {json.dumps(counts)}, {len(records)} JSONL "
+        f"records; files {files}; PNGs {'written' if pngs else 'not written (no matplotlib)'}")
+    if gen["n_grid"] != T_FLAGSHIP or gen["n_obs"] != 160:
+        raise AssertionError(f"generate_data: {gen}")
+    if counts["dist_q_1d_planes"] != k3:
+        raise AssertionError(f"run_cvi_dp: K3 launched {counts['dist_q_1d_planes']} times, "
+                             f"expected 2 x {calls['steps']} steps + {calls['elbos']} ELBOs")
+    if not (counts["riccati_d_sweep"] and counts["linear_recurrence"]):
+        raise AssertionError(f"run_cvi_dp did not launch K1 and K2: {counts}")
+    elbos = captured["elbos"]
+    if len(records) != len(elbos) + 1 or [r["step"] for r in records] != list(
+            range(len(elbos))) + [-1]:
+        raise AssertionError(f"run_cvi_dp: {len(records)} JSONL records for {len(elbos)} ELBOs")
+    if not np.allclose([r["objective"] for r in records[:-1]], elbos, rtol=0, atol=0):
+        raise AssertionError("run_cvi_dp: the JSONL objectives are not the run's ELBOs")
+    if not (np.isfinite(summary["nlpd"]) and np.isfinite(summary["rmse"])):
+        raise AssertionError(f"run_cvi_dp: {summary}")
+    for name in ("posteriors.npz", "training_statistics.npz", "cvi_model.npz",
+                 "learnt_prior_params.npz"):
+        if name not in files:
+            raise AssertionError(f"run_cvi_dp: {name} was not written")
+    if captured.get("plots_written") != bool(pngs):
+        raise AssertionError("run_cvi_dp: the PNGs do not match what the runner reported")
+    ds = captured["dataset"]
+    saved = load_exp_data(f"{work}/flagship.npz", device=dev)
+    for a, b in zip(saved, ds):
+        if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+            raise AssertionError("the generated npz differs from the dataset run_cvi_dp drew")
+    return captured["model"], ds
+
+
+def phase_runners_reference(dev) -> None:
+    """``run_vdp``, ``run_gpr`` and ``run_sgpr`` on one npz dataset at
+    T = 2,000 in float64, the card against the CPU: 1e-9 for VDP, 1e-6 for
+    the Adam runners (Adam divides by the root of its second moment, which
+    carries every gradient's rounding)."""
+    from vi_diffusion_processes_tpu_torch.exp.data import load_exp_data
+    from vi_diffusion_processes_tpu_torch.exp.runners import (
+        ExperimentConfig,
+        run_gpr,
+        run_sgpr,
+        run_vdp,
+    )
+
+    work = _work_dir("runners")
+    # seed 7: on the default seed's data run_gpr's Adam on the raw OU
+    # parameters reaches NaN losses, in the JAX package too (ROADMAP Queue 3)
+    data = ["num_grid=2000", "t1=10", "num_observations=40", "q=0.8", "noise_stddev=0.2",
+            "seed=7"]
+    _cli(["generate_data", *data, "--out", f"{work}/data.npz", "--device", "cpu"])
+    configs = {
+        "run_vdp": (run_vdp, dict(prior_sde="ou", vdp_lr=0.01, vdp_warmup_steps=3,
+                                  max_outer_iters=2), 1e-9),
+        "run_gpr": (run_gpr, dict(q=0.8), 1e-6),
+        "run_sgpr": (run_sgpr, dict(num_inducing=20), 1e-6),
+    }
+    rec = {}
+    for name, (fn, config, rtol) in configs.items():
+        outs = {}
+        for where in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            out = fn(ExperimentConfig(**config), load_exp_data(f"{work}/data.npz", device=where))
+            outs[where.type] = (out, time.perf_counter() - t0)
+        (card_out, card_s), (cpu_out, _) = outs["cuda"], outs["cpu"]
+        trace = "elbos" if "elbos" in card_out else "losses"
+        a = np.asarray(card_out[trace] + [card_out["nlpd"], card_out["rmse"]])
+        b = np.asarray(cpu_out[trace] + [cpu_out["nlpd"], cpu_out["rmse"]])
+        if not np.all(np.isfinite(a)):
+            raise AssertionError(f"{name}: a trace, NLPD or RMSE on the card is not finite")
+        err = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+        rec[name] = {"steps": len(card_out[trace]), "rel_err": err, "limit": rtol,
+                     "card_s": round(card_s, 2)}
+        if len(card_out[trace]) != len(cpu_out[trace]) or not err <= rtol:
+            raise AssertionError(f"{name}: the card differs from the CPU: {rec[name]}")
+    log(f"[runners] T=2000 float64, card against CPU: {json.dumps(rec)}")
+
+
+def phase_checkpoint(model, card: str) -> None:
+    """The trained full-width model saved and restored on the card: ELBO and
+    marginals equal to the live model's to 1e-12."""
+    from vi_diffusion_processes_tpu_torch.utils.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    path = os.path.join(_work_dir("checkpoint"), "model.pt")
+    t0 = time.perf_counter()
+    save_checkpoint(path, model)
+    restored = restore_checkpoint(path, model)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if (restored.fx_mus.data_ptr() == model.fx_mus.data_ptr()
+            or restored.fx_mus.device != model.fx_mus.device):
+        raise AssertionError("checkpoint: the restored model is not a new copy on its device")
+    with torch.no_grad():
+        live = [model.classic_elbo().reshape(1), *model.dist_q.marginals()]
+        back = [restored.classic_elbo().reshape(1), *restored.dist_q.marginals()]
+    err = max(_scaled_err(a, b) for a, b in zip(back, live))
+    log(f"[checkpoint] {os.path.getsize(path) / 2**20:.1f} MiB saved and restored in "
+        f"{seconds:.2f} s on {card}; ELBO and marginals against the live model {err:.3e}")
+    if not err <= 1e-12:
+        raise AssertionError(f"checkpoint: restored model differs by {err}")
+
+
+def _flagship_rate(model, steps: int = STEPS) -> float:
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import pack_state, packed_natgrad_step
+
+    state = pack_state(model)
+    for _ in range(3):
+        state, _ = packed_natgrad_step(model, state, LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, elbo = packed_natgrad_step(model, state, LR)
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0)
+
+
+def phase_serving(dev, card: str) -> dict:
+    """``predict_f`` of a Matern12 GPR on the 100,000 points of
+    ``gpr_loglik_grad_100k``, exported at 1,000 new times, loaded and run:
+    K2 launches inside the loaded program (twice a call), its outputs equal
+    the eager call to 1e-12; the host ms of both; the flagship's steps/s
+    with the wrappers launching directly and through the custom ops."""
+    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+    from vi_diffusion_processes_tpu_torch.utils import serving
+
+    model, _ = gpr_model("gpr_loglik_grad_100k", N_GPR, torch.float64, dev)
+    model = type(model)(Matern12(1.0, 1.0).to(dev), model.time_points, model.observations,
+                        model.chol_obs_covariance.detach())
+    t_new = torch.linspace(-5.0, 105.0, 1000, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    artifact = serving.export_jittable(lambda x: model.posterior.predict_f(x), t_new)
+    predict = serving.load_artifact(artifact)
+    export_s = time.perf_counter() - t0
+    before = cs.launch_counts()["linear_recurrence"]
+    got = predict(t_new)
+    torch.cuda.synchronize()
+    in_program = cs.launch_counts()["linear_recurrence"] - before
+    with torch.no_grad():
+        ref = model.posterior.predict_f(t_new)
+    err = max(_scaled_err(a, b) for a, b in zip(got, ref))
+    loaded_ms = median_ms(lambda: predict(t_new), reps=10)
+    with torch.no_grad():
+        eager_ms = median_ms(lambda: model.posterior.predict_f(t_new), reps=10)
+    flagship, _, _ = flagship_model(T_FLAGSHIP, torch.float32, dev)
+    rates = {}
+    for route in ("direct", "ops", "ops", "direct"):
+        cs.use_ops_in_eager(route == "ops")
+        try:
+            rates.setdefault(route, []).append(_flagship_rate(flagship))
+        finally:
+            cs.use_ops_in_eager(True)
+    rec = {"artifact_MiB": len(artifact) / 2**20, "export_and_load_s": export_s,
+           "k2_launches_per_loaded_call": in_program, "max_scaled_err": err,
+           "loaded_host_ms": loaded_ms, "eager_host_ms": eager_ms,
+           "flagship_steps_per_s": rates}
+    log(f"[serving] Matern12 GPR predict_f, N={N_GPR}, 1000 new times, on {card}: "
+        f"{json.dumps(rec)}")
+    if in_program != 2:
+        raise AssertionError(f"serving: the loaded program launched K2 {in_program} times, "
+                             "expected 2 (the d = 1 marginals)")
+    if not err <= 1e-12:
+        raise AssertionError(f"serving: the loaded program differs from the eager call by {err}")
+    return rec
+
+
+def phase_tracing(dev, card: str) -> None:
+    """``trace_to`` around two flagship packed steps inside an ``annotate``d
+    region: the Chrome trace names K3's ``dist_q_kernel`` and the region."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import pack_state, packed_natgrad_step
+    from vi_diffusion_processes_tpu_torch.utils.tracing import TRACE_FILE, annotate, trace_to
+
+    model, _, _ = flagship_model(T_FLAGSHIP, torch.float32, dev)
+    state = pack_state(model)
+    work = _work_dir("trace")
+    t0 = time.perf_counter()
+    with trace_to(work):
+        with annotate("flagship_two_steps"):
+            for _ in range(2):
+                state, _ = packed_natgrad_step(model, state, LR)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(work, TRACE_FILE)) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    k3 = sum(1 for e in events if "dist_q_kernel" in e.get("name", "")
+             and e.get("cat") == "kernel")
+    log(f"[tracing] {len(events)} trace events in {seconds:.2f} s on {card}; dist_q_kernel "
+        f"{k3} times on the device; region recorded: {'flagship_two_steps' in names}")
+    if not any("dist_q_kernel" in n for n in names) or "flagship_two_steps" not in names:
+        raise AssertionError("tracing: the trace lacks dist_q_kernel or the annotated region")
+
+
+def phase_sharded(dev, card: str) -> dict:
+    """``dryrun_multichip`` on two gloo ranks sharing the card (NCCL refuses
+    two ranks on one card), then on one NCCL rank: the flagship in float64
+    at T = 8,192 (the JAX dry run's size) and T = 100,000, one
+    ``sharded_packed_natgrad_step`` against ``packed_natgrad_step`` (ELBO
+    1e-8, sites 1e-6, or four times the single-process step's own change
+    under a one-ulp input change or K3's composition, where that is larger:
+    ``parallel/dryrun.py``) with K1 exactly once and
+    K2 ``k2_launches_per_dist_q()`` times per ``dist_q`` on every rank and K3
+    never; a Matern32 time-sharded filter and smoother at N = 100,000 against
+    the unsharded one (1e-8); the data-parallel batched step and trainer
+    iteration on a batch of 4 flagship models at T = 10,000.  Returns the
+    launches summed over both runs' ranks."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_sharded import k2_launches_per_dist_q
+    from vi_diffusion_processes_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    total = {}
+    expected = {"riccati_d_sweep": 2, "linear_recurrence": 2 * k2_launches_per_dist_q(),
+                "dist_q_1d_planes": 0, "riccati_d_sweep_f32": 0}
+    for n_ranks, backend, t_sharded in ((2, "gloo", 8192), (2, "gloo", T_FLAGSHIP),
+                                        (1, "nccl", T_FLAGSHIP)):
+        t0 = time.perf_counter()
+        results = dryrun_multichip(n_ranks, "cuda", backend=backend, batch=4, t_batched=10_000,
+                                   t_sharded=t_sharded, t_smoother=T_FLAGSHIP, timeout=600)
+        seconds = time.perf_counter() - t0
+        for rank, res in enumerate(results):
+            step = res["sharded_step"]
+            log(f"[sharded] {n_ranks} rank(s) over {backend} on {card}, rank {rank}: "
+                f"step {json.dumps(step)}; smoother {json.dumps(res['smoother'])}; batched "
+                f"{json.dumps(res['batched'])}; outer {json.dumps(res['outer'])}")
+            if step["launches"] != expected:
+                raise AssertionError(f"sharded step on rank {rank}: launches {step['launches']}, "
+                                     f"expected {expected}")
+            for name, n in step["launches"].items():
+                total[name] = total.get(name, 0) + n
+        log(f"[sharded] dryrun_multichip({n_ranks}, {backend}), sharded step at T={t_sharded}, "
+            f"passed in {seconds:.1f} s")
+    return total
+
+
 def main() -> None:
     started = time.perf_counter()
     card = phase_device()
@@ -2330,12 +2658,26 @@ def main() -> None:
     models_h_record, models_h_counts = _counted(phase_models_h, dev)
     if models_h_record["sparse_pep_d1"]["launches"]["riccati_d_sweep"] == 0:
         raise AssertionError("sparse PEP at d = 1 did not launch K1")
+    (harness_model, _), harness_counts = _counted(phase_harness, dev, card)
+    _, runners_reference_counts = _counted(phase_runners_reference, dev)
+    _, checkpoint_counts = _counted(phase_checkpoint, harness_model, card)
+    _, serving_counts = _counted(phase_serving, dev, card)
+    if serving_counts["linear_recurrence"] == 0:
+        raise AssertionError("serving: K2 was not launched")
+    _, tracing_counts = _counted(phase_tracing, dev, card)
+    if tracing_counts["dist_q_1d_planes"] != 4:
+        raise AssertionError(f"tracing: K3 launched {tracing_counts['dist_q_1d_planes']} "
+                             "times in two packed steps, expected 4")
+    # the sharded ranks are processes of their own: their launches are counted
+    # on each rank, around the sharded step, and summed here
+    sharded_counts, _ = _counted(phase_sharded, dev, card)
     paths = (main_counts, trainer_counts, prior_counts, x64_off_counts, batched_counts,
              vdp_counts, generic_counts, scan_counts, gpr_reference_counts, gpr_counts,
              run_gpr_counts, vanderpol_counts, vanderpol_reference_counts,
              vanderpol_trainer_counts, cvi_counts, cvi_d1_counts, sparse_counts,
              cvi_reference_counts, spatio_counts, spatio_reference_counts, natgrad_counts,
-             models_h_counts)
+             models_h_counts, harness_counts, runners_reference_counts, checkpoint_counts,
+             serving_counts, tracing_counts, sharded_counts)
     launches = {name: sum(c[name] for c in paths) for name in kernels}
     for name, n in launches.items():
         if n == 0:

@@ -1,8 +1,8 @@
 """Time and profile the port's packed steps on one CUDA card.
 
-    python3 profile_step.py [--root DIR] [--label NAME]
+    python3 profile_step.py [--root DIR] [--label NAME] [--direct]
         [--x64-off [--k4-windows NB L] | --batched | --vdp | --prior | --k4-shapes
-         | --gpr | --scan | --vanderpol | --cvi-poisson | --spatio]
+         | --gpr | --scan | --vanderpol | --cvi-poisson | --spatio | --sharded]
 
 Imports ``vi_diffusion_processes_tpu_torch`` from ``DIR`` (default: this
 checkout), so that two trees can be compared in one run on one card.
@@ -61,6 +61,21 @@ float64 model, float32 compute, lr 0.5): ``pack_spatio`` once, then the
 median of 7 warm runs of the benchmark's 64 (d = 6) or 16 (d = 14) steps,
 then ``torch.profiler`` over 4 steps, with the peak device memory of the
 timed runs.
+
+``--direct`` runs the flagship (or ``--x64-off``) with every kernel wrapper
+launching its kernel directly, not through its ``torch.library`` custom op
+(``cuda_scan.use_ops_in_eager(False)``), to weigh the op's dispatch cost:
+compare with a run without it in the same call.
+
+``--sharded`` runs the time-sharded packed step (``models/cvi_dp_sharded.py``)
+on the flagship in float64 (T = 100,000) on two gloo ranks sharing the card:
+for each phase-3 design of its K2 recurrences (a second launch from the
+boundary value, or the ``cumprod`` fold) the largest scaled difference of
+the sharded ``z`` and ``μ`` solves from one unsharded K2 launch on the same
+inputs, that of the sharded ``dist_q`` from the unsharded K3 over 8 states
+along a run, and
+the median of 7 runs of 8 sharded steps, beside the unsharded step's rate
+on one rank.
 
 Prints the card's name and power limit, then one JSON line (``--gpr`` and
 ``--spatio``: two; ``--cvi-poisson``: four).
@@ -400,6 +415,97 @@ def scan_profiles(dev) -> dict:
     return out
 
 
+def _sharded_rank(rank, world, steps, runs, device="cuda"):
+    """One rank of ``--sharded``: both phase-3 designs on the rank's chunk
+    (``device="cpu"`` rehearses it without a card)."""
+    from vi_diffusion_processes_tpu_torch.models import cvi_dp_sharded as sh
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import (
+        _dist_q_1d,
+        pack_state,
+        packed_natgrad_step,
+    )
+    from vi_diffusion_processes_tpu_torch.ops.cuda_scan import riccati_d_sweep as cs_sweep
+    from vi_diffusion_processes_tpu_torch.parallel.dryrun import flagship_model
+    from vi_diffusion_processes_tpu_torch.parallel.sharded import gather_time
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else device
+    model = flagship_model(T, torch.float64, dev)
+    state = pack_state(model)
+    states = []
+    for _ in range(8):
+        states.append(state)
+        state, _ = packed_natgrad_step(model, state, LR)
+    from vi_diffusion_processes_tpu_torch.ops.cuda_scan import linear_recurrence
+    from vi_diffusion_processes_tpu_torch.parallel.sharded import shard_time
+
+    # phase 3 alone: the sharded recurrences of the last state's z and μ
+    # solves against one unsharded K2 launch on the same (t, c)
+    st = states[-1]
+    nat1 = st.p_nat1 + st.g_nat1 + st.d_nat1
+    ks = -(st.p_nat2s + st.g_nat2s)
+    kd = -2.0 * (st.p_nat2d + st.g_nat2d + st.d_nat2)
+    d = cs_sweep(kd, torch.cat([ks**2, kd.new_zeros(1)]))
+    u = ks / d[1:]
+    zero = kd.new_zeros(1)
+    recurrences = {"z": (torch.cat([-u, zero]), nat1, True),
+                   "mu": (torch.cat([zero, -u]), nat1 / d, False)}
+    out = {}
+    for relaunch in (True, False):
+        sh.PHASE3_RELAUNCH[0] = relaunch
+        rec_err = {}
+        for name, (t, c, reverse) in recurrences.items():
+            (x,), _ = sh._affine([shard_time(t).contiguous()], [shard_time(c).contiguous()], None,
+                                 reverse=reverse)
+            ref = linear_recurrence(t, c, 0.0, reverse)
+            rec_err[name] = float(torch.max(torch.abs(gather_time(x, T) - ref))
+                                  / torch.max(torch.abs(ref)))
+        err = 0.0
+        for st in states:
+            (a, b, qv, _, _), means, varis = sh.sharded_dist_q_1d(
+                sh.shard_packed_state(st), torch.float64)
+            (ra, rb, rqv, _, _), rmeans, rvars = _dist_q_1d(st, torch.float64)
+            for x, r, pairs in ((a, ra, True), (b, rb, True), (qv, rqv, True),
+                                (means, rmeans, False), (varis, rvars, False)):
+                full = gather_time(x, T, pairs=pairs)
+                err = max(err, float(torch.max(torch.abs(full - r)) / torch.max(torch.abs(r))))
+        chunk = sh.shard_packed_state(states[-1])
+        rates = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_ = chunk
+            for _ in range(steps):
+                s_, elbo = sh.sharded_packed_natgrad_step(model, s_, LR)
+            torch.cuda.synchronize()
+            rates.append(steps / (time.perf_counter() - t0))
+        out["relaunch" if relaunch else "fold"] = {
+            "k2_launches_per_dist_q": sh.k2_launches_per_dist_q(),
+            "recurrence_max_scaled_err": rec_err,
+            "dist_q_max_scaled_err": err, "steps_per_s_median": statistics.median(rates),
+            "steps_per_s_runs": rates, "elbo": float(elbo)}
+    sh.PHASE3_RELAUNCH[0] = True
+    rates = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_ = states[-1]
+        for _ in range(steps):
+            s_, _ = packed_natgrad_step(model, s_, LR)
+        torch.cuda.synchronize()
+        rates.append(steps / (time.perf_counter() - t0))
+    out["unsharded_steps_per_s_median"] = statistics.median(rates)
+    return out
+
+
+def sharded_profile(label: str, root: str) -> None:
+    from vi_diffusion_processes_tpu_torch.parallel.dryrun import run_ranks
+
+    results = run_ranks(_sharded_rank, 2, 8, 7, backend="gloo", device="cuda", timeout=900)
+    for rank, res in enumerate(results):
+        print(json.dumps({"label": label, "root": root, "sharded": True, "T": T, "ranks": 2,
+                          "backend": "gloo", "rank": rank, **res}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -414,6 +520,8 @@ def main() -> None:
     mode.add_argument("--vanderpol", action="store_true")
     mode.add_argument("--cvi-poisson", action="store_true")
     mode.add_argument("--spatio", action="store_true")
+    mode.add_argument("--sharded", action="store_true")
+    ap.add_argument("--direct", action="store_true")
     ap.add_argument("--k4-windows", type=int, nargs=2, metavar=("NB", "L"))
     ap.add_argument("--label", default="")
     args = ap.parse_args()
@@ -425,6 +533,13 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
+    if args.sharded:
+        sharded_profile(args.label, args.root)
+        return
+    if args.direct:
+        from vi_diffusion_processes_tpu_torch.ops import cuda_scan
+
+        cuda_scan.use_ops_in_eager(False)
     if args.gpr:
         gpr_profiles(dev, args.label, args.root)
         return
@@ -466,7 +581,7 @@ def main() -> None:
     # K1 and K4 alone, beside the steps that may run them
     sweeps = {} if args.batched or args.vdp else sweeps_device_ms(dev)
     print(json.dumps({
-        "label": args.label, "root": args.root, "x64_off": args.x64_off,
+        "label": args.label, "root": args.root, "x64_off": args.x64_off, "direct": args.direct,
         "batched": args.batched, "vdp": args.vdp, "k4_windows": args.k4_windows,
         "elbo": float(elbo), **record, **sweeps,
     }), flush=True)

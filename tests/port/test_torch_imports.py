@@ -33,7 +33,9 @@ models.posterior models.gpr models.cvi_dp_packed_ch likelihoods.discrete models.
 models.cvi_packed models.sparse_cvi kernels.spatial kernels.spatio_temporal
 models.spatio_temporal models.spatio_packed optim.bijectors optim.natgrad models.variational
 models.svgp kernels.composite likelihoods.multistage likelihoods.pep models.pep
-models.sparse_pep models.iwvi
+models.sparse_pep models.iwvi exp.cli exp.__main__ exp.logging exp.plots utils.validation
+utils.tracing utils.checkpoint utils.serving utils.native parallel.sharded
+models.cvi_dp_sharded parallel.dryrun
 """.split()
 SCRIPTS = ["chip_smoke.py", "profile_step.py"]
 

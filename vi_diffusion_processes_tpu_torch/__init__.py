@@ -7,3 +7,7 @@ tensors and on their plain PyTorch versions for CPU tensors.
 """
 
 __version__ = "0.1.0"
+
+from . import config
+from .ops.btd import BTD
+from .ssm.state_space_model import StateSpaceModel, ssm_from_covariances

@@ -23,12 +23,15 @@ __all__ = [
     "set_x64_enabled",
     "enable_x64",
     "default_float",
+    "set_default_float",
     "default_jitter",
     "resolve_device",
     "APPROX_INF",
 ]
 
 _X64 = [True]
+#: the dtype set by :func:`set_default_float`; ``None`` follows the x64 policy
+_DEFAULT_FLOAT = [None]
 
 
 def x64_enabled() -> bool:
@@ -53,8 +56,17 @@ def enable_x64(enabled: bool = True):
 
 
 def default_float() -> torch.dtype:
-    """float64 under the x64 policy, else float32 (config.py:33-40)."""
+    """The dtype set by :func:`set_default_float`, else float64 under the
+    x64 policy and float32 without it (config.py:33-40)."""
+    if _DEFAULT_FLOAT[0] is not None:
+        return _DEFAULT_FLOAT[0]
     return torch.float64 if x64_enabled() else torch.float32
+
+
+def set_default_float(dtype) -> None:
+    """Fix :func:`default_float` to ``dtype`` for the whole process, or with
+    ``None`` let it follow the x64 policy again (config.py:43-45)."""
+    _DEFAULT_FLOAT[0] = dtype
 
 
 def default_jitter() -> float:

@@ -6,7 +6,7 @@ import math
 
 import torch
 
-__all__ = ["grid_indices", "nlpd", "nlpd_full", "rmse"]
+__all__ = ["grid_indices", "nlpd", "nlpd_full", "rmse", "calculate_nlpd", "calculate_rmse"]
 
 
 def grid_indices(time_grid: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
@@ -38,3 +38,21 @@ def nlpd_full(pred_means, pred_covs, observations, noise_variance: float = 0.0) 
 def rmse(pred_means, observations) -> torch.Tensor:
     """``sqrt(mean (m − y)²)``."""
     return torch.sqrt(torch.mean((pred_means - observations) ** 2))
+
+
+def calculate_nlpd(m, s, time_grid, test_data, noise_variance: float = 0.0) -> float:
+    """Reference-shaped entry point (metrics.py:64-73): the NLPD at the
+    grid indices of ``test_data[0]``, full-covariance for ``s [N, D, D]``,
+    diagonal for ``s [N, D]``."""
+    idx = grid_indices(time_grid, test_data[0])
+    m_test = m[idx]
+    y_test = test_data[1]
+    if s.dim() == m.dim() + 1:
+        return float(nlpd_full(m_test, s[idx], y_test, noise_variance))
+    return float(nlpd(m_test, s[idx], y_test, noise_variance))
+
+
+def calculate_rmse(m, time_grid, test_data) -> float:
+    """Reference-shaped entry point (metrics.py:76-79)."""
+    idx = grid_indices(time_grid, test_data[0])
+    return float(rmse(m[idx], test_data[1]))

@@ -22,6 +22,7 @@ from ..ssm.emission import EmissionModel
 from ..ssm.state_space_model import StateSpaceModel, ssm_from_covariances
 from ..utils.linalg import block_diag, kron, matmul_small, matvec_small, transpose_last
 from ..utils.shapes import to_delta_time
+from ..utils.validation import check_positive
 
 __all__ = [
     "Kernel",
@@ -40,11 +41,9 @@ def _param(value, dtype) -> nn.Parameter:
 
 
 def _positive_param(value, name: str, dtype) -> nn.Parameter:
-    """A parameter whose starting value must be positive (the constructor
-    guard of utils/validation.py:32)."""
+    """A parameter whose starting value must be positive."""
     p = _param(value, dtype)
-    if not bool(torch.all(p > 0)):
-        raise ValueError(f"{name} must be positive.")
+    check_positive(p.detach(), name)
     return p
 
 

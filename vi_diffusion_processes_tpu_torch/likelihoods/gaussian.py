@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ..utils.linalg import chol_psd, mvn_logpdf, transpose_last, tri_solve
+from ..utils.validation import check_positive
 from .base import Likelihood
 
 __all__ = ["Gaussian", "MultivariateGaussian"]
@@ -25,8 +26,7 @@ class Gaussian(Likelihood):
     def __init__(self, variance, dtype=torch.float64):
         super().__init__()
         variance = torch.as_tensor(variance, dtype=dtype)
-        if not bool(torch.all(variance > 0)):
-            raise ValueError("variance must be positive.")
+        check_positive(variance, "variance")
         self.variance = nn.Parameter(variance)
 
     def _elementwise_log_prob(self, f, y):

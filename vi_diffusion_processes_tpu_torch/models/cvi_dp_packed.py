@@ -127,35 +127,44 @@ def _dist_q_1d(state: PackedCVIState, compute_dtype):
     return (a, b, qv, mu0, p0v), means, varis
 
 
-def _kl_packed(e1, ed, es, drift_fn, p_var, p_mu0, p_var0, quad_z, quad_w, dt):
-    """KL[q‖p(SDE)] as a function of q's packed expectation parameters
-    (cvi_dp_packed.py:251-286), with the Euler p-forward ``x + dt·f_p(x)``."""
+def _kl_path(e1, ed, es, drift_fn, p_var, quad_z, quad_w, dt):
+    """The path term of :func:`_kl_packed`: one summand per pair ``(k, k+1)``
+    of the ``len(es)`` pairs, which read ``e1`` and ``ed`` at both ends."""
+    n_pairs = es.shape[0]
     mu = e1
     var = ed - e1**2
-    cov_up = es - e1[:-1] * e1[1:]
-    a = cov_up / var[:-1]
-    b = mu[1:] - a * mu[:-1]
-    qv = var[1:] - a**2 * var[:-1]
+    cov_up = es - e1[:n_pairs] * e1[1:n_pairs + 1]
+    a = cov_up / var[:n_pairs]
+    b = mu[1:n_pairs + 1] - a * mu[:n_pairs]
+    qv = var[1:n_pairs + 1] - a**2 * var[:n_pairs]
 
     # closed-form C term: −(log|Q_q| − log|Q_p|) − d + tr(Q_p⁻¹ Q_q)
     c_term = -(torch.log(qv) - torch.log(p_var)) - 1.0 + qv / p_var
 
     # Gauss–Hermite over q's marginals (mvnquad with jittered cholesky)
-    chol = torch.sqrt(var[:-1] + default_jitter())
+    chol = torch.sqrt(var[:n_pairs] + default_jitter())
     sqrt2 = torch.sqrt(torch.tensor(2.0, dtype=mu.dtype, device=mu.device))
-    x = mu[:-1, None] + sqrt2 * chol[:, None] * quad_z
+    x = mu[:n_pairs, None] + sqrt2 * chol[:, None] * quad_z
     f_p = x + dt * drift_fn(x)
     f_q = a[:, None] * x + b[:, None]
     diff2 = (f_p - f_q) ** 2 / p_var[:, None]
     fn_difference = torch.sum(diff2 * quad_w, dim=-1)
-    kl_path = 0.5 * torch.sum(fn_difference + c_term)
+    return 0.5 * torch.sum(fn_difference + c_term)
 
-    # KL₀ between scalar Gaussians
-    var0 = var[0]
-    kl_0 = 0.5 * (
-        var0 / p_var0 + (p_mu0 - mu[0]) ** 2 / p_var0 - 1.0 + torch.log(p_var0 / var0)
+
+def _kl_initial(e1, ed, p_mu0, p_var0):
+    """KL₀ between the scalar Gaussians of point 0."""
+    var0 = ed[0] - e1[0] ** 2
+    return 0.5 * (
+        var0 / p_var0 + (p_mu0 - e1[0]) ** 2 / p_var0 - 1.0 + torch.log(p_var0 / var0)
     )
-    return kl_path + kl_0
+
+
+def _kl_packed(e1, ed, es, drift_fn, p_var, p_mu0, p_var0, quad_z, quad_w, dt):
+    """KL[q‖p(SDE)] as a function of q's packed expectation parameters
+    (cvi_dp_packed.py:251-286), with the Euler p-forward ``x + dt·f_p(x)``."""
+    return (_kl_path(e1, ed, es, drift_fn, p_var, quad_z, quad_w, dt)
+            + _kl_initial(e1, ed, p_mu0, p_var0))
 
 
 @functools.lru_cache(maxsize=None)

@@ -21,7 +21,9 @@ device; the kernel spreads the windows over the card's SMs itself
 
 The wrapper is a ``torch.autograd.Function`` whose backward is
 ``_riccati_bwd`` (:164-177): the forward affine recurrence of the adjoint
-runs on K2 in float32, with ``D²`` clamped at 1e-30.
+runs on K2 in float32, with ``D²`` clamped at 1e-30.  Its forward launch is
+also the custom op ``vidp_torch::riccati_d_sweep_f32``, which the wrapper
+calls (``cuda_scan.py``'s module docstring).
 """
 from __future__ import annotations
 
@@ -40,7 +42,9 @@ from .cuda_scan import (
     _launch,
     _lib,
     _ptr,
+    _sweep_op_setup,
     _unblockify,
+    _via_ops,
     sweep_adjoint,
 )
 
@@ -169,17 +173,37 @@ def _riccati_d_sweep_f32_unchecked(kd: torch.Tensor, b2: torch.Tensor) -> torch.
     structural zero (``ops/btd.py``): ``b2[..., -1]`` is not read on the
     host, so nothing waits for the device."""
     _check_sweep("riccati_d_sweep_f32", kd, b2, torch.float32)
+    return _route(kd, b2)
+
+
+def _route(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    if _via_ops():
+        return torch.ops.vidp_torch.riccati_d_sweep_f32(kd, b2)
     return _RiccatiSweepF32.apply(kd, b2)
 
 
 def riccati_d_sweep_f32(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """K4: ``D_k = kd_k − b2_k/D_{k+1}`` on f32 ``[..., N]`` with
-    ``b2[..., N−1] = 0`` (checked: raises ``ValueError`` otherwise).  Kernel
-    for CUDA tensors, plain version for CPU; differentiable in ``kd`` and
-    ``b2``."""
+    ``b2[..., N−1] = 0`` (checked: raises ``ValueError`` otherwise; not
+    while ``torch.export`` traces).  Kernel for CUDA tensors, plain version
+    for CPU; differentiable in ``kd`` and ``b2``."""
     _check_sweep("riccati_d_sweep_f32", kd, b2, torch.float32)
-    _check_last_b2("riccati_d_sweep_f32", b2)
-    return _RiccatiSweepF32.apply(kd, b2)
+    if not torch.compiler.is_exporting():
+        _check_last_b2("riccati_d_sweep_f32", b2)
+    return _route(kd, b2)
+
+
+@torch.library.custom_op("vidp_torch::riccati_d_sweep_f32", mutates_args=())
+def _riccati_f32_op(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    return _forward(kd, b2)
+
+
+@_riccati_f32_op.register_fake
+def _(kd, b2):
+    return torch.empty_like(kd)
+
+
+_riccati_f32_op.register_autograd(_RiccatiSweepF32.backward, setup_context=_sweep_op_setup)
 
 
 riccati_d_sweep_f32.launches = 0

@@ -37,6 +37,19 @@ adjoint as its backward: K1's and K2's backward passes are K2 launches
 (``_ric_bwd``, ``_linrec_bwd``), and K3's is the VJP of the K1 + K2
 composition.  The same backward formulas run on the plain versions for
 CPU tensors.
+
+Each forward launch is also registered as a ``torch.library.custom_op``
+(``vidp_torch::riccati_d_sweep``, ``::linear_recurrence``,
+``::dist_q_1d_planes``; K4's in ``cuda_riccati.py``) with a fake
+implementation (shapes and dtypes only) and the same backward formulas, so
+that ``torch.export`` can trace a function that reaches a kernel: the
+launchers are ctypes calls on ``data_ptr()``, which fake tensors cannot
+run.  The wrappers call the ops, in eager mode too: on the flagship step
+the op costs nothing measurable against the direct launch (``PERF.md``,
+``profile_step.py --direct``), and one route serves both.
+:func:`use_ops_in_eager` switches eager calls back to the direct launch
+for that measurement; either way the same kernel launches and the same
+count rises.
 """
 from __future__ import annotations
 
@@ -57,6 +70,7 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "launch_shape",
+    "use_ops_in_eager",
 ]
 
 #: default window count of the plain versions
@@ -366,17 +380,25 @@ def _riccati_d_sweep_unchecked(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tens
     structural zero (``ops/btd.py``): ``b2[..., -1]`` is not read on the
     host, so nothing waits for the device."""
     _check_sweep("riccati_d_sweep", kd, b2, torch.float64)
+    return _riccati_route(kd, b2)
+
+
+def _riccati_route(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    if _via_ops():
+        return torch.ops.vidp_torch.riccati_d_sweep(kd, b2)
     return _RiccatiSweep.apply(kd, b2)
 
 
 def riccati_d_sweep(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """K1: ``D_k = kd_k − b2_k/D_{k+1}`` on f64 ``[..., N]`` with
-    ``b2[..., N−1] = 0`` (checked: raises ``ValueError`` otherwise).  Kernel
-    for CUDA tensors, plain version for CPU; differentiable in ``kd`` and
+    ``b2[..., N−1] = 0`` (checked: raises ``ValueError`` otherwise; not
+    while ``torch.export`` traces, which cannot read a value).  Kernel for
+    CUDA tensors, plain version for CPU; differentiable in ``kd`` and
     ``b2``."""
     _check_sweep("riccati_d_sweep", kd, b2, torch.float64)
-    _check_last_b2("riccati_d_sweep", b2)
-    return _RiccatiSweep.apply(kd, b2)
+    if not torch.compiler.is_exporting():
+        _check_last_b2("riccati_d_sweep", b2)
+    return _riccati_route(kd, b2)
 
 
 def _linrec_forward(t: torch.Tensor, c: torch.Tensor, x0: torch.Tensor, reverse: bool):
@@ -444,12 +466,26 @@ def linear_recurrence(
     _check("linear_recurrence", (t, c), (torch.float32, torch.float64))
     if t.shape != c.shape or t.dtype != c.dtype:
         raise ValueError("linear_recurrence: t and c differ in shape or dtype")
+    if _via_ops():
+        x0_b = torch.as_tensor(x0, dtype=t.dtype, device=t.device).expand(t.shape[:-1])
+        return torch.ops.vidp_torch.linear_recurrence(t, c, x0_b, bool(reverse))
     return _LinearRecurrence.apply(t, c, x0, bool(reverse))
 
 
-def _dist_q_forward(nat1, nat2d, nat2s, out_dtype):
+def _dist_q_outputs(covs, a, w, means, varis):
+    """K3's seven outputs from its five ``[..., N]`` buffers."""
+    return (a[..., :-1], w[..., 1:], covs[..., 1:], means[..., 0], covs[..., 0],
+            means, varis)
+
+
+def _dist_q_buffers(nat1, nat2d, nat2s, out_dtype):
+    """K3's five ``[..., N]`` buffers ``(covs, a, w, means, vars)``; on the
+    CPU from the plain version (``a[..., −1]`` is 0)."""
     if nat1.device.type == "cpu":
-        return dist_q_1d_planes_plain(nat1, nat2d, nat2s, out_dtype)
+        a, b, qv, mu0, p0v, means, varis = dist_q_1d_planes_plain(nat1, nat2d, nat2s, out_dtype)
+        zero = torch.zeros_like(means[..., :1])
+        return (torch.cat([p0v[..., None], qv], dim=-1), torch.cat([a, zero], dim=-1),
+                torch.cat([mu0[..., None], b], dim=-1), means, varis)
     n = nat1.shape[-1]
     covs, a, w, means, varis = (
         torch.empty(nat1.shape, dtype=out_dtype, device=nat1.device) for _ in range(5)
@@ -468,8 +504,13 @@ def _dist_q_forward(nat1, nat2d, nat2s, out_dtype):
                     _ptr(scratch), _ptr(covs), _ptr(a), _ptr(w), _ptr(means),
                     _ptr(varis), batch, n)
         dist_q_1d_planes.launches += 1
-    return (a[..., :-1], w[..., 1:], covs[..., 1:], means[..., 0], covs[..., 0],
-            means, varis)
+    return covs, a, w, means, varis
+
+
+def _dist_q_forward(nat1, nat2d, nat2s, out_dtype):
+    if nat1.device.type == "cpu":
+        return dist_q_1d_planes_plain(nat1, nat2d, nat2s, out_dtype)
+    return _dist_q_outputs(*_dist_q_buffers(nat1, nat2d, nat2s, out_dtype))
 
 
 class _DistQ(torch.autograd.Function):
@@ -511,7 +552,107 @@ def dist_q_1d_planes(
         raise ValueError("dist_q_1d_planes: needs N >= 2")
     if out_dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dist_q_1d_planes: out_dtype {out_dtype}")
+    if _via_ops():
+        covs, a, w, means, varis = torch.ops.vidp_torch.dist_q_1d_planes(
+            nat1, nat2d, nat2s, out_dtype)
+        return _dist_q_outputs(covs, a, w, means, varis)
     return _DistQ.apply(nat1, nat2d, nat2s, out_dtype)
+
+
+# --------------------------------------------------------- the custom ops
+#: whether the wrappers go through the custom ops outside ``torch.export``
+_OPS_IN_EAGER = [True]
+
+
+def use_ops_in_eager(enabled: bool) -> None:
+    """Route every wrapper's eager calls through its custom op (``True``, the
+    default) or launch directly through its ``torch.autograd.Function``
+    (``False``); ``torch.export`` always traces the ops.  A measurement
+    switch: ``profile_step.py --direct`` times the flagship step without the
+    ops."""
+    _OPS_IN_EAGER[0] = bool(enabled)
+
+
+def _via_ops() -> bool:
+    return _OPS_IN_EAGER[0] or torch.compiler.is_exporting()
+
+
+def _materialize(g, like):
+    return torch.zeros_like(like) if g is None else g
+
+
+@torch.library.custom_op("vidp_torch::riccati_d_sweep", mutates_args=())
+def _riccati_op(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    return _riccati_forward(kd, b2)
+
+
+@_riccati_op.register_fake
+def _(kd, b2):
+    return torch.empty_like(kd)
+
+
+def _sweep_op_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[1], output)
+
+
+_riccati_op.register_autograd(_RiccatiSweep.backward, setup_context=_sweep_op_setup)
+
+
+@torch.library.custom_op("vidp_torch::linear_recurrence", mutates_args=())
+def _linrec_op(t: torch.Tensor, c: torch.Tensor, x0: torch.Tensor, reverse: bool) -> torch.Tensor:
+    return _linrec_forward(t, c, x0, reverse)
+
+
+@_linrec_op.register_fake
+def _(t, c, x0, reverse):
+    return torch.empty_like(t)
+
+
+def _linrec_op_setup(ctx, inputs, output):
+    t, _, x0, reverse = inputs
+    ctx.reverse = reverse
+    ctx.save_for_backward(t, output, x0)
+
+
+def _linrec_op_backward(ctx, g):
+    ctx.x0_like = (ctx.saved_tensors[2].shape, ctx.saved_tensors[2].dtype)
+    return _LinearRecurrence.backward(ctx, g)
+
+
+_linrec_op.register_autograd(_linrec_op_backward, setup_context=_linrec_op_setup)
+
+
+@torch.library.custom_op("vidp_torch::dist_q_1d_planes", mutates_args=())
+def _dist_q_op(nat1: torch.Tensor, nat2d: torch.Tensor, nat2s: torch.Tensor,
+               out_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                torch.Tensor, torch.Tensor]:
+    return _dist_q_buffers(nat1, nat2d, nat2s, out_dtype)
+
+
+@_dist_q_op.register_fake
+def _(nat1, nat2d, nat2s, out_dtype):
+    return tuple(torch.empty(nat1.shape, dtype=out_dtype, device=nat1.device)
+                 for _ in range(5))
+
+
+def _dist_q_op_setup(ctx, inputs, output):
+    ctx.out_dtype = inputs[3]
+    ctx.save_for_backward(*inputs[:3])
+
+
+def _dist_q_op_backward(ctx, g_covs, g_a, g_w, g_means, g_vars):
+    """The VJP of :class:`_DistQ` with the buffers' cotangents mapped onto
+    its seven outputs (``w[..., 0]`` and ``a[..., −1]`` are no output)."""
+    like = torch.empty(ctx.saved_tensors[0].shape, dtype=ctx.out_dtype,
+                       device=ctx.saved_tensors[0].device)
+    g_covs, g_a, g_w, g_means, g_vars = (
+        _materialize(g, like) for g in (g_covs, g_a, g_w, g_means, g_vars))
+    grads = (g_a[..., :-1], g_w[..., 1:], g_covs[..., 1:], torch.zeros_like(g_means[..., 0]),
+             g_covs[..., 0], g_means, g_vars)
+    return _DistQ.backward(ctx, *grads)[:3] + (None,)
+
+
+_dist_q_op.register_autograd(_dist_q_op_backward, setup_context=_dist_q_op_setup)
 
 
 def _kernels():

@@ -91,30 +91,16 @@ def _filter_compose(e_i, e_j):
     return a, b, symmetrize(c), eta, symmetrize(j)
 
 
-def _make_filter_elements(ssm: StateSpaceModel, nat1: torch.Tensor, nat2_prec: torch.Tensor):
-    """The N+1 filtering elements, time-major (pskf.py:113).  ``nat1[k] = θ_k``,
-    ``nat2_prec[k] = Λ_k`` (site precision, PSD).  Element 0 is the
-    site-updated prior; element k ≥ 1 stands for ``p(x_k|x_{k-1}) φ_k(x_k)``
-    in the (A, b, C, η, J) parametrization:
+def _transition_elements(a_t, b_t, q_t, th, lam):
+    """Filtering elements of ``p(x_k|x_{k-1}) φ_k(x_k)`` for time-major
+    transitions ``(A, b, Q)`` and the sites ``(θ, Λ)`` of their arrival
+    points, in the (A, b, C, η, J) parametrization:
 
         ``A* = (I+QΛ)⁻¹A``, ``b* = (I+QΛ)⁻¹(b+Qθ)``, ``C* = (I+QΛ)⁻¹Q``,
         ``η* = Aᵀ(I+ΛQ)⁻¹(θ−Λb)``, ``J* = Aᵀ(I+ΛQ)⁻¹ΛA``.
     """
-    a_t = ssm.state_transitions.movedim(-3, 0)  # [N, ..., d, d]
-    b_t = ssm.state_offsets.movedim(-2, 0)
-    q_t = ssm.process_covariances.movedim(-3, 0)
-    th_t = nat1.movedim(-2, 0)  # [N+1, ..., d]
-    lm_t = nat2_prec.movedim(-3, 0)  # [N+1, ..., d, d]
     eye = eye_like(a_t)
-
-    # element 0: the updated initial state
-    p0, m0 = ssm.initial_covariance, ssm.initial_mean
-    ipl0_inv = inv_small(eye + mm(p0, lm_t[0]))
-    c0 = symmetrize(mm(ipl0_inv, p0))
-    b0 = matvec_small(ipl0_inv, m0 + matvec_small(p0, th_t[0]))
-
-    # elements 1..N; (I+ΛQ)⁻¹ = (I+QΛ)⁻ᵀ
-    lam, th = lm_t[1:], th_t[1:]
+    # (I+ΛQ)⁻¹ = (I+QΛ)⁻ᵀ
     iql_inv = inv_small(eye + mm(q_t, lam))
     a_star = mm(iql_inv, a_t)
     b_star = matvec_small(iql_inv, b_t + matvec_small(q_t, th))
@@ -122,6 +108,26 @@ def _make_filter_elements(ssm: StateSpaceModel, nat1: torch.Tensor, nat2_prec: t
     at_ilq = transpose_last(a_star)  # Aᵀ(I+ΛQ)⁻¹
     eta_star = matvec_small(at_ilq, th - matvec_small(lam, b_t))
     j_star = symmetrize(mm(mm(at_ilq, lam), a_t))
+    return a_star, b_star, c_star, eta_star, j_star
+
+
+def _make_filter_elements(ssm: StateSpaceModel, nat1: torch.Tensor, nat2_prec: torch.Tensor):
+    """The N+1 filtering elements, time-major (pskf.py:113).  ``nat1[k] = θ_k``,
+    ``nat2_prec[k] = Λ_k`` (site precision, PSD).  Element 0 is the
+    site-updated prior; element k ≥ 1 is :func:`_transition_elements`'."""
+    a_t = ssm.state_transitions.movedim(-3, 0)  # [N, ..., d, d]
+    b_t = ssm.state_offsets.movedim(-2, 0)
+    q_t = ssm.process_covariances.movedim(-3, 0)
+    th_t = nat1.movedim(-2, 0)  # [N+1, ..., d]
+    lm_t = nat2_prec.movedim(-3, 0)  # [N+1, ..., d, d]
+
+    # element 0: the updated initial state
+    p0, m0 = ssm.initial_covariance, ssm.initial_mean
+    ipl0_inv = inv_small(eye_like(p0) + mm(p0, lm_t[0]))
+    c0 = symmetrize(mm(ipl0_inv, p0))
+    b0 = matvec_small(ipl0_inv, m0 + matvec_small(p0, th_t[0]))
+    a_star, b_star, c_star, eta_star, j_star = _transition_elements(
+        a_t, b_t, q_t, th_t[1:], lm_t[1:])
 
     def cat(first, rest):
         return torch.cat([torch.broadcast_to(first, rest.shape[1:])[None], rest], dim=0)

@@ -12,9 +12,10 @@ def to_delta_time(time_points: torch.Tensor) -> torch.Tensor:
     A grid on the CPU that is not sorted raises ``ValueError``.  A grid on
     the card is not read back, as a traced grid is not in the JAX package:
     the caller answers for its order, and the read would stall the stream
-    at every model build."""
+    at every model build.  Nor is it read while ``torch.export`` traces."""
     deltas = time_points[..., 1:] - time_points[..., :-1]
-    if deltas.device.type == "cpu" and deltas.numel() and float(deltas.min()) < 0.0:
+    if (deltas.device.type == "cpu" and deltas.numel() and not torch.compiler.is_exporting()
+            and float(deltas.min()) < 0.0):
         raise ValueError("time_points must be non-decreasing (Δt ≥ 0).")
     return deltas
 
