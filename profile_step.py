@@ -1,8 +1,8 @@
 """Time and profile the port's packed steps on one CUDA card.
 
-    python3 profile_step.py [--root DIR] [--label NAME] [--direct]
+    python3 profile_step.py [--root DIR] [--label NAME]
         [--x64-off [--k4-windows NB L] | --batched | --vdp | --prior | --k4-shapes
-         | --gpr | --scan | --vanderpol | --cvi-poisson | --spatio | --sharded]
+         | --gpr | --scan | --vanderpol | --cvi-poisson | --spatio | --sharded | --routes]
 
 Imports ``vi_diffusion_processes_tpu_torch`` from ``DIR`` (default: this
 checkout), so that two trees can be compared in one run on one card.
@@ -62,20 +62,18 @@ median of 7 warm runs of the benchmark's 64 (d = 6) or 16 (d = 14) steps,
 then ``torch.profiler`` over 4 steps, with the peak device memory of the
 timed runs.
 
-``--direct`` runs the flagship (or ``--x64-off``) with every kernel wrapper
-launching its kernel directly, not through its ``torch.library`` custom op
-(``cuda_scan.use_ops_in_eager(False)``), to weigh the op's dispatch cost:
-compare with a run without it in the same call.
-
 ``--sharded`` runs the time-sharded packed step (``models/cvi_dp_sharded.py``)
 on the flagship in float64 (T = 100,000) on two gloo ranks sharing the card:
-for each phase-3 design of its K2 recurrences (a second launch from the
-boundary value, or the ``cumprod`` fold) the largest scaled difference of
-the sharded ``z`` and ``μ`` solves from one unsharded K2 launch on the same
-inputs, that of the sharded ``dist_q`` from the unsharded K3 over 8 states
-along a run, and
-the median of 7 runs of 8 sharded steps, beside the unsharded step's rate
-on one rank.
+the largest scaled difference of the sharded ``z`` and ``μ`` solves from
+one unsharded K2 launch on the same inputs, that of the sharded ``dist_q``
+from the unsharded K3 over 8 states along a run, and the median of 7 runs
+of 8 sharded steps, beside the unsharded step's rate on one rank.
+
+``--routes`` asks which route of the float64 flagship step (T = 100,000)
+agrees with the CPU (:func:`route_witness`): K3, or its composition of K1
+and K2 that the sharded step shares, each on the card and on the CPU,
+against the CPU step and against the ``dist_q`` chain's sequential
+recursions in long double.
 
 Prints the card's name and power limit, then one JSON line (``--gpr`` and
 ``--spatio``: two; ``--cvi-poisson``: four).
@@ -416,17 +414,18 @@ def scan_profiles(dev) -> dict:
 
 
 def _sharded_rank(rank, world, steps, runs, device="cuda"):
-    """One rank of ``--sharded``: both phase-3 designs on the rank's chunk
-    (``device="cpu"`` rehearses it without a card)."""
+    """One rank of ``--sharded`` (``device="cpu"`` rehearses it without a
+    card)."""
     from vi_diffusion_processes_tpu_torch.models import cvi_dp_sharded as sh
     from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import (
         _dist_q_1d,
         pack_state,
         packed_natgrad_step,
     )
+    from vi_diffusion_processes_tpu_torch.ops.cuda_scan import linear_recurrence
     from vi_diffusion_processes_tpu_torch.ops.cuda_scan import riccati_d_sweep as cs_sweep
     from vi_diffusion_processes_tpu_torch.parallel.dryrun import flagship_model
-    from vi_diffusion_processes_tpu_torch.parallel.sharded import gather_time
+    from vi_diffusion_processes_tpu_torch.parallel.sharded import gather_time, shard_time
 
     dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else device
     model = flagship_model(T, torch.float64, dev)
@@ -435,11 +434,9 @@ def _sharded_rank(rank, world, steps, runs, device="cuda"):
     for _ in range(8):
         states.append(state)
         state, _ = packed_natgrad_step(model, state, LR)
-    from vi_diffusion_processes_tpu_torch.ops.cuda_scan import linear_recurrence
-    from vi_diffusion_processes_tpu_torch.parallel.sharded import shard_time
 
-    # phase 3 alone: the sharded recurrences of the last state's z and μ
-    # solves against one unsharded K2 launch on the same (t, c)
+    # the sharded recurrences of the last state's z and μ solves against one
+    # unsharded K2 launch on the same (t, c)
     st = states[-1]
     nat1 = st.p_nat1 + st.g_nat1 + st.d_nat1
     ks = -(st.p_nat2s + st.g_nat2s)
@@ -449,51 +446,133 @@ def _sharded_rank(rank, world, steps, runs, device="cuda"):
     zero = kd.new_zeros(1)
     recurrences = {"z": (torch.cat([-u, zero]), nat1, True),
                    "mu": (torch.cat([zero, -u]), nat1 / d, False)}
-    out = {}
-    for relaunch in (True, False):
-        sh.PHASE3_RELAUNCH[0] = relaunch
-        rec_err = {}
-        for name, (t, c, reverse) in recurrences.items():
-            (x,), _ = sh._affine([shard_time(t).contiguous()], [shard_time(c).contiguous()], None,
-                                 reverse=reverse)
-            ref = linear_recurrence(t, c, 0.0, reverse)
-            rec_err[name] = float(torch.max(torch.abs(gather_time(x, T) - ref))
-                                  / torch.max(torch.abs(ref)))
-        err = 0.0
-        for st in states:
-            (a, b, qv, _, _), means, varis = sh.sharded_dist_q_1d(
-                sh.shard_packed_state(st), torch.float64)
-            (ra, rb, rqv, _, _), rmeans, rvars = _dist_q_1d(st, torch.float64)
-            for x, r, pairs in ((a, ra, True), (b, rb, True), (qv, rqv, True),
-                                (means, rmeans, False), (varis, rvars, False)):
-                full = gather_time(x, T, pairs=pairs)
-                err = max(err, float(torch.max(torch.abs(full - r)) / torch.max(torch.abs(r))))
-        chunk = sh.shard_packed_state(states[-1])
+    rec_err = {}
+    for name, (t, c, reverse) in recurrences.items():
+        (x,), _ = sh._affine([shard_time(t).contiguous()], [shard_time(c).contiguous()], None,
+                             reverse=reverse)
+        ref = linear_recurrence(t, c, 0.0, reverse)
+        rec_err[name] = float(torch.max(torch.abs(gather_time(x, T) - ref))
+                              / torch.max(torch.abs(ref)))
+    err = 0.0
+    for st in states:
+        (a, b, qv, _, _), means, varis = sh.sharded_dist_q_1d(
+            sh.shard_packed_state(st), torch.float64)
+        (ra, rb, rqv, _, _), rmeans, rvars = _dist_q_1d(st, torch.float64)
+        for x, r, pairs in ((a, ra, True), (b, rb, True), (qv, rqv, True),
+                            (means, rmeans, False), (varis, rvars, False)):
+            full = gather_time(x, T, pairs=pairs)
+            err = max(err, float(torch.max(torch.abs(full - r)) / torch.max(torch.abs(r))))
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def rate(advance, start):
         rates = []
         for _ in range(runs):
-            torch.cuda.synchronize()
+            sync()
             t0 = time.perf_counter()
-            s_ = chunk
+            s_ = start
             for _ in range(steps):
-                s_, elbo = sh.sharded_packed_natgrad_step(model, s_, LR)
-            torch.cuda.synchronize()
+                s_, elbo = advance(s_)
+            sync()
             rates.append(steps / (time.perf_counter() - t0))
-        out["relaunch" if relaunch else "fold"] = {
-            "k2_launches_per_dist_q": sh.k2_launches_per_dist_q(),
-            "recurrence_max_scaled_err": rec_err,
-            "dist_q_max_scaled_err": err, "steps_per_s_median": statistics.median(rates),
-            "steps_per_s_runs": rates, "elbo": float(elbo)}
-    sh.PHASE3_RELAUNCH[0] = True
-    rates = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s_ = states[-1]
-        for _ in range(steps):
-            s_, _ = packed_natgrad_step(model, s_, LR)
-        torch.cuda.synchronize()
-        rates.append(steps / (time.perf_counter() - t0))
-    out["unsharded_steps_per_s_median"] = statistics.median(rates)
+        return rates, elbo
+
+    rates, elbo = rate(lambda s_: sh.sharded_packed_natgrad_step(model, s_, LR),
+                       sh.shard_packed_state(states[-1]))
+    unsharded, _ = rate(lambda s_: packed_natgrad_step(model, s_, LR), states[-1])
+    return {"k2_launches_per_dist_q": sh.K2_LAUNCHES_PER_DIST_Q,
+            "recurrence_max_scaled_err": rec_err, "dist_q_max_scaled_err": err,
+            "steps_per_s_median": statistics.median(rates), "steps_per_s_runs": rates,
+            "elbo": float(elbo), "unsharded_steps_per_s_median": statistics.median(unsharded)}
+
+
+def _dist_q_long_double(nat1, nat2d, nat2s) -> dict:
+    """The d = 1 ``dist_q`` chain by its sequential recursions (``D`` right
+    to left, ``z`` right to left, ``μ`` and the variances left to right) in
+    numpy's long double: ``{plane: float64 array}`` of ``a, b, qv, means,
+    vars``."""
+    ld = np.longdouble
+    kd = [ld(-2.0) * ld(x) for x in nat2d.cpu().numpy()]
+    ks = [-ld(x) for x in nat2s.cpu().numpy()]
+    th = [ld(x) for x in nat1.cpu().numpy()]
+    n = len(kd)
+    d = [ld(0.0)] * n
+    d[-1] = kd[-1]
+    for k in range(n - 2, -1, -1):
+        d[k] = kd[k] - ks[k] * ks[k] / d[k + 1]
+    u = [ks[k] / d[k + 1] for k in range(n - 1)]
+    cov = [ld(1.0) / x for x in d]
+    z = [ld(0.0)] * n
+    z[-1] = th[-1]
+    for k in range(n - 2, -1, -1):
+        z[k] = th[k] - u[k] * z[k + 1]
+    w = [c * x for c, x in zip(cov, z)]
+    mu, var = [w[0]], [cov[0]]
+    for k in range(1, n):
+        mu.append(w[k] - u[k - 1] * mu[-1])
+        var.append(u[k - 1] * u[k - 1] * var[-1] + cov[k])
+    out = {"a": [-x for x in u], "b": w[1:], "qv": cov[1:], "means": mu, "vars": var}
+    return {k: np.array(v, dtype=np.float64) for k, v in out.items()}
+
+
+def _scaled_err(x, ref) -> dict:
+    """Largest ``|x − ref| / (1 + |ref|)`` and where it is."""
+    x = x.detach().cpu().double().numpy() if isinstance(x, torch.Tensor) else x
+    ref = ref.detach().cpu().double().numpy() if isinstance(ref, torch.Tensor) else ref
+    err = np.abs(x - ref) / (1.0 + np.abs(ref))
+    at = int(np.argmax(err))
+    return {"max": float(err[at]), "at": at}
+
+
+def route_witness(dev, t_size: int = T) -> dict:
+    """Which route of the float64 flagship step agrees with the CPU.  One
+    step from the packed state of ``parallel/dryrun.py::flagship_model`` at
+    ``t_size`` points through K3 and through its K1 + K2 composition
+    (``ops/btd.py::dist_q_1d_core``), each on ``dev`` and on the CPU (plain
+    versions); each step's ELBO and sites against the CPU K3 step.  Then the
+    ``dist_q`` planes of both routes on both devices, at the state that
+    entered the step and at the one it left, against the sequential
+    recursions in long double."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import (
+        _dist_q_1d,
+        pack_state,
+        packed_natgrad_step,
+    )
+    from vi_diffusion_processes_tpu_torch.ops.btd import dist_q_1d, dist_q_1d_core
+    from vi_diffusion_processes_tpu_torch.parallel.dryrun import flagship_model
+
+    routes = {"k3": dist_q_1d, "composition": dist_q_1d_core}
+    devices = {"card": dev, "cpu": torch.device("cpu")}
+    steps, states = {}, {}
+    for where, d in devices.items():
+        model = flagship_model(t_size, torch.float64, d)
+        states[where] = pack_state(model)
+        for name, chain in routes.items():
+            steps[where, name] = packed_natgrad_step(model, states[where], 0.5, dist_q=chain)
+    ref_state, ref_elbo = steps["cpu", "k3"]
+    sites = ("g_nat1", "g_nat2d", "g_nat2s", "fx_mu", "fx_var")
+    out = {"t_size": t_size, "long_double_mantissa_bits": int(np.finfo(np.longdouble).nmant),
+           "step_against_cpu_k3": {}, "planes_against_long_double": {}}
+    for (where, name), (state, elbo) in steps.items():
+        out["step_against_cpu_k3"][f"{where} {name}"] = {
+            "elbo": float(elbo),
+            "elbo_rel": abs(float(elbo) - float(ref_elbo)) / max(1.0, abs(float(ref_elbo))),
+            **{site: _scaled_err(getattr(state, site), getattr(ref_state, site))
+               for site in sites}}
+    for label, cpu_state in (("entering", states["cpu"]), ("left", steps["cpu", "k3"][0])):
+        st = cpu_state
+        truth = _dist_q_long_double(st.p_nat1 + st.g_nat1 + st.d_nat1,
+                                    st.p_nat2d + st.g_nat2d + st.d_nat2,
+                                    st.p_nat2s + st.g_nat2s)
+        for where, d in devices.items():
+            on_dev = st.replace(**{k: v.to(d) for k, v in vars(st).items()})
+            for name, chain in routes.items():
+                (a, b, qv, _, _), means, varis = _dist_q_1d(on_dev, torch.float64, chain)
+                got = {"a": a, "b": b, "qv": qv, "means": means, "vars": varis}
+                out["planes_against_long_double"][f"{label} {where} {name}"] = {
+                    plane: _scaled_err(got[plane], truth[plane]) for plane in truth}
     return out
 
 
@@ -521,7 +600,7 @@ def main() -> None:
     mode.add_argument("--cvi-poisson", action="store_true")
     mode.add_argument("--spatio", action="store_true")
     mode.add_argument("--sharded", action="store_true")
-    ap.add_argument("--direct", action="store_true")
+    mode.add_argument("--routes", action="store_true")
     ap.add_argument("--k4-windows", type=int, nargs=2, metavar=("NB", "L"))
     ap.add_argument("--label", default="")
     args = ap.parse_args()
@@ -536,10 +615,10 @@ def main() -> None:
     if args.sharded:
         sharded_profile(args.label, args.root)
         return
-    if args.direct:
-        from vi_diffusion_processes_tpu_torch.ops import cuda_scan
-
-        cuda_scan.use_ops_in_eager(False)
+    if args.routes:
+        print(json.dumps({"label": args.label, "root": args.root, **route_witness(dev)}),
+              flush=True)
+        return
     if args.gpr:
         gpr_profiles(dev, args.label, args.root)
         return
@@ -581,7 +660,7 @@ def main() -> None:
     # K1 and K4 alone, beside the steps that may run them
     sweeps = {} if args.batched or args.vdp else sweeps_device_ms(dev)
     print(json.dumps({
-        "label": args.label, "root": args.root, "x64_off": args.x64_off, "direct": args.direct,
+        "label": args.label, "root": args.root, "x64_off": args.x64_off,
         "batched": args.batched, "vdp": args.vdp, "k4_windows": args.k4_windows,
         "elbo": float(elbo), **record, **sweeps,
     }), flush=True)

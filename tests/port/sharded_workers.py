@@ -102,6 +102,10 @@ def sharded_checks(rank, world, inputs):
         out["fold"] = _fold(*inputs["fold"])
     out["step"] = _step(inputs["model"], inputs["state"], inputs["lr"])
     out["uneven"] = {n: uneven_chunks(rank, world, n) for n in inputs["uneven"]}
+    if "dryrun" in inputs:
+        from vi_diffusion_processes_tpu_torch.parallel.dryrun import _dryrun_rank
+
+        out["dryrun"] = _dryrun_rank(rank, world, "cpu", **inputs["dryrun"])
     return out
 
 

@@ -79,23 +79,60 @@ def test_the_four_ops_pass_opcheck():
 
 
 def test_wrappers_through_the_ops_equal_the_direct_route():
-    kd, b2, t, c, nat1, nat2d, nat2s = (x.requires_grad_() for x in
-                                       _op_inputs(np.random.default_rng(4)))
-    x0 = torch.tensor(0.3, dtype=torch.float64, requires_grad=True)
+    """Each wrapper reaches its kernel through its custom op; on the CPU the
+    op runs the plain version.  The wrappers' outputs equal a direct call of
+    the plain versions, and their gradients the adjoint formulas called
+    directly, bit for bit."""
+    from vi_diffusion_processes_tpu_torch.ops.btd import dist_q_1d_core
 
-    def run():
-        outs = [cuda_scan.riccati_d_sweep(kd, b2), cuda_scan.linear_recurrence(t, c, x0),
-                cuda_scan.linear_recurrence(t, c, x0, True),
-                *cuda_scan.dist_q_1d_planes(nat1, nat2d, nat2s, torch.float64),
-                cuda_riccati.riccati_d_sweep_f32(kd.float(), b2.float())]
-        loss = sum((o.double() * (i + 1.5)).sum() for i, o in enumerate(outs))
-        return outs, torch.autograd.grad(loss, (kd, b2, t, c, x0, nat1, nat2d, nat2s))
+    rng = np.random.default_rng(4)
+    kd, b2, t, c, nat1, nat2d, nat2s = (x.requires_grad_() for x in _op_inputs(rng))
+    x0 = torch.tensor([0.3, -0.2], dtype=torch.float64, requires_grad=True)
+    kd4, b24 = (x.detach().float().requires_grad_() for x in (kd, b2))
 
-    via_ops = run()
-    cuda_scan.use_ops_in_eager(False)
-    try:
-        direct = run()
-    finally:
-        cuda_scan.use_ops_in_eager(True)
-    for a, b in zip(direct[0] + list(direct[1]), via_ops[0] + list(via_ops[1])):
-        assert torch.equal(a, b)
+    def grads(out, inputs, g):
+        return torch.autograd.grad(out, inputs, g)
+
+    # K1 and K4: the sweep adjoint
+    for sweep, plain, k, b, floor in (
+            (cuda_scan.riccati_d_sweep, cuda_scan.riccati_d_sweep_plain, kd, b2, 1e-300),
+            (cuda_riccati.riccati_d_sweep_f32, cuda_riccati.riccati_d_sweep_f32_plain, kd4, b24,
+             1e-30)):
+        d = sweep(k, b)
+        d_plain = plain(k.detach(), b.detach())
+        assert torch.equal(d, d_plain)
+        g = torch.tensor(rng.normal(size=d.shape), dtype=d.dtype)
+        for got, want in zip(grads(d, (k, b), g),
+                             cuda_scan.sweep_adjoint(b.detach(), d_plain, g, floor)):
+            assert torch.equal(got, want)
+    # K2 both ways: the transposed recurrence in the opposite direction
+    for reverse in (False, True):
+        x = cuda_scan.linear_recurrence(t, c, x0, reverse)
+        x_plain = cuda_scan.linear_recurrence_plain(t.detach(), c.detach(), x0.detach(), reverse)
+        assert torch.equal(x, x_plain)
+        g = torch.tensor(rng.normal(size=x.shape))
+        tt, zero = t.detach(), torch.zeros_like(t[..., :1])
+        if reverse:
+            ghat = cuda_scan.linear_recurrence_plain(torch.cat([zero, tt[..., :-1]], -1), g, 0.0)
+            t_bar = ghat * torch.cat([x_plain[..., 1:], x0.detach()[..., None]], -1)
+            x0_bar = tt[..., -1] * ghat[..., -1]
+        else:
+            ghat = cuda_scan.linear_recurrence_plain(torch.cat([tt[..., 1:], zero], -1), g, 0.0,
+                                                     True)
+            t_bar = ghat * torch.cat([x0.detach()[..., None], x_plain[..., :-1]], -1)
+            x0_bar = tt[..., 0] * ghat[..., 0]
+        for got, want in zip(grads(x, (t, c, x0), g), (t_bar, ghat, x0_bar)):
+            assert torch.equal(got, want)
+    # K3: the VJP of its K1 + K2 composition (mu0 = means[0] gets no cotangent
+    # of its own, so that both sides sum the same terms)
+    outs = cuda_scan.dist_q_1d_planes(nat1, nat2d, nat2s, torch.float64)
+    plain = cuda_scan.dist_q_1d_planes_plain(nat1.detach(), nat2d.detach(), nat2s.detach(),
+                                             torch.float64)
+    for got, want in zip(outs, plain):
+        assert torch.equal(got, want)
+    gs = [torch.tensor(rng.normal(size=o.shape)) for o in outs]
+    gs[3] = torch.zeros_like(gs[3])
+    inputs = (nat1, nat2d, nat2s)
+    want = grads(dist_q_1d_core(*inputs, torch.float64), inputs, gs)
+    for got, w in zip(grads(outs, inputs, gs), want):
+        assert torch.equal(got, w)

@@ -25,7 +25,7 @@ from vi_diffusion_processes_tpu.parallel.pskf import filter_smoother_with_sites
 from vi_diffusion_processes_tpu.sde.utils import Gaussian as JGaussian
 from vi_diffusion_processes_tpu.sde.zoo import DoubleWellSDE as JDoubleWell
 from vi_diffusion_processes_tpu_torch.ops.cuda_scan import riccati_d_sweep_plain
-from vi_diffusion_processes_tpu_torch.parallel.dryrun import dryrun_multichip, run_ranks
+from vi_diffusion_processes_tpu_torch.parallel.dryrun import failed_checks, run_ranks
 
 from . import sharded_workers
 from .helpers import riccati_inputs, to_np
@@ -78,6 +78,8 @@ def _results(world):
         "model": to_np(model), "state": to_np(state1), "lr": LR, "fold": (kd, b2),
         "uneven": UNEVEN,
     }
+    if world == 2:  # dryrun_multichip's checks, in the same group
+        inputs["dryrun"] = {"batch": 4, "t_batched": 64, "t_sharded": 2048, "t_smoother": 301}
     return run_ranks(sharded_workers.sharded_checks, world, inputs, timeout=TIMEOUT), inputs
 
 
@@ -149,9 +151,11 @@ def test_uneven_and_empty_chunks_round_trip(world, n):
 
 
 def test_dryrun_multichip_on_two_cpu_ranks():
-    results = dryrun_multichip(2, "cpu", batch=4, t_batched=64, t_sharded=2048,
-                               t_smoother=301, timeout=TIMEOUT)
+    """``dryrun_multichip(2, "cpu")``'s checks, run by the two-rank group of
+    the other tests."""
+    results = [r["dryrun"] for r in _results(2)[0]]
     assert len(results) == 2
+    assert failed_checks(results) == []
     for r in results:
         assert all(rec["ok"] for rec in r.values())
         assert r["sharded_step"]["err_elbo"] <= 1e-8

@@ -32,8 +32,8 @@
 //     block publishes its run's aggregate map to a small global array, waits
 //     at cooperative_groups::this_grid().sync(), and one warp composes the
 //     aggregates of the blocks before it into its entry value.  K1 and K2
-//     need one such grid sync; K3 three (after the sweep R; after Z and V's
-//     aggregates; after M's).  When bps = 1 (large batch) the launch is an
+//     need one such grid sync; K3 four (after the sweep's aggregates; after
+//     R, with V's aggregate and every covs; after U, with Z's; after M's).  When bps = 1 (large batch) the launch is an
 //     ordinary one with one block per sequence and no grid sync.
 // The sequential depth drops from N to a few tiles per block, each a pair
 // of dependent steps and two log-depth scans, plus the grid syncs.
@@ -427,7 +427,8 @@ riccati_kernel(const double* __restrict__ kd, const double* __restrict__ b2,
 }
 
 // ---------------------------------------------------------------- K3
-// Phases R -> Z -> M, V of pallas_scan.py::_dist_q_kernel, in f64.
+// Phases R -> Z -> M, V of pallas_scan.py::_dist_q_kernel, in f64, with u
+// taken in a phase U of its own from the covs that R writes.
 // scratch is [3, B, n] f64 (u, covs, w) followed by one KAgg per block.
 struct KAgg {
   Mob r;
@@ -478,9 +479,9 @@ dist_q_kernel(const double* __restrict__ nat1, const double* __restrict__ nat2d,
     carry_r = blocks_before(&agg_seq->r, sizeof(KAgg), bps, blk, true, &slot_r);
   }
 
-  // R, exact: u = ks/D_{k+1} (a = -u) and covs = 1/D from the pivot
-  // entering each pair; with it the aggregates of Z (suffix) and V (prefix)
-  Aff<double> mine_z = aff_id, mine_v = aff_id;
+  // R, exact: covs = 1/D from the pivot entering each pair; with it the
+  // aggregate of V (prefix)
+  Aff<double> mine_v = aff_id;
   for (int k = 0; k < ntl; ++k) {
     const int tile = tile_at(lo, hi, k, true);
     sweep_pair(in, tile, n, kdt, nb2t, s, ks, s_after);
@@ -488,39 +489,50 @@ dist_q_kernel(const double* __restrict__ nat1, const double* __restrict__ nat2d,
     block_scan(pair_map(tile, n, kdt, nb2t), true, tot_r, excl, total);
     double rec = 1.0 / entry_pivot(compose(carry_r, excl));
     carry_r = compose(carry_r, total);
-    double s_next = s_after;
-    Aff<double> mz = aff_id, mv = aff_id;
+    Aff<double> mv = aff_id;
 #pragma unroll
     for (int e = 0; e < kChunk; ++e) {
       const int i = elem_at(tile, e, true);
       if (i >= n) continue;
-      const double u = ks[e] * (rec / s_next);
       rec = 1.0 / (kdt[e] + nb2t[e] * rec);
       const double cov = rec / s[e];
-      u_p[i] = u;
       cov_p[i] = cov;
-      a_o[i] = static_cast<TO>(-u);
       covs_o[i] = static_cast<TO>(cov);
-      s_next = s[e];
-      // z_i = -u_i z_{i+1} + nat1_i; v_i = u_{i-1}^2 v_{i-1} + covs_i with
-      // u_{i-1} = ks_{i-1}/D_i = ks_{i-1} covs_i
-      mz = compose(mz, Aff<double>{-u, nat1[i]});
+      // v_i = u_{i-1}^2 v_{i-1} + covs_i with u_{i-1} = ks_{i-1}/D_i = ks_{i-1} covs_i
       const double up = i > 0 ? -nat2s[i - 1] * cov : 0.0;
       mv = compose(Aff<double>{up * up, cov}, mv);
     }
-    mine_z = compose(mine_z, block_total(mz, true, tot_a));
     mine_v = compose(block_total(mv, false, tot_a), mine_v);
   }
   double carry_z = 0.0, carry_v = 0.0;
-  if (threadIdx.x == 0 && bps > 1) {
-    agg[blockIdx.x].z = mine_z;
-    agg[blockIdx.x].v = mine_v;
-  }
+  if (threadIdx.x == 0 && bps > 1) agg[blockIdx.x].v = mine_v;
   sync_sequence(bps);
-  if (bps > 1) {
-    carry_z = blocks_before(&agg_seq->z, sizeof(KAgg), bps, blk, true, &slot_a).b;
-    carry_v = blocks_before(&agg_seq->v, sizeof(KAgg), bps, blk, false, &slot_a).b;
+  if (bps > 1) carry_v = blocks_before(&agg_seq->v, sizeof(KAgg), bps, blk, false, &slot_a).b;
+
+  // U: u_i = ks_i/D_{i+1} = ks_i covs_{i+1} (a = -u) from the covs written
+  // above, so that a, the three recurrences and covs hold one pivot at every
+  // element: the pivot entering a pair from the Moebius scan differs from
+  // the one its neighbour's recursion writes in the last bits, and the
+  // Girsanov gradient amplifies such a mismatch; with u the aggregate of Z
+  // (suffix)
+  Aff<double> mine_z = aff_id;
+  for (int k = 0; k < ntl; ++k) {
+    const int tile = tile_at(lo, hi, k, true);
+    Aff<double> mz = aff_id;
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = elem_at(tile, e, true);
+      if (i >= n) continue;
+      const double u = i < n - 1 ? -nat2s[i] * __ldcg(cov_p + i + 1) : 0.0;
+      u_p[i] = u;
+      a_o[i] = static_cast<TO>(-u);
+      mz = compose(mz, Aff<double>{-u, nat1[i]});
+    }
+    mine_z = compose(mine_z, block_total(mz, true, tot_a));
   }
+  if (threadIdx.x == 0 && bps > 1) agg[blockIdx.x].z = mine_z;
+  sync_sequence(bps);
+  if (bps > 1) carry_z = blocks_before(&agg_seq->z, sizeof(KAgg), bps, blk, true, &slot_a).b;
 
   // Z, exact: w = covs * z; with it the aggregate of M (prefix)
   Aff<double> mine_m = aff_id;

@@ -114,16 +114,17 @@ def unpack_state(model: CVISitesSDE, state: PackedCVIState) -> CVISitesSDE:
     )
 
 
-def _dist_q_1d(state: PackedCVIState, compute_dtype):
+def _dist_q_1d(state: PackedCVIState, compute_dtype, chain=dist_q_1d):
     """``full_sites`` + ``naturals_to_ssm`` + ``marginals`` on scalar
-    channels (cvi_dp_packed.py:228-248).  float64 naturals (the x64 policy)
-    take one K3 launch on CUDA; float32 naturals (x64 off) take the
-    composition: one K4 and four float32 K2 launches."""
+    channels (cvi_dp_packed.py:228-248) through ``chain``.  The default
+    :func:`~..ops.btd.dist_q_1d`: float64 naturals (the x64 policy) take one
+    K3 launch on CUDA; float32 naturals (x64 off) take the composition: one
+    K4 and four float32 K2 launches."""
     nat_dtype = state.p_nat1.dtype
     nat1 = state.p_nat1 + state.g_nat1.to(nat_dtype) + state.d_nat1.to(nat_dtype)
     nat2d = state.p_nat2d + state.g_nat2d.to(nat_dtype) + state.d_nat2.to(nat_dtype)
     nat2s = state.p_nat2s + state.g_nat2s.to(nat_dtype)
-    a, b, qv, mu0, p0v, means, varis = dist_q_1d(nat1, nat2d, nat2s, compute_dtype)
+    a, b, qv, mu0, p0v, means, varis = chain(nat1, nat2d, nat2s, compute_dtype)
     return (a, b, qv, mu0, p0v), means, varis
 
 
@@ -225,11 +226,14 @@ def packed_elbo(model: CVISitesSDE, state: PackedCVIState) -> torch.Tensor:
 
 @torch.no_grad()
 def packed_natgrad_step(
-    model: CVISitesSDE, state: PackedCVIState, lr
+    model: CVISitesSDE, state: PackedCVIState, lr, *, dist_q=dist_q_1d
 ) -> Tuple[PackedCVIState, torch.Tensor]:
     """One CVI-DP natgrad step on packed state (cvi_dp_packed.py:328-415):
     ``update_data_sites(lr)`` → ``update_girsanov_sites(lr)`` →
-    ``classic_elbo()``.  Returns the new state and the ELBO (0-d tensor)."""
+    ``classic_elbo()``.  Returns the new state and the ELBO (0-d tensor).
+    ``dist_q`` is the naturals → marginals chain: :func:`~..ops.btd.dist_q_1d`
+    (K3 in float64), or :func:`~..ops.btd.dist_q_1d_core`, its composition
+    of K1 and K2, which is the algebra of the time-sharded step."""
     consts = _step_constants(model)
     dtype, quad_z, quad_w, q_scalar, p_mu0, p_var0, drift_fn = consts
     dt = model.dt
@@ -249,7 +253,7 @@ def packed_natgrad_step(
     state = state.replace(d_nat1=d_nat1, d_nat2=d_nat2)
 
     # refreshed posterior after the data-site update (dist_q(B))
-    ssm_b, means_b, vars_b = _dist_q_1d(state, dtype)
+    ssm_b, means_b, vars_b = _dist_q_1d(state, dtype, dist_q)
 
     # ---- update_girsanov_sites(lr): ∇_η KL at dist_q(B)
     with torch.enable_grad():
@@ -265,6 +269,6 @@ def packed_natgrad_step(
     )
 
     # ---- refreshed posterior (dist_q(C)) + classic ELBO
-    ssm_c, means_c, vars_c = _dist_q_1d(state, dtype)
+    ssm_c, means_c, vars_c = _dist_q_1d(state, dtype, dist_q)
     state = state.replace(fx_mu=means_c, fx_var=vars_c)
     return state, _classic_elbo(model, state, ssm_c, means_c, vars_c, consts)

@@ -21,9 +21,9 @@ every O(T) scan distributed, on the port's kernels:
   Phase 1 is a K2 launch from a zero boundary, whose end value and ``∏t``
   are the chunk's aggregate; one ``all_gather`` per solve (the means and
   variances share one) gives the value entering the chunk; phase 3 launches
-  K2 again from that boundary value (``PHASE3_RELAUNCH``), which repeats
-  the unsharded arithmetic inside the chunk, or folds it in as
-  ``x_local + cumprod(t)·x_in``: 6 or 3 K2 launches a ``dist_q``;
+  K2 again from that boundary value, which repeats the unsharded
+  arithmetic inside the chunk: 6 K2 launches a ``dist_q``
+  (:data:`K2_LAUNCHES_PER_DIST_Q`);
 * K3 never: its single launch spans the whole chain.
 
 The step's reductions (VE, KL, ELBO) are summed with ``all_reduce``.  The
@@ -54,21 +54,15 @@ __all__ = [
     "sharded_dist_q_1d",
     "sharded_packed_natgrad_step",
     "shard_packed_state",
-    "k2_launches_per_dist_q",
-    "PHASE3_RELAUNCH",
+    "K2_LAUNCHES_PER_DIST_Q",
 ]
 
-#: phase 3 of the K2 recurrences: a second launch from the boundary value
-#: (True) or the fold ``x_local + cumprod(t)·x_in`` (False)
-PHASE3_RELAUNCH = [True]
+#: K2 launches of one :func:`sharded_dist_q_1d` on every rank: two for each
+#: of the three recurrences
+K2_LAUNCHES_PER_DIST_Q = 6
 
 #: the pair planes of :class:`PackedCVIState`
 _PAIR_FIELDS = ("g_nat2s", "p_nat2s")
-
-
-def k2_launches_per_dist_q() -> int:
-    """K2 launches of one :func:`sharded_dist_q_1d` on every rank."""
-    return 6 if PHASE3_RELAUNCH[0] else 3
 
 
 def _world(group):
@@ -148,8 +142,13 @@ def _pivots(kd, b2, ks_last, holds_end: bool, group):
         kd = torch.cat([kd[:-1], (kd[-1] - b2[-1] / d_e)[None]])
         b2 = torch.cat([b2[:-1], torch.zeros_like(b2[-1:])])
     d = _riccati_d_sweep_unchecked(kd.contiguous(), b2.contiguous())
-    u_prev = ks_lasts[rank - 1, 0] / (p / q) if rank else torch.zeros_like(p)
-    return d, d_e, u_prev
+    if not rank:
+        return d, d_e, torch.zeros_like(p)
+    # the chunk's first pivot is the boundary pivot the previous rank folded
+    # in, so that u_{s−1} and covs_s hold one value of D_s (K1's own differs
+    # in the last bits, which the Girsanov gradient amplifies)
+    d_s = p / q
+    return torch.cat([d_s[None], d[1:]]), d_e, ks_lasts[rank - 1, 0] / d_s
 
 
 def _affine(ts, cs, group, reverse: bool = False):
@@ -169,19 +168,13 @@ def _affine(ts, cs, group, reverse: bool = False):
     gathered = all_gather_rows(aggs, group)
     order = range(world - 1, rank, -1) if reverse else range(rank)
     out, entering = [], []
-    for i, (t, c, x) in enumerate(zip(ts, cs, local)):
+    for i, (t, c) in enumerate(zip(ts, cs)):
         prods, ends = gathered[2 * i][:, 0], gathered[2 * i + 1][:, 0]
         x_in = torch.zeros_like(prods[0])
         for j in order:
             x_in = prods[j] * x_in + ends[j]
         entering.append(x_in)
-        if PHASE3_RELAUNCH[0]:
-            x = linear_recurrence(t, c, x_in, reverse)
-        elif reverse:
-            x = x + torch.flip(torch.cumprod(torch.flip(t, (0,)), 0), (0,)) * x_in
-        else:
-            x = x + torch.cumprod(t, 0) * x_in
-        out.append(x)
+        out.append(linear_recurrence(t, c, x_in, reverse))
     return out, entering
 
 

@@ -19,11 +19,10 @@ steps short.  The shape is a function of ``N`` alone, the same on every
 device; the kernel spreads the windows over the card's SMs itself
 (:func:`launch_shape`).
 
-The wrapper is a ``torch.autograd.Function`` whose backward is
-``_riccati_bwd`` (:164-177): the forward affine recurrence of the adjoint
-runs on K2 in float32, with ``D²`` clamped at 1e-30.  Its forward launch is
-also the custom op ``vidp_torch::riccati_d_sweep_f32``, which the wrapper
-calls (``cuda_scan.py``'s module docstring).
+The wrapper calls the custom op ``vidp_torch::riccati_d_sweep_f32``
+(``cuda_scan.py``'s module docstring), whose backward is ``_riccati_bwd``
+(:164-177): the forward affine recurrence of the adjoint runs on K2 in
+float32, with ``D²`` clamped at 1e-30.
 """
 from __future__ import annotations
 
@@ -44,7 +43,6 @@ from .cuda_scan import (
     _ptr,
     _sweep_op_setup,
     _unblockify,
-    _via_ops,
     sweep_adjoint,
 )
 
@@ -153,19 +151,10 @@ def _forward(kd: torch.Tensor, b2: torch.Tensor,
     return out
 
 
-class _RiccatiSweepF32(torch.autograd.Function):
-    """K4 with its adjoint ``_riccati_bwd``, which launches K2 (f32)."""
-
-    @staticmethod
-    def forward(ctx, kd, b2):
-        d = _forward(kd, b2)
-        ctx.save_for_backward(b2, d)
-        return d
-
-    @staticmethod
-    def backward(ctx, g):
-        b2, d = ctx.saved_tensors
-        return sweep_adjoint(b2, d, g, 1e-30)
+def _riccati_f32_backward(ctx, g):
+    """K4's adjoint ``_riccati_bwd``, which launches K2 (f32)."""
+    b2, d = ctx.saved_tensors
+    return sweep_adjoint(b2, d, g, 1e-30)
 
 
 def _riccati_d_sweep_f32_unchecked(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
@@ -173,13 +162,7 @@ def _riccati_d_sweep_f32_unchecked(kd: torch.Tensor, b2: torch.Tensor) -> torch.
     structural zero (``ops/btd.py``): ``b2[..., -1]`` is not read on the
     host, so nothing waits for the device."""
     _check_sweep("riccati_d_sweep_f32", kd, b2, torch.float32)
-    return _route(kd, b2)
-
-
-def _route(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    if _via_ops():
-        return torch.ops.vidp_torch.riccati_d_sweep_f32(kd, b2)
-    return _RiccatiSweepF32.apply(kd, b2)
+    return torch.ops.vidp_torch.riccati_d_sweep_f32(kd, b2)
 
 
 def riccati_d_sweep_f32(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
@@ -190,7 +173,7 @@ def riccati_d_sweep_f32(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     _check_sweep("riccati_d_sweep_f32", kd, b2, torch.float32)
     if not torch.compiler.is_exporting():
         _check_last_b2("riccati_d_sweep_f32", b2)
-    return _route(kd, b2)
+    return torch.ops.vidp_torch.riccati_d_sweep_f32(kd, b2)
 
 
 @torch.library.custom_op("vidp_torch::riccati_d_sweep_f32", mutates_args=())
@@ -203,7 +186,7 @@ def _(kd, b2):
     return torch.empty_like(kd)
 
 
-_riccati_f32_op.register_autograd(_RiccatiSweepF32.backward, setup_context=_sweep_op_setup)
+_riccati_f32_op.register_autograd(_riccati_f32_backward, setup_context=_sweep_op_setup)
 
 
 riccati_d_sweep_f32.launches = 0

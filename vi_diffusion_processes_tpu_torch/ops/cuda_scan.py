@@ -32,24 +32,17 @@ reach the kernels' edge cases (windows of one or two elements, empty
 trailing windows).  Each wrapper carries a plain-int ``launches`` count,
 raised by one where it launches its kernel.
 
-Each wrapper is a ``torch.autograd.Function`` with the JAX package's
-adjoint as its backward: K1's and K2's backward passes are K2 launches
-(``_ric_bwd``, ``_linrec_bwd``), and K3's is the VJP of the K1 + K2
-composition.  The same backward formulas run on the plain versions for
-CPU tensors.
-
-Each forward launch is also registered as a ``torch.library.custom_op``
+Each forward launch is registered as a ``torch.library.custom_op``
 (``vidp_torch::riccati_d_sweep``, ``::linear_recurrence``,
 ``::dist_q_1d_planes``; K4's in ``cuda_riccati.py``) with a fake
-implementation (shapes and dtypes only) and the same backward formulas, so
-that ``torch.export`` can trace a function that reaches a kernel: the
-launchers are ctypes calls on ``data_ptr()``, which fake tensors cannot
-run.  The wrappers call the ops, in eager mode too: on the flagship step
-the op costs nothing measurable against the direct launch (``PERF.md``,
-``profile_step.py --direct``), and one route serves both.
-:func:`use_ops_in_eager` switches eager calls back to the direct launch
-for that measurement; either way the same kernel launches and the same
-count rises.
+implementation (shapes and dtypes only), so that ``torch.export`` can trace
+a function that reaches a kernel: the launchers are ctypes calls on
+``data_ptr()``, which fake tensors cannot run.  The wrappers call the ops
+in eager mode too (on the flagship step the op cost nothing measurable
+against a direct launch: ``PERF.md``).  Each op's backward is the JAX
+package's adjoint: K1's and K2's are K2 launches (``_ric_bwd``,
+``_linrec_bwd``), and K3's is the VJP of the K1 + K2 composition.  The same
+backward formulas run on the plain versions for CPU tensors.
 """
 from __future__ import annotations
 
@@ -70,7 +63,6 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "launch_shape",
-    "use_ops_in_eager",
 ]
 
 #: default window count of the plain versions
@@ -347,19 +339,10 @@ def sweep_adjoint(b2: torch.Tensor, d: torch.Tensor, g: torch.Tensor, floor: flo
     return ghat, b2_bar
 
 
-class _RiccatiSweep(torch.autograd.Function):
-    """K1 with its adjoint ``_ric_bwd``, which launches K2."""
-
-    @staticmethod
-    def forward(ctx, kd, b2):
-        d = _riccati_forward(kd, b2)
-        ctx.save_for_backward(b2, d)
-        return d
-
-    @staticmethod
-    def backward(ctx, g):
-        b2, d = ctx.saved_tensors
-        return sweep_adjoint(b2, d, g, 1e-300)
+def _riccati_backward(ctx, g):
+    """K1's adjoint ``_ric_bwd``, which launches K2."""
+    b2, d = ctx.saved_tensors
+    return sweep_adjoint(b2, d, g, 1e-300)
 
 
 def _check_sweep(name: str, kd: torch.Tensor, b2: torch.Tensor, dtype: torch.dtype) -> None:
@@ -380,13 +363,7 @@ def _riccati_d_sweep_unchecked(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tens
     structural zero (``ops/btd.py``): ``b2[..., -1]`` is not read on the
     host, so nothing waits for the device."""
     _check_sweep("riccati_d_sweep", kd, b2, torch.float64)
-    return _riccati_route(kd, b2)
-
-
-def _riccati_route(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    if _via_ops():
-        return torch.ops.vidp_torch.riccati_d_sweep(kd, b2)
-    return _RiccatiSweep.apply(kd, b2)
+    return torch.ops.vidp_torch.riccati_d_sweep(kd, b2)
 
 
 def riccati_d_sweep(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
@@ -398,7 +375,7 @@ def riccati_d_sweep(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     _check_sweep("riccati_d_sweep", kd, b2, torch.float64)
     if not torch.compiler.is_exporting():
         _check_last_b2("riccati_d_sweep", b2)
-    return _riccati_route(kd, b2)
+    return torch.ops.vidp_torch.riccati_d_sweep(kd, b2)
 
 
 def _linrec_forward(t: torch.Tensor, c: torch.Tensor, x0: torch.Tensor, reverse: bool):
@@ -420,40 +397,25 @@ def _linrec_forward(t: torch.Tensor, c: torch.Tensor, x0: torch.Tensor, reverse:
     return out
 
 
-class _LinearRecurrence(torch.autograd.Function):
-    """K2 with its adjoint ``_linrec_bwd``: the transposed recurrence in the
-    opposite direction, again a K2 launch."""
-
-    @staticmethod
-    def forward(ctx, t, c, x0, reverse):
-        x0_b = torch.as_tensor(x0, dtype=t.dtype, device=t.device).expand(t.shape[:-1])
-        out = _linrec_forward(t, c, x0_b, reverse)
-        ctx.reverse = reverse
-        ctx.x0_like = (x0.shape, x0.dtype) if isinstance(x0, torch.Tensor) else None
-        ctx.save_for_backward(t, out, x0_b)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        t, x, x0 = ctx.saved_tensors
-        g = g.contiguous()
-        zero = torch.zeros_like(t[..., :1])
-        if ctx.reverse:
-            # x_k = t_k x_{k+1} + c_k:  ĝ_k = g_k + t_{k−1} ĝ_{k−1}
-            ghat = linear_recurrence(torch.cat([zero, t[..., :-1]], dim=-1), g, 0.0)
-            t_bar = ghat * torch.cat([x[..., 1:], x0[..., None]], dim=-1)
-            x0_bar = t[..., -1] * ghat[..., -1]
-        else:
-            # x_k = t_k x_{k−1} + c_k:  ĝ_k = g_k + t_{k+1} ĝ_{k+1}
-            ghat = linear_recurrence(torch.cat([t[..., 1:], zero], dim=-1), g, 0.0, True)
-            t_bar = ghat * torch.cat([x0[..., None], x[..., :-1]], dim=-1)
-            x0_bar = t[..., 0] * ghat[..., 0]
-        if ctx.needs_input_grad[2]:
-            shape, dtype = ctx.x0_like
-            x0_bar = x0_bar.sum_to_size(shape).to(dtype)  # back to x0's own shape
-        else:
-            x0_bar = None
-        return t_bar, ghat, x0_bar, None
+def _linrec_backward(ctx, g):
+    """K2's adjoint ``_linrec_bwd``: the transposed recurrence in the
+    opposite direction, again a K2 launch.  ``x0`` is the op's boundary
+    value, broadcast to the batch shape (its ``expand`` sums the gradient
+    back to the caller's shape)."""
+    t, x, x0 = ctx.saved_tensors
+    g = g.contiguous()
+    zero = torch.zeros_like(t[..., :1])
+    if ctx.reverse:
+        # x_k = t_k x_{k+1} + c_k:  ĝ_k = g_k + t_{k−1} ĝ_{k−1}
+        ghat = linear_recurrence(torch.cat([zero, t[..., :-1]], dim=-1), g, 0.0)
+        t_bar = ghat * torch.cat([x[..., 1:], x0[..., None]], dim=-1)
+        x0_bar = t[..., -1] * ghat[..., -1]
+    else:
+        # x_k = t_k x_{k−1} + c_k:  ĝ_k = g_k + t_{k+1} ĝ_{k+1}
+        ghat = linear_recurrence(torch.cat([t[..., 1:], zero], dim=-1), g, 0.0, True)
+        t_bar = ghat * torch.cat([x0[..., None], x[..., :-1]], dim=-1)
+        x0_bar = t[..., 0] * ghat[..., 0]
+    return t_bar, ghat, x0_bar if ctx.needs_input_grad[2] else None, None
 
 
 def linear_recurrence(
@@ -466,10 +428,8 @@ def linear_recurrence(
     _check("linear_recurrence", (t, c), (torch.float32, torch.float64))
     if t.shape != c.shape or t.dtype != c.dtype:
         raise ValueError("linear_recurrence: t and c differ in shape or dtype")
-    if _via_ops():
-        x0_b = torch.as_tensor(x0, dtype=t.dtype, device=t.device).expand(t.shape[:-1])
-        return torch.ops.vidp_torch.linear_recurrence(t, c, x0_b, bool(reverse))
-    return _LinearRecurrence.apply(t, c, x0, bool(reverse))
+    x0_b = torch.as_tensor(x0, dtype=t.dtype, device=t.device).expand(t.shape[:-1])
+    return torch.ops.vidp_torch.linear_recurrence(t, c, x0_b, bool(reverse))
 
 
 def _dist_q_outputs(covs, a, w, means, varis):
@@ -507,33 +467,6 @@ def _dist_q_buffers(nat1, nat2d, nat2s, out_dtype):
     return covs, a, w, means, varis
 
 
-def _dist_q_forward(nat1, nat2d, nat2s, out_dtype):
-    if nat1.device.type == "cpu":
-        return dist_q_1d_planes_plain(nat1, nat2d, nat2s, out_dtype)
-    return _dist_q_outputs(*_dist_q_buffers(nat1, nat2d, nat2s, out_dtype))
-
-
-class _DistQ(torch.autograd.Function):
-    """K3 with the backward of ``cvi_dp_packed.py::_dist_q_fused_bwd``
-    (:215-222): the VJP of the K1 + K2 composition, recomputed with
-    gradients on, so on the card it runs K1 and K2 and their adjoints."""
-
-    @staticmethod
-    def forward(ctx, nat1, nat2d, nat2s, out_dtype):
-        ctx.out_dtype = out_dtype
-        ctx.save_for_backward(nat1, nat2d, nat2s)
-        return _dist_q_forward(nat1, nat2d, nat2s, out_dtype)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        from .btd import dist_q_1d_core  # btd builds on this module
-
-        inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
-        with torch.enable_grad():
-            outs = dist_q_1d_core(*inputs, ctx.out_dtype)
-        return (*torch.autograd.grad(outs, inputs, grads, allow_unused=True), None)
-
-
 def dist_q_1d_planes(
     nat1: torch.Tensor,
     nat2d: torch.Tensor,
@@ -552,31 +485,10 @@ def dist_q_1d_planes(
         raise ValueError("dist_q_1d_planes: needs N >= 2")
     if out_dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dist_q_1d_planes: out_dtype {out_dtype}")
-    if _via_ops():
-        covs, a, w, means, varis = torch.ops.vidp_torch.dist_q_1d_planes(
-            nat1, nat2d, nat2s, out_dtype)
-        return _dist_q_outputs(covs, a, w, means, varis)
-    return _DistQ.apply(nat1, nat2d, nat2s, out_dtype)
+    return _dist_q_outputs(*torch.ops.vidp_torch.dist_q_1d_planes(nat1, nat2d, nat2s, out_dtype))
 
 
 # --------------------------------------------------------- the custom ops
-#: whether the wrappers go through the custom ops outside ``torch.export``
-_OPS_IN_EAGER = [True]
-
-
-def use_ops_in_eager(enabled: bool) -> None:
-    """Route every wrapper's eager calls through its custom op (``True``, the
-    default) or launch directly through its ``torch.autograd.Function``
-    (``False``); ``torch.export`` always traces the ops.  A measurement
-    switch: ``profile_step.py --direct`` times the flagship step without the
-    ops."""
-    _OPS_IN_EAGER[0] = bool(enabled)
-
-
-def _via_ops() -> bool:
-    return _OPS_IN_EAGER[0] or torch.compiler.is_exporting()
-
-
 def _materialize(g, like):
     return torch.zeros_like(like) if g is None else g
 
@@ -595,7 +507,7 @@ def _sweep_op_setup(ctx, inputs, output):
     ctx.save_for_backward(inputs[1], output)
 
 
-_riccati_op.register_autograd(_RiccatiSweep.backward, setup_context=_sweep_op_setup)
+_riccati_op.register_autograd(_riccati_backward, setup_context=_sweep_op_setup)
 
 
 @torch.library.custom_op("vidp_torch::linear_recurrence", mutates_args=())
@@ -614,12 +526,7 @@ def _linrec_op_setup(ctx, inputs, output):
     ctx.save_for_backward(t, output, x0)
 
 
-def _linrec_op_backward(ctx, g):
-    ctx.x0_like = (ctx.saved_tensors[2].shape, ctx.saved_tensors[2].dtype)
-    return _LinearRecurrence.backward(ctx, g)
-
-
-_linrec_op.register_autograd(_linrec_op_backward, setup_context=_linrec_op_setup)
+_linrec_op.register_autograd(_linrec_backward, setup_context=_linrec_op_setup)
 
 
 @torch.library.custom_op("vidp_torch::dist_q_1d_planes", mutates_args=())
@@ -641,15 +548,23 @@ def _dist_q_op_setup(ctx, inputs, output):
 
 
 def _dist_q_op_backward(ctx, g_covs, g_a, g_w, g_means, g_vars):
-    """The VJP of :class:`_DistQ` with the buffers' cotangents mapped onto
-    its seven outputs (``w[..., 0]`` and ``a[..., −1]`` are no output)."""
+    """K3's backward, that of ``cvi_dp_packed.py::_dist_q_fused_bwd``
+    (:215-222): the VJP of the K1 + K2 composition, recomputed with
+    gradients on, so on the card it runs K1 and K2 and their adjoints.  The
+    buffers' cotangents are mapped onto the composition's seven outputs
+    (``w[..., 0]`` and ``a[..., −1]`` are no output)."""
+    from .btd import dist_q_1d_core  # btd builds on this module
+
     like = torch.empty(ctx.saved_tensors[0].shape, dtype=ctx.out_dtype,
                        device=ctx.saved_tensors[0].device)
     g_covs, g_a, g_w, g_means, g_vars = (
         _materialize(g, like) for g in (g_covs, g_a, g_w, g_means, g_vars))
     grads = (g_a[..., :-1], g_w[..., 1:], g_covs[..., 1:], torch.zeros_like(g_means[..., 0]),
              g_covs[..., 0], g_means, g_vars)
-    return _DistQ.backward(ctx, *grads)[:3] + (None,)
+    inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+    with torch.enable_grad():
+        outs = dist_q_1d_core(*inputs, ctx.out_dtype)
+    return (*torch.autograd.grad(outs, inputs, grads, allow_unused=True), None)
 
 
 _dist_q_op.register_autograd(_dist_q_op_backward, setup_context=_dist_q_op_setup)

@@ -17,15 +17,12 @@ runs the JAX package's four multi-device checks on ``n_ranks`` ranks:
    same;
 3. **time-sharded filter and smoother** against ``filter_smoother_with_sites``;
 4. **time-sharded packed natgrad step** in float64 against the
-   single-process packed step: relative ELBO 1e-8, relative sites 1e-6, the
-   limits of ``__graft_entry__.py:284-285`` at its 8,192 points.  On finer
-   grids the single-process step itself moves by more than that: under a
-   one-ulp change of its noise variance, and when its one K3 launch is
-   replaced by its own composition of K1 and K2 (the same algebra in
-   another rounding order, as the sharded step has it; at T = 100,000 on
-   [0, 10] the ELBO by 1.8e-8 and 8.8e-9, the sites by 5.2e-8 and 3.7e-8,
-   float64, CPU).  Each limit is then four times the larger of the two
-   changes that the same run measures, never less than the fixed one.
+   single-process packed step run through the same algebra, the K1 + K2
+   composition of ``ops/btd.py::dist_q_1d_core``: relative ELBO 1e-8,
+   relative sites 1e-6, the limits of ``__graft_entry__.py:284-285``.  Its
+   difference from the single-process step through K3 (the JAX dry run's
+   reference) is recorded beside it, with whether it meets the same limits,
+   and is not part of the check.
 
 NCCL serves ranks that each have a card of their own; it refuses two ranks
 on one card, which then share it over gloo.
@@ -43,7 +40,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-__all__ = ["run_ranks", "default_backend", "flagship_model", "dryrun_multichip"]
+__all__ = ["run_ranks", "default_backend", "flagship_model", "dryrun_multichip", "failed_checks",
+           "sharded_step_records"]
 
 #: the limits of __graft_entry__.py:284-285 and of the time-sharded smoother
 #: (docs/examples/time_sharded_smoothing.py:50)
@@ -227,10 +225,10 @@ def _check_smoother(rank, world, device, t_size):
 
 def _check_sharded_step(rank, world, device, t_size, lr=0.5):
     """Check 4: the time-sharded packed natgrad step in float64."""
-    from ..models import cvi_dp_packed as packed
     from ..models.cvi_dp_packed import pack_state, packed_natgrad_step
     from ..models.cvi_dp_sharded import shard_packed_state, sharded_packed_natgrad_step
-    from ..ops import btd, cuda_scan
+    from ..ops import cuda_scan
+    from ..ops.btd import dist_q_1d, dist_q_1d_core
     from .sharded import gather_time
 
     model = flagship_model(t_size, torch.float64, device)
@@ -243,41 +241,26 @@ def _check_sharded_step(rank, world, device, t_size, lr=0.5):
     elbo = float(elbo)
     seconds = time.perf_counter() - t0
     launches = cuda_scan.launch_counts()
-    ref, ref_elbo = packed_natgrad_step(model, state, lr)
-    # the single-process step with K3 replaced by its composition
-    packed.dist_q_1d = btd.dist_q_1d_core
-    try:
-        comp, comp_elbo = packed_natgrad_step(model, state, lr)
-    finally:
-        packed.dist_q_1d = btd.dist_q_1d
-    # the single-process step after a one-ulp change of the noise variance
-    variance = model.likelihood.variance
-    with torch.no_grad():
-        variance.copy_(torch.nextafter(variance, torch.full_like(variance, float("inf"))))
-    ulp, ulp_elbo = packed_natgrad_step(model, state, lr)
+    sites = {name: gather_time(getattr(mine, name), t_size, pairs=name == "g_nat2s")
+             for name in ("g_nat1", "g_nat2d", "g_nat2s", "fx_mu", "fx_var")}
 
-    def errors(other, other_elbo, gathered):
-        err_elbo = abs(float(other_elbo) - float(ref_elbo)) / max(1.0, abs(float(ref_elbo)))
-        err_sites = max(_rel(gathered(getattr(other, name), name), getattr(ref, name))
-                        for name in ("g_nat1", "g_nat2d", "g_nat2s", "fx_mu", "fx_var"))
-        return err_elbo, err_sites
+    def errors(chain):
+        ref, ref_elbo = packed_natgrad_step(model, state, lr, dist_q=chain)
+        err_elbo = abs(elbo - float(ref_elbo)) / max(1.0, abs(float(ref_elbo)))
+        err_sites = max(_rel(x, getattr(ref, name)) for name, x in sites.items())
+        return float(ref_elbo), err_elbo, err_sites
 
-    err_elbo, err_sites = errors(mine, elbo, lambda x, name: gather_time(
-        x, t_size, pairs=name == "g_nat2s"))
-    ulp_elbo_change, ulp_sites_change = errors(ulp, ulp_elbo, lambda x, name: x)
-    comp_elbo_change, comp_sites_change = errors(comp, comp_elbo, lambda x, name: x)
-    limit_elbo = max(ELBO_RTOL, 4 * max(ulp_elbo_change, comp_elbo_change))
-    limit_sites = max(SITES_RTOL, 4 * max(ulp_sites_change, comp_sites_change))
-    return {"elbo": elbo, "ref_elbo": float(ref_elbo), "err_elbo": err_elbo,
-            "err_sites": err_sites, "one_ulp_elbo": ulp_elbo_change,
-            "one_ulp_sites": ulp_sites_change, "composition_elbo": comp_elbo_change,
-            "composition_sites": comp_sites_change, "limit_elbo": limit_elbo,
-            "limit_sites": limit_sites,
-            "ok": err_elbo <= limit_elbo and err_sites <= limit_sites,
+    ref_elbo, err_elbo, err_sites = errors(dist_q_1d_core)
+    k3_elbo, k3_err_elbo, k3_err_sites = errors(dist_q_1d)
+    return {"elbo": elbo, "ref_elbo": ref_elbo, "err_elbo": err_elbo, "err_sites": err_sites,
+            "ok": err_elbo <= ELBO_RTOL and err_sites <= SITES_RTOL,
+            "k3_elbo": k3_elbo, "k3_err_elbo": k3_err_elbo, "k3_err_sites": k3_err_sites,
+            "k3_within_limits": k3_err_elbo <= ELBO_RTOL and k3_err_sites <= SITES_RTOL,
             "seconds": seconds, "launches": launches}
 
 
 def _dryrun_rank(rank, world, device, batch, t_batched, t_sharded, t_smoother):
+    """The four checks on this rank of a group that is already up."""
     from ..config import resolve_device
 
     dev = resolve_device(device)
@@ -289,6 +272,35 @@ def _dryrun_rank(rank, world, device, batch, t_batched, t_sharded, t_smoother):
         "smoother": _check_smoother(rank, world, dev, t_smoother),
         "sharded_step": _check_sharded_step(rank, world, dev, t_sharded),
     }
+
+
+def sharded_step_records(n_ranks: int, device=None, *, t_sharded: int, backend: str = None,
+                         timeout: float = 600.0) -> List[dict]:
+    """Check 4 alone on ``n_ranks`` ranks at ``t_sharded`` points: every
+    rank's record (errors, whether they are within the limits as ``ok``,
+    seconds and launches), without raising."""
+    from ..config import resolve_device
+
+    device = str(resolve_device(device))
+    return run_ranks(_check_sharded_step_on, n_ranks, device, t_sharded,
+                     backend=backend or default_backend(device, n_ranks), device=device,
+                     timeout=timeout)
+
+
+def _check_sharded_step_on(rank, world, device, t_size):
+    from ..config import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _check_sharded_step(rank, world, dev, t_size)
+
+
+def failed_checks(results: List[dict]) -> List[str]:
+    """The checks that failed, as ``"rank r: check"``, of every rank's
+    records."""
+    return sorted({f"rank {r}: {name}" for r, res in enumerate(results)
+                   for name, rec in res.items() if not rec["ok"]})
 
 
 def dryrun_multichip(n_ranks: int, device=None, *, batch: int = 4, t_batched: int = 64,
@@ -304,8 +316,7 @@ def dryrun_multichip(n_ranks: int, device=None, *, batch: int = 4, t_batched: in
     backend = backend or default_backend(device, n_ranks)
     results = run_ranks(_dryrun_rank, n_ranks, device, batch, t_batched, t_sharded, t_smoother,
                         backend=backend, device=device, timeout=timeout)
-    failed = sorted({f"rank {r}: {name}" for r, res in enumerate(results)
-                     for name, rec in res.items() if not rec["ok"]})
+    failed = failed_checks(results)
     if failed:
         raise AssertionError(f"dryrun_multichip on {n_ranks} ranks ({backend}): {failed}: "
                              f"{results}")
