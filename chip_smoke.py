@@ -2,8 +2,9 @@
 exact-GPR path (any state dimension), its non-conjugate CVI (generic,
 packed and sparse), its spatio-temporal CVI, its remaining variational
 models (natural gradients, VGP, SVGP, composite kernels, PEP, sparse PEP,
-IWVI), its experiment harness (CLI, runners, checkpoint, serving, tracing)
-and its time-sharded CVI-DP (``torch.distributed``) on one CUDA card.
+IWVI), its 14 documentation examples, its experiment harness (CLI,
+runners, checkpoint, serving, tracing) and its time-sharded CVI-DP
+(``torch.distributed``) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -113,30 +114,38 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     (Matern12, float64): one γ = 1 ``natgrad_step`` is exact inference, its
     ELBO the GPR log-likelihood (1e-8) and its marginals the GPR posterior's
     (``NATGRAD_MARGINALS_RTOL``); K1 and K2 must launch;
-27. models H: the stacked-kernel and factor-analysis SVGPs with natural
-    gradients, the multi-stage VGP, PEP, sparse PEP (d = 3, and d = 1, which
-    must launch K1) and IWVI (40 DREGS Adam steps on draws made once) at
-    their ``docs/examples`` configurations, float64, card against CPU
-    (1e-9; the multi-stage VGP ``MODELS_H_RTOL``);
-28. harness: the CLI's ``generate_data`` and ``run_cvi_dp`` at the
+27. examples: the 14 documentation examples of the port
+    (``vi_diffusion_processes_tpu_torch/examples``, docs/examples/ in the
+    JAX package) at their own sizes, each ``run`` on the card, then on the
+    CPU on the card's draws (IWVI on numpy's normals on both): card against
+    CPU to each module's limits (one step 1e-8, iterated 1e-6, its
+    ``RTOLS``), the JAX script's assertions on the card's numbers, card
+    seconds and K1-K4 launches per example; ``cvi_dp_double_well`` must
+    launch K3, ``vdp_inference`` K2 and ``natgrad_vgp`` K1 and K2;
+28. models H: the stacked-kernel and factor-analysis SVGPs with natural
+    gradients, the multi-stage VGP, PEP, sparse PEP and IWVI (40 DREGS
+    Adam steps) from phase 27's runs, and sparse PEP at d = 1, which runs
+    here and must launch K1, float64, card against CPU (1e-9; the
+    multi-stage VGP ``MODELS_H_RTOL``);
+29. harness: the CLI's ``generate_data`` and ``run_cvi_dp`` at the
     flagship's grid and density (T = 100,000 on [0, 10], 200 observations,
     q 0.8, noise 0.2), on the card by default: K3 exactly twice per packed
     step and once per ``packed_elbo``, K1 and K2 in the re-linearizations and
     marginals; one JSONL record per ELBO plus the summary; the npz files, and
     whether the PNGs were written (matplotlib);
-29. runners: ``run_vdp`` and ``run_sgpr`` on the npz dataset of the default
+30. runners: ``run_vdp`` and ``run_sgpr`` on the npz dataset of the default
     seed and ``run_gpr`` on that of seed 7 (ROADMAP Queue 3) at T = 2,000,
     float64, card against CPU (1e-9; 1e-6 for the Adam runners);
-30. checkpoint: phase 28's trained model saved and restored on the card:
+31. checkpoint: phase 29's trained model saved and restored on the card:
     ELBO and marginals equal the live model to 1e-12;
-31. serving: ``predict_f`` of a Matern12 GPR on ``gpr_loglik_grad_100k``'s
+32. serving: ``predict_f`` of a Matern12 GPR on ``gpr_loglik_grad_100k``'s
     100,000 points exported at 1,000 new times, loaded and run: K2 twice
     inside the loaded program, outputs equal to the eager call (1e-12),
     host ms of both;
-32. tracing: ``trace_to`` around two flagship packed steps in an
+33. tracing: ``trace_to`` around two flagship packed steps in an
     ``annotate``d region: the Chrome trace names ``dist_q_kernel`` and the
     region, and K3 launches 4 times;
-33. sharded: ``dryrun_multichip`` on two gloo ranks sharing the card, then
+34. sharded: ``dryrun_multichip`` on two gloo ranks sharing the card, then
     one NCCL rank: the time-sharded packed step in float64 at T = 8,192
     against the unsharded step through the same K1 + K2 composition (ELBO
     1e-8, sites 1e-6, ``parallel/dryrun.py``); at T = 100,000 the sites to
@@ -146,15 +155,18 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     the time-sharded Matern32 filter and smoother at N = 100,000 (1e-8), and
     the data-parallel batched step and trainer iteration on 4 flagship
     models at T = 10,000; seconds of each;
-34. reference: on small float64 inputs the packed step, the prior gradient,
+35. reference: on small float64 inputs the packed step, the prior gradient,
     the batched step (B = 3, T = 300) and three VDP steps (T = 500) on the
     card against the same on the CPU.
 
-Launch counts are set to 0 just before each of phases 5-22 and 24-33 and
-read just after (phase 33's on each rank, around its sharded step).  The second-to-last line is a JSON object with each kernel's
+Launch counts are set to 0 just before each of phases 5-22 and 24-34 and
+read just after (phase 34's on each rank, around its sharded step).  The second-to-last line is a JSON object with each kernel's
 launches in those phases, its max error, times (host clock ``ms``, device
 ``device_ms``) and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Whether it passes or fails, the script then stops and reaps every process it
+started that is still there (the ranks' ``multiprocessing`` resource tracker,
+any child or orphan of a child), naming each on stderr.
 """
 import contextlib
 import json
@@ -208,18 +220,26 @@ SPATIO_PACKED_RTOL = 1e-9
 #: the natgrad VGP of docs/examples/natgrad_vgp.py at full size, and the limit
 #: of its marginals against exact GPR.  Its 100,000 sorted uniform times leave
 #: a smallest gap of 2.4e-9, and the natural-parameter route solves for the
-#: marginals in precision form (entries up to 1/Q ≈ 1e8): a one-ulp change of
-#: the lengthscale moves its marginals by 5.1e-8 of their scale on the CPU,
-#: the GPR route's by 3.8e-16, and on an H100 they met the GPR's to 1.8e-8
-#: (4.0e-8 on the CPU); the limit is four one-ulp changes.  The ELBO is held
-#: to 1e-8
-N_NATGRAD, NATGRAD_MARGINALS_RTOL = 100_000, 2e-7
+#: marginals in precision form (entries up to 1/Q ≈ 1e8), where the pivot
+#: sweep cancels them.  The sweep (K1, and its plain version on the CPU)
+#: takes its Möbius products in sequential order, so the marginals meet the
+#: GPR's to 7.4e-11 and 9.24e-9 on an H100 (5.6e-11 and 9.2e-9 on the CPU; a
+#: one-ulp change of the lengthscale moves them 4.6e-13:
+#: python -m tests.port.natgrad_exactness), as the JAX package's do (6.6e-11
+#: and 9.3e-9).  The ELBO is held to 1e-8
+N_NATGRAD, NATGRAD_MARGINALS_RTOL = 100_000, 1e-8
 #: slice-H examples held to a limit other than CARD_RTOL, card against CPU:
 #: the multi-stage VGP's 80 sorted uniform times leave a gap of 3.2e-4 and
 #: Matern32 naturals of 6e9; a one-ulp change of one lengthscale moves its
 #: 25-step outputs by 1.8e-6 of their scale on the CPU
 MODELS_H_RTOL = {"multistage_vgp": 1e-5}
 REPS = 20
+#: the profiler's names of the kernels (csrc/): K1 and K4 are the windowed
+#: sweep in float64 and float32; K3 is the sweep on the naturals, then
+#: dist_q_kernel
+K1_KERNEL = ("sweep_kernel<double", "KdB2")
+K4_KERNEL = "sweep_kernel<float"
+K3_KERNELS = [("sweep_kernel<double", "Naturals"), "dist_q_kernel"]
 #: the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 #: bytes/s, and FLOP/s outside the tensor cores in float64 and float32
 PEAK_BYTES = 3.35e12
@@ -242,19 +262,28 @@ def median_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, wrapper: str, calls: int = REPS, tries: int = 3) -> float:
-    """Device time per launch of the CUDA kernel whose name contains
-    ``kernel``, over ``calls`` calls of ``fn`` after one warm-up, read with
-    ``torch.profiler``.
+def _kernel_matches(key: str, spec) -> bool:
+    """A kernel name ``spec``: a substring of the profiler's key, or a tuple
+    of substrings that must all be in it."""
+    return spec in key if isinstance(spec, str) else all(part in key for part in spec)
+
+
+def device_ms(fn, kernel, wrapper: str, calls: int = REPS, tries: int = 3) -> float:
+    """Device time per call of the CUDA kernels that one call of ``fn``
+    launches once each, over ``calls`` calls after one warm-up, read with
+    ``torch.profiler``.  ``kernel`` names one kernel (see
+    :func:`_kernel_matches`) or is a list of such names, whose times add up.
 
     Fails unless the launch count of ``wrapper`` (``cuda_scan.launch_counts``)
     rises by exactly ``calls``, one launch a call, or if the profiler records
-    more launches of ``kernel`` than were made. The profiler's CUPTI records
-    may lose launches: the time is then the mean over the launches recorded,
+    more launches of the kernels than were made. The profiler's CUPTI records
+    may lose launches: the time is then taken from the launches recorded,
     from the best of ``tries`` profiles, and if none records any, the device
     time of a whole call between CUDA events."""
     from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
+    specs = kernel if isinstance(kernel, list) else [kernel]
+    expected = calls * len(specs)
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -269,18 +298,19 @@ def device_ms(fn, kernel: str, wrapper: str, calls: int = REPS, tries: int = 3) 
         if made != calls:
             raise AssertionError(f"{wrapper}: {made} launches in {calls} calls, expected one each")
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and any(_kernel_matches(e.key, spec) for spec in specs)]
         n = sum(e.count for e in events)
-        if n > calls:
+        if n > expected:
             raise AssertionError(f"{kernel}: the profiler recorded {n} launches in {calls} calls")
         if n > recorded:
             recorded, total_us = n, sum(e.self_device_time_total for e in events)
-        if recorded == calls:
-            return total_us / 1e3 / recorded
+        if recorded == expected:
+            return total_us / 1e3 / calls
     if recorded:
-        log(f"[profiler] {kernel}: {recorded} of {calls} launches recorded at best in {tries} "
+        log(f"[profiler] {kernel}: {recorded} of {expected} launches recorded at best in {tries} "
             f"profiles; device time is their mean")
-        return total_us / 1e3 / recorded
+        return total_us / 1e3 / recorded * len(specs)
     log(f"[profiler] {kernel}: no launch recorded in {tries} profiles; device time per call "
         f"between CUDA events instead")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -409,8 +439,8 @@ def phase_kernels(dev) -> dict:
         "riccati_d_sweep_f32": {"err": 0.0, "bound": bound_ms(3 * 4 * n, 2 * n, f32)},
     }
     # the main sizes, then the edges of the tiling and the windows: N = 2, a
-    # last tile (K1-K3) or window (K4) one element long, a batch of 8, and
-    # for the sweeps N = 1, where D = kd
+    # last tile (K2, K3) or window (K1, K3, K4) one element long, a batch of
+    # 8, and for the sweeps N = 1, where D = kd
     ragged = 195 * cs.TILE + 1
     ragged_window = next(m for m in range(T_FLAGSHIP, 0, -1)
                          if (m - 1) % window_shape(m)[1] == 0)
@@ -443,12 +473,12 @@ def phase_kernels(dev) -> dict:
             kd, b2, kd4, b24 = kd[0], b2[0], kd4[0], b24[0]
             rec["ms"] = median_ms(lambda: riccati_d_sweep_f32(kd4, b24))
             rec["device_ms"] = device_ms(lambda: riccati_d_sweep_f32(kd4, b24),
-                                         "riccati_f32_kernel", "riccati_d_sweep_f32")
+                                         K4_KERNEL, "riccati_d_sweep_f32")
             rec["plain_ms"] = median_ms(lambda: riccati_d_sweep_f32_plain(kd4, b24))
             rec = result["riccati_d_sweep"]
             rec["ms"] = median_ms(lambda: cs.riccati_d_sweep(kd, b2))
             rec["device_ms"] = device_ms(lambda: cs.riccati_d_sweep(kd, b2),
-                                         "riccati_kernel", "riccati_d_sweep")
+                                         K1_KERNEL, "riccati_d_sweep")
             rec["plain_ms"] = median_ms(lambda: cs.riccati_d_sweep_plain(kd, b2))
     # K4 on the parabolic case, where float32 is at its limit: kernel and
     # plain version against the float64 sequential recursion to rtol 2e-3,
@@ -494,7 +524,7 @@ def phase_kernels(dev) -> dict:
                         rec["plain_ms"] = median_ms(
                             lambda: cs.linear_recurrence_plain(tt1, cc1, 0.7))
     names = ("a", "b", "qv", "mu0", "p0v", "means", "vars")
-    for n, batch in cases:
+    for n, batch in cases + [(ragged_window, 1)]:
         rows = [_inputs(n, 1 + r)[4:] for r in range(batch)]
         nat1, nat2d, nat2s = (torch.tensor(np.stack(x), device=dev) for x in zip(*rows))
         for out_dtype in (torch.float32, torch.float64):
@@ -516,25 +546,31 @@ def phase_kernels(dev) -> dict:
             rec = result["dist_q_1d_planes"]
             rec["ms"] = median_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s))
             rec["device_ms"] = device_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s),
-                                         "dist_q_kernel", "dist_q_1d_planes")
+                                         K3_KERNELS, "dist_q_1d_planes")
             rec["plain_ms"] = median_ms(lambda: cs.dist_q_1d_planes_plain(nat1, nat2d, nat2s))
     _interior_zeros(dev, result)
-    for name, dtype in (("riccati_d_sweep", torch.float64), ("linear_recurrence", torch.float64),
-                        ("linear_recurrence", torch.float32), ("dist_q_1d_planes", torch.float32)):
+    for name, dtype in (("linear_recurrence", torch.float64), ("linear_recurrence", torch.float32),
+                        ("dist_q_1d_planes", torch.float32)):
         shape = cs.launch_shape(name, dtype, 1, T_FLAGSHIP, dev)
         log(f"[launch] {name} ({str(dtype)[6:]}) batch 1 T={T_FLAGSHIP}: grid {shape['grid']}, "
             f"{shape['blocks_per_sequence']} blocks per sequence, {shape['threads_per_block']} "
             f"threads per block, tiles of {shape['tile']} elements")
         if not (shape["grid"] > 1 and shape["blocks_per_sequence"] > 1):
             raise AssertionError(f"{name} runs one sequence on one block")
-    shape = cuda_riccati.launch_shape(1, T_FLAGSHIP, dev)
-    log(f"[launch] riccati_d_sweep_f32 (float32) batch 1 T={T_FLAGSHIP}: grid {shape['grid']}, "
-        f"{shape['blocks_per_sequence']} blocks per sequence, {shape['threads_per_block']} "
-        f"threads per block, {shape['windows']} windows of {shape['window_length']} elements, "
-        f"{shape['windows_per_block']} a block in chunks of {shape['windows_per_chunk']}, "
-        f"{shape['shared_memory_bytes']} bytes of dynamic shared memory")
-    if not (shape["grid"] > 1 and shape["blocks_per_sequence"] > 1):
-        raise AssertionError("riccati_d_sweep_f32 runs one sequence on one block")
+    # the windowed sweeps: K1, K3's first launch, K4
+    for name, dtype, shape in (
+            ("riccati_d_sweep", "float64", cs.launch_shape("riccati_d_sweep", torch.float64, 1,
+                                                          T_FLAGSHIP, dev)),
+            ("dist_q_1d_planes sweep", "float64",
+             cs.launch_shape("dist_q_1d_planes", torch.float32, 1, T_FLAGSHIP, dev)["sweep"]),
+            ("riccati_d_sweep_f32", "float32", cuda_riccati.launch_shape(1, T_FLAGSHIP, dev))):
+        log(f"[launch] {name} ({dtype}) batch 1 T={T_FLAGSHIP}: grid {shape['grid']}, "
+            f"{shape['blocks_per_sequence']} blocks per sequence, {shape['threads_per_block']} "
+            f"threads per block, {shape['windows']} windows of {shape['window_length']} elements, "
+            f"{shape['windows_per_block']} a block in chunks of {shape['windows_per_chunk']}, "
+            f"{shape['shared_memory_bytes']} bytes of dynamic shared memory")
+        if not (shape["grid"] > 1 and shape["blocks_per_sequence"] > 1):
+            raise AssertionError(f"{name} runs one sequence on one block")
     for name, rec in result.items():
         log(f"[kernels] {name} T={T_FLAGSHIP}: kernel {rec['ms']:.4f} ms host clock, "
             f"{rec['device_ms']:.5f} ms device per launch, plain {rec['plain_ms']:.4f} ms "
@@ -2029,37 +2065,21 @@ def phase_spatio_reference(dev) -> None:
         raise AssertionError("the float32 packed spatio step is not finite")
 
 
-def natgrad_vgp_model(n: int, dev):
-    """docs/examples/natgrad_vgp.py:19-25 at ``n`` points on [0, 100]:
-    Matern12(0.7, 1), Gaussian(0.04), y = sin 2t + 0.2·N(0, 1) from
-    ``default_rng(7)``, float64."""
-    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12
-    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
-    from vi_diffusion_processes_tpu_torch.models.variational import VariationalGaussianProcess
-
-    rng = np.random.default_rng(7)
-    t = np.sort(rng.uniform(0, 100.0, n))
-    y = np.sin(2 * t)[:, None] + 0.2 * rng.normal(size=(n, 1))
-    t, y = _on((t, y), dev)
-    kernel = Matern12(lengthscale=0.7, variance=1.0).to(dev)
-    return VariationalGaussianProcess.initialize(kernel, Gaussian(0.04).to(dev), t, y)
-
-
 def phase_natgrad_vgp(dev, card: str) -> dict:
     """One γ = 1 ``natgrad_step`` on the natgrad VGP at N = 100,000: exact
     inference, so its ELBO equals ``GaussianProcessRegression``'s log
     marginal likelihood and its marginals the GPR posterior's (1e-8)."""
-    from vi_diffusion_processes_tpu_torch.models.gpr import GaussianProcessRegression
+    from vi_diffusion_processes_tpu_torch.examples.natgrad_vgp import exact_gpr, vgp_model
     from vi_diffusion_processes_tpu_torch.optim.natgrad import natgrad_step
 
-    vgp = natgrad_vgp_model(N_NATGRAD, dev)
+    # docs/examples/natgrad_vgp.py at N_NATGRAD points on [0, 100]
+    vgp = vgp_model(dev, N_NATGRAD, t1=100.0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     q1, _, loss0 = natgrad_step(vgp.loss, vgp.dist_q, gamma=1.0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    gpr = GaussianProcessRegression(vgp.kernel, vgp.time_points, vgp.observations,
-                                    torch.tensor([[0.2]], dtype=torch.float64, device=dev))
+    gpr = exact_gpr(vgp)
     with torch.no_grad():
         elbo, loglik = float(vgp.elbo(q1)), float(gpr.log_likelihood())
         means, covs = q1.marginals()
@@ -2077,188 +2097,48 @@ def phase_natgrad_vgp(dev, card: str) -> dict:
     return rec
 
 
-@contextlib.contextmanager
-def _fed_normals(draws):
-    """``torch.randn`` replaced, inside the block, by the next of ``draws``
-    (CPU tensors) moved to the requested device and dtype: the same draws on
-    the card and on the CPU."""
-    queue, real = list(draws), torch.randn
-
-    def randn(*size, generator=None, dtype=None, device=None, **_):
-        shape = tuple(size[0]) if len(size) == 1 and not isinstance(size[0], int) else size
-        out = queue.pop(0)
-        if tuple(out.shape) != tuple(shape):
-            raise AssertionError(f"fed draw of shape {tuple(out.shape)} where {shape} was asked")
-        return out.to(dtype=dtype, device=device)
-
-    torch.randn = randn
-    try:
-        yield
-    finally:
-        torch.randn = real
+#: the slice-H examples that phase_models_h holds card against CPU to
+#: CARD_RTOL (or MODELS_H_RTOL): its name → (example module, outputs)
+MODELS_H = {
+    "stacked_svgp": ("stacked_kernels", ("losses", "f_mu", "f_var")),
+    "factor_analysis_svgp": ("factor_analysis", ("losses", "f_mu", "f_var")),
+    "multistage_vgp": ("multistage_demand", ("losses", "f_mu", "f_var")),
+    "pep": ("pep_classification", ("nat1", "nat2", "site_log_norm", "elbo", "f_mu", "f_var")),
+    "sparse_pep": ("sparse_pep_classification", ("nat1", "nat2", "log_norm", "e1", "energy")),
+    "iwvi": ("iwvi_importance_weighted", ("iw_draws", "q/initial_mean",
+                                          "q/chol_initial_covariance", "q/state_transitions",
+                                          "q/state_offsets", "q/chol_process_covariances")),
+}
 
 
-def _models_h_outputs(device) -> dict:
-    """The slice-H examples of docs/examples at their configurations and
-    numbers of steps, float64, on ``device``: name → (outputs, launches of
-    K1 and K2 on the card)."""
-    from vi_diffusion_processes_tpu_torch.kernels import composite
-    from vi_diffusion_processes_tpu_torch.kernels.base import IndependentMultiOutput
-    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12, Matern32, Matern52
-    from vi_diffusion_processes_tpu_torch.likelihoods.discrete import Bernoulli
-    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
-    from vi_diffusion_processes_tpu_torch.likelihoods.multistage import MultiStageLikelihood
-    from vi_diffusion_processes_tpu_torch.likelihoods.pep import PEPScalarLikelihood
-    from vi_diffusion_processes_tpu_torch.models.iwvi import ImportanceWeightedVI
-    from vi_diffusion_processes_tpu_torch.models.pep import PowerExpectationPropagation
-    from vi_diffusion_processes_tpu_torch.models.sparse_pep import SparsePowerExpectationPropagation
-    from vi_diffusion_processes_tpu_torch.models.svgp import SparseVariationalGaussianProcess
-    from vi_diffusion_processes_tpu_torch.models.variational import VariationalGaussianProcess
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
-    from vi_diffusion_processes_tpu_torch.optim.natgrad import natgrad_init, natgrad_step
-    from vi_diffusion_processes_tpu_torch.ssm.state_space_model import StateSpaceModel
-
-    f64 = torch.float64
-    out = {}
-
-    def run(name, fn):
-        before = cs.launch_counts()
-        values = fn()
-        after = cs.launch_counts()
-        out[name] = ([v.detach() for v in values],
-                     {k: after[k] - before[k] for k in ("riccati_d_sweep", "linear_recurrence")})
-
-    def natgrad_svgp(kernel, z, t, y, steps):
-        model = SparseVariationalGaussianProcess.initialize(kernel, Gaussian(0.01).to(device), z)
-        q, losses = model.dist_q, []
-        for _ in range(steps):
-            q, _, loss = natgrad_step(lambda qq: model.replace(dist_q=qq).loss((t, y)), q,
-                                      gamma=0.5)
-            losses.append(loss)
-        with torch.no_grad():
-            f_mu, f_var = model.replace(dist_q=q).posterior.predict_f(t)
-        return [torch.stack(losses), f_mu, f_var]
-
-    def stacked():  # docs/examples/stacked_kernels.py
-        rng = np.random.default_rng(13)
-        t = np.sort(rng.uniform(0, 4, 80))
-        y = np.stack([np.sin(2 * t), np.cos(t) * t / 2.0], -1) + 0.1 * rng.normal(size=(80, 2))
-        kernel = composite.IndependentMultiOutputStack(
-            [Matern12(0.6, 1.0), Matern32(1.0, 1.0)]).to(device)
-        return natgrad_svgp(kernel, torch.linspace(0, 4, 25, dtype=f64, device=device),
-                            *_on((t, y), device), 10)
-
-    def weights(t):
-        a = torch.stack([torch.ones_like(t), 0.5 * torch.sin(t), 0.3 * t / 6.0,
-                         torch.ones_like(t), torch.cos(t), -0.5 * torch.ones_like(t)], dim=-1)
-        return a.reshape(t.shape + (3, 2))
-
-    def factor_analysis():  # docs/examples/factor_analysis.py
-        rng = np.random.default_rng(11)
-        t = np.sort(rng.uniform(0, 6, size=120))
-        g = np.stack([np.sin(t), np.cos(3.0 * t)], axis=-1)
-        f = np.einsum("nom,nm->no", weights(torch.tensor(t)).numpy(), g)
-        y = f + 0.1 * rng.normal(size=(120, 3))
-        kernel = composite.FactorAnalysisKernel.create(
-            weights, [Matern32(1.5, 1.0), Matern12(0.4, 1.0)], 3).to(device)
-        return natgrad_svgp(kernel, torch.linspace(0, 6, 40, dtype=f64, device=device),
-                            *_on((t, y), device), 15)
-
-    def multistage():  # docs/examples/multistage_demand.py; counts drawn once, on the CPU
-        t = torch.tensor(np.sort(np.random.default_rng(11).uniform(0, 5, 80)))
-        lik = MultiStageLikelihood()
-        f_true = torch.stack([torch.sin(1.5 * t), torch.cos(2.0 * t), 0.3 * t - 0.5], dim=-1)
-        y = lik.sample_y(f_true, torch.Generator().manual_seed(11))
-        kernel = IndependentMultiOutput([Matern32(1.0, 1.0) for _ in range(3)]).to(device)
-        vgp = VariationalGaussianProcess.initialize(kernel, lik, t.to(device), y.to(device))
-        q, state, losses = vgp.dist_q, natgrad_init(vgp.dist_q), []
-        for _ in range(25):
-            q, state, loss = natgrad_step(vgp.loss, q, gamma=0.2, state=state)
-            losses.append(loss)
-        with torch.no_grad():
-            f_mu, f_var = vgp.replace(dist_q=q).posterior.predict_f(vgp.time_points)
-        return [torch.stack(losses), f_mu, f_var]
-
-    def pep():  # docs/examples/pep_classification.py
-        rng = np.random.default_rng(3)
-        t = np.sort(rng.uniform(0, 6, size=100))
-        y = (rng.uniform(size=100) < 1.0 / (1.0 + np.exp(-4.0 * np.sin(1.5 * t))))
-        t, y = _on((t, y.astype(float)[:, None]), device)
-        model = PowerExpectationPropagation.initialize(
-            Matern52(1.0, 4.0).to(device), PEPScalarLikelihood(Bernoulli()), t, y,
-            alpha=0.9, learning_rate=0.5)
-        for _ in range(20):
-            model = model.update_sites()
-        with torch.no_grad():
-            return [model.sites.nat1, model.sites.nat2, model.site_log_norm, model.elbo(),
-                    *model.posterior.predict_f(t)]
-
-    def sparse_pep(kernel):  # docs/examples/sparse_pep_classification.py
-        rng = np.random.default_rng(0)
-        t = np.linspace(0.0, 1.0, 120)
-        y = ((np.cos(t * 20.0) + rng.normal(size=120)) > 0).astype(float)[:, None]
-        data = _on((t, y), device)
-        model = SparsePowerExpectationPropagation.initialize(
-            kernel.to(device), PEPScalarLikelihood(Bernoulli()),
-            torch.linspace(0.0, 1.0, 25, dtype=f64, device=device), alpha=1.0, learning_rate=0.5)
-        for _ in range(15):
-            model = model.update_sites(data)
-        with torch.no_grad():
-            return [model.nat1, model.nat2, model.log_norm, model.classic_elbo(data),
-                    model.energy(data)]
-
-    def iwvi():  # docs/examples/iwvi_importance_weighted.py, on draws made once
-        rng = np.random.default_rng(2)
-        t = np.sort(rng.uniform(0, 4, 40))
-        data = _on((t, (np.sin(2 * t) + 0.3 * rng.normal(size=40))[:, None]), device)
-        model = ImportanceWeightedVI.initialize(
-            Matern32(0.8, 1.2).to(device), Gaussian(0.1).to(device),
-            torch.linspace(0, 4, 12, dtype=f64, device=device), num_importance_samples=32)
-        q = model.dist_q
-        leaves = {k: getattr(q, k).detach().clone().requires_grad_()
-                  for k in ("initial_mean", "chol_initial_covariance", "state_transitions",
-                            "state_offsets", "chol_process_covariances")}
-        model = model.replace(dist_q=StateSpaceModel(**leaves))
-        opt = torch.optim.Adam(list(leaves.values()), lr=0.02)
-        with _fed_normals(_iwvi_draws(56)):
-            for _ in range(40):
-                opt.zero_grad()
-                (-model.dregs_objective(data)).backward()
-                opt.step()
-            with torch.no_grad():
-                elbos = torch.stack([model.elbo(data) for _ in range(16)])
-        return [elbos, *(v.detach() for v in leaves.values())]
-
-    run("stacked_svgp", stacked)
-    run("factor_analysis_svgp", factor_analysis)
-    run("multistage_vgp", multistage)
-    run("pep", pep)
-    run("sparse_pep", lambda: sparse_pep(Matern52(0.08, 1.0)))
-    run("sparse_pep_d1", lambda: sparse_pep(Matern12(0.15, 1.0)))
-    run("iwvi", iwvi)
-    return out
-
-
-def _iwvi_draws(sets: int, k: int = 32, m: int = 12, n: int = 40, d: int = 2):
-    """The standard normals of ``sets`` Matheron samples of the IWVI example,
-    made once on the CPU."""
-    gen = torch.Generator().manual_seed(0)
-    draws = []
-    for _ in range(sets):
-        for shape in ((k, d), (k, m - 1, d), (k, d), (k, m + n - 1, d)):
-            draws.append(torch.randn(shape, generator=gen, dtype=torch.float64))
-    return draws
-
-
-def phase_models_h(dev) -> dict:
+def phase_models_h(dev, examples: dict) -> dict:
     """The slice-H examples on the card against the CPU, float64
-    (``CARD_RTOL`` of each output's scale, or ``MODELS_H_RTOL``); the
-    launches of K1 and K2 of each on the card."""
-    card = _models_h_outputs(dev)
-    cpu = _models_h_outputs(torch.device("cpu"))
+    (``CARD_RTOL`` of each output's scale, or ``MODELS_H_RTOL``): the
+    stacked-kernel and factor-analysis SVGPs, the multi-stage VGP, PEP,
+    sparse PEP and IWVI from phase_examples' runs (IWVI on numpy's normals),
+    and sparse PEP at d = 1 (Matern12(0.15, 1)), which runs here and must
+    launch K1; the launches of K1 and K2 of each on the card."""
+    from vi_diffusion_processes_tpu_torch.examples import sparse_pep_classification as sparse_pep
+    from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
+    def kernel_launches(counts):
+        return {k: counts[k] for k in ("riccati_d_sweep", "linear_recurrence")}
+
+    runs = {name: (examples[ex]["card"], examples[ex]["cpu"], keys,
+                   kernel_launches(examples[ex]["launches"]))
+            for name, (ex, keys) in MODELS_H.items()}
+    before = cs.launch_counts()
+    card = sparse_pep.fit(Matern12(0.15, 1.0), dev)
+    after = cs.launch_counts()
+    with _one_thread():
+        cpu = sparse_pep.fit(Matern12(0.15, 1.0), torch.device("cpu"))
+    runs["sparse_pep_d1"] = (card, cpu, MODELS_H["sparse_pep"][1],
+                             kernel_launches({k: after[k] - before[k] for k in after}))
     rec, failed = {}, []
-    for name, (values, launches) in card.items():
-        err = max(_scaled_err(a, b) for a, b in zip(values, cpu[name][0]))
+    for name, (on_card, on_cpu, keys, launches) in runs.items():
+        err = max(_scaled_err(torch.as_tensor(on_card[k]), torch.as_tensor(on_cpu[k]))
+                  for k in keys)
         limit = MODELS_H_RTOL.get(name, CARD_RTOL)
         rec[name] = {"scaled_err": err, "limit": limit, "launches": launches}
         if not err <= limit:
@@ -2267,6 +2147,77 @@ def phase_models_h(dev) -> dict:
     if failed:
         raise AssertionError(f"slice-H models on the card disagree with the CPU: {failed}")
     return rec
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """The CPU twin of a small example runs faster on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+#: the kernels each example on a kernel path must launch on the card
+EXAMPLE_KERNELS = {"cvi_dp_double_well": ("dist_q_1d_planes",),
+                   "vdp_inference": ("linear_recurrence",),
+                   "natgrad_vgp": ("riccati_d_sweep", "linear_recurrence")}
+
+
+def phase_examples(dev, card: str) -> dict:
+    """The 14 documentation examples of the port
+    (``vi_diffusion_processes_tpu_torch/examples``) at their own sizes, each
+    ``run`` on the card (its own draws, but the IWVI example's, which are
+    numpy's normals on both devices), then on the CPU on the card's draws:
+    the card against the CPU to each module's limits (one step 1e-8,
+    iterated 1e-6, and its ``RTOLS``), the JAX script's assertions on the
+    card's numbers, card seconds and the launches of K1-K4 per example;
+    ``EXAMPLE_KERNELS`` must launch.  Returns each example's record with its
+    card and CPU outputs."""
+    import importlib
+
+    from vi_diffusion_processes_tpu_torch.examples import EXAMPLES
+    from vi_diffusion_processes_tpu_torch.examples._common import errors
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
+    out, failed = {}, []
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"vi_diffusion_processes_tpu_torch.examples.{name}")
+        torch.cuda.synchronize()
+        before = cs.launch_counts()
+        t0 = time.perf_counter()
+        on_card = mod.run(dev, {"normal_seed": 0} if "normal_seed" in mod.DATA else None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = cs.launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        mod.check(on_card)
+        inputs = {k: on_card[k].cpu() if torch.is_tensor(on_card[k]) else on_card[k]
+                  for k in mod.DATA}
+        t0 = time.perf_counter()
+        with _one_thread():
+            on_cpu = mod.run("cpu", inputs or None)
+        cpu_seconds = time.perf_counter() - t0
+        compared = {k: v for k, v in on_cpu.items()
+                    if k not in mod.DATA and k not in getattr(mod, "UNCOMPARED", ())}
+        errs = errors(mod, on_card, compared)
+        worst = max(errs, key=lambda k: errs[k][0] / errs[k][1])
+        far = sorted(k for k, (err, limit) in errs.items() if not err <= limit)
+        missing = [k for k in EXAMPLE_KERNELS.get(name, ()) if not launches[k]]
+        log(f"[examples] {name}: {seconds:.2f} s on {card} ({cpu_seconds:.2f} s on the CPU), "
+            f"launches {json.dumps(launches)}; card against CPU: largest {worst} "
+            f"{errs[worst][0]:.3e} (limit {errs[worst][1]:g}) of {len(errs)} outputs"
+            + (f"; NOT met: {far}" if far else "")
+            + (f"; did not launch {missing}" if missing else ""))
+        if far or missing:
+            failed.append(name)
+        out[name] = {"seconds": seconds, "cpu_seconds": cpu_seconds, "launches": launches,
+                     "card": on_card, "cpu": on_cpu}
+    if failed:
+        raise AssertionError(f"examples that failed on the card: {failed}")
+    return out
 
 
 def _work_dir(name: str) -> str:
@@ -2662,7 +2613,10 @@ def main() -> None:
         if natgrad_counts[name] == 0:
             raise AssertionError(f"{name} was not launched by the natgrad VGP step (d = 1)")
     log("[natgrad-vgp] " + json.dumps({**natgrad_record, "launches": natgrad_counts}))
-    models_h_record, models_h_counts = _counted(phase_models_h, dev)
+    examples, examples_counts = _counted(phase_examples, dev, card)
+    log("[examples] " + json.dumps({name: {k: rec[k] for k in ("seconds", "launches")}
+                                    for name, rec in examples.items()}))
+    models_h_record, models_h_counts = _counted(phase_models_h, dev, examples)
     if models_h_record["sparse_pep_d1"]["launches"]["riccati_d_sweep"] == 0:
         raise AssertionError("sparse PEP at d = 1 did not launch K1")
     (harness_model, _), harness_counts = _counted(phase_harness, dev, card)
@@ -2683,8 +2637,8 @@ def main() -> None:
              run_gpr_counts, vanderpol_counts, vanderpol_reference_counts,
              vanderpol_trainer_counts, cvi_counts, cvi_d1_counts, sparse_counts,
              cvi_reference_counts, spatio_counts, spatio_reference_counts, natgrad_counts,
-             models_h_counts, harness_counts, runners_reference_counts, checkpoint_counts,
-             serving_counts, tracing_counts, sharded_counts)
+             examples_counts, models_h_counts, harness_counts, runners_reference_counts,
+             checkpoint_counts, serving_counts, tracing_counts, sharded_counts)
     launches = {name: sum(c[name] for c in paths) for name in kernels}
     for name, n in launches.items():
         if n == 0:
@@ -2716,9 +2670,68 @@ def main() -> None:
     }}))
 
 
+def adopt_orphans() -> None:
+    """Make this process the parent of every orphan its descendants leave
+    (Linux ``PR_SET_CHILD_SUBREAPER``), so that ``stop_children`` finds it."""
+    if sys.platform.startswith("linux"):
+        import ctypes
+
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+
+
+def _children() -> dict:
+    """pid -> command line of every process whose parent is this one."""
+    found = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid == os.getpid():
+                with open(f"/proc/{entry}/cmdline", "rb") as f:
+                    found[int(entry)] = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, ValueError, IndexError):
+            continue  # gone meanwhile
+    return found
+
+
+def stop_children(grace: float = 10.0) -> None:
+    """Stop every process this script started that is still there, and
+    reap it: the resource tracker that ``multiprocessing`` starts with the
+    first spawned rank (it lives on until its parent exits), then any child
+    or adopted orphan, with SIGTERM and after ``grace`` seconds SIGKILL.
+    Names each one on stderr."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None:
+        print(f"[stop] multiprocessing resource tracker (pid {tracker._pid})", file=sys.stderr)
+        tracker._stop()
+    if not os.path.isdir("/proc"):
+        return
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        deadline = time.monotonic() + grace
+        while (left := _children()) and time.monotonic() < deadline:
+            for pid, cmd in left.items():
+                print(f"[stop] {sig.name} pid {pid}: {cmd[:200]}", file=sys.stderr, flush=True)
+                with contextlib.suppress(OSError):
+                    os.kill(pid, sig)
+            time.sleep(0.2)
+            for pid in left:
+                with contextlib.suppress(ChildProcessError):
+                    os.waitpid(pid, os.WNOHANG)
+    if _children():
+        raise RuntimeError(f"processes left running: {_children()}")
+
+
 if __name__ == "__main__":
+    adopt_orphans()
     try:
         main()
     except Exception as exc:  # report and fail: no result line
         print(f"chip_smoke FAILED: {type(exc).__name__}: {exc}", file=sys.stderr, flush=True)
         raise
+    finally:
+        stop_children()

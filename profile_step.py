@@ -116,9 +116,12 @@ def flagship(dev):
     return model.set_linearized_prior()
 
 
-def _device_ms(fn, kernel: str, calls: int = 20) -> float:
+def _device_ms(fn, kernel, calls: int = 20) -> float:
     """Device time per launch of the CUDA kernel whose name contains
-    ``kernel`` over ``calls`` calls of ``fn`` after one warm-up."""
+    ``kernel`` (a string, or a tuple of alternatives: the kernel's names in
+    the trees that ``--root`` may name) over ``calls`` calls of ``fn`` after
+    one warm-up."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -127,8 +130,15 @@ def _device_ms(fn, kernel: str, calls: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and any(name in e.key for name in names)]
     return sum(e.self_device_time_total for e in events) / 1e3 / sum(e.count for e in events)
+
+
+#: the sweeps' kernel names: csrc/sweep_windows.cuh's, then those of the
+#: trees before it, which --root may name
+K1_NAMES = ("sweep_kernel<double", "riccati_kernel")
+K4_NAMES = ("sweep_kernel<float", "riccati_f32_kernel")
 
 
 def _sweep_inputs(dev):
@@ -146,9 +156,9 @@ def sweeps_device_ms(dev) -> dict:
     kd, b2 = _sweep_inputs(dev)
     kd4, b24 = kd.float(), b2.float()
     return {"k1_device_ms_per_launch": _device_ms(lambda: cs.riccati_d_sweep(kd, b2),
-                                                  "riccati_kernel"),
+                                                  K1_NAMES),
             "k4_device_ms_per_launch": _device_ms(lambda: riccati_d_sweep_f32(kd4, b24),
-                                                  "riccati_f32_kernel")}
+                                                  K4_NAMES)}
 
 
 def k4_shapes(dev) -> dict:
@@ -160,7 +170,7 @@ def k4_shapes(dev) -> dict:
     for ratio in (0.1, 0.2, 0.3, 0.4, 0.55, 0.75, 1.0, 1.5, 2.5):
         l = max(1, round((ratio * T) ** 0.5)) | 1
         windows = (-(-T // l), l)
-        ms = _device_ms(lambda: cr._forward(kd, b2, windows), "riccati_f32_kernel")
+        ms = _device_ms(lambda: cr._forward(kd, b2, windows), K4_NAMES)
         out[f"r={ratio} nb={windows[0]} l={l}"] = {
             "device_ms": ms, "chain_steps": 2 * l + windows[0],
             "blocks": cr.launch_shape(1, T, dev, windows)["blocks_per_sequence"]}

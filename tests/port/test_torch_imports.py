@@ -36,6 +36,12 @@ models.svgp kernels.composite likelihoods.multistage likelihoods.pep models.pep
 models.sparse_pep models.iwvi exp.cli exp.__main__ exp.logging exp.plots utils.validation
 utils.tracing utils.checkpoint utils.serving utils.native parallel.sharded
 models.cvi_dp_sharded parallel.dryrun
+examples examples._common examples._natgrad_svgp examples.cvi_dp_double_well
+examples.vdp_inference examples.natgrad_vgp examples.gpr_regression
+examples.sparse_classification examples.kernels_tour examples.spatio_temporal_cvi
+examples.time_sharded_smoothing examples.factor_analysis examples.stacked_kernels
+examples.multistage_demand examples.pep_classification examples.sparse_pep_classification
+examples.iwvi_importance_weighted
 """.split()
 SCRIPTS = ["chip_smoke.py", "profile_step.py"]
 

@@ -39,8 +39,8 @@ NAMES = ["a", "b", "qv", "mu0", "p0v", "means", "vars"]
 #: either side of full (1023 = 2 tiles, 1025 = 3 with one element in the
 #: last), a last tile one element long at T ~ 100k, and T ~ 1M
 EDGE_SIZES = [2, 3, 1023, 1025, 195 * cs.TILE + 1, 1_048_577]
-#: The sweeps' edges: N = 1 (D = kd) and, for K4, a last window one element
-#: long at T ~ 100k (99,876 = 425 windows of 235 and one element)
+#: The sweeps' edges: N = 1 (D = kd) and a last window one element long at
+#: T ~ 100k (99,876 = 425 windows of 235 and one element)
 SWEEP_EDGE_SIZES = [1] + EDGE_SIZES + [99_876]
 BATCHES = [1, 2, 8]
 
@@ -269,7 +269,9 @@ def test_launch_shape_spreads_one_sequence(cuda_device, name, dtype):
     blocks a sequence takes one block each, with no grid sync."""
     one = cs.launch_shape(name, dtype, 1, 100_000, cuda_device)
     assert one["blocks_per_sequence"] > 1 and one["grid"] == one["blocks_per_sequence"]
-    assert one["blocks_per_sequence"] <= -(-100_000 // one["tile"])
+    # at most one block a window (the sweep, K1) or a tile (the affine scans)
+    parts = one["windows"] if name == "riccati_d_sweep" else -(-100_000 // one["tile"])
+    assert one["blocks_per_sequence"] <= parts
     many = cs.launch_shape(name, dtype, 100_000, 100_000, cuda_device)
     assert many == {**many, "grid": 100_000, "blocks_per_sequence": 1}
 

@@ -11,6 +11,8 @@ conditioning (rtol 1e-12 on O(1) pivots, 1e-11 of the scale for the
 recurrences); f32 recurrences to 2e-6 of the scale, and the f32 ``dist_q``
 outputs to the fused TPU kernel's own contract (rtol 2e-4, atol 1e-6).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,10 +129,15 @@ def test_linear_recurrence_plain_windows_match_jax(rng, n, dtype, reverse, windo
 
 @pytest.mark.parametrize("n", SIZES)
 def test_plain_default_windows_unchanged(rng, n):
-    """Without ``windows`` the plain versions keep their 1024-window split."""
+    """Without ``windows`` the plain versions keep their default split: the
+    kernel's windows for the sweep (odd ``l`` near √(0.55·n)), 1024 for the
+    recurrence."""
     kd, b2 = (torch.tensor(v) for v in riccati_inputs(rng, n))
-    nb, _ = cs._chunking(n)
+    nb, l = cs.window_shape(n)
+    assert nb * l >= n > (nb - 1) * l and l % 2 == 1 and abs(l - math.sqrt(0.55 * n)) <= 1
+    assert cs._chunking(n, nb) == (nb, l)
     assert torch.equal(cs.riccati_d_sweep_plain(kd, b2), cs.riccati_d_sweep_plain(kd, b2, windows=nb))
+    nb, _ = cs._chunking(n)
     t, c = (torch.tensor(v) for v in affine_inputs(rng, n))
     assert torch.equal(cs.linear_recurrence_plain(t, c, 0.3, True),
                        cs.linear_recurrence_plain(t, c, 0.3, True, windows=nb))

@@ -3,18 +3,24 @@
 // They replace the Pallas TPU kernels of
 // vi_diffusion_processes_tpu/ops/pallas_scan.py:
 //
-//   K1  riccati_kernel   <- riccati_d_sweep_df / _riccati_kernel
+//   K1  sweep_kernel<double> <- riccati_d_sweep_df / _riccati_kernel
 //       UDU' pivot sweep  D_k = kd_k - b2_k / D_{k+1}   (b2[N-1] = 0)
 //   K2  linrec_kernel    <- linear_recurrence / _linrec_kernel_{df,f32}
 //       x_k = t_k * x_{k-+1} + c_k, forward or reverse, boundary value x0
-//   K3  dist_q_kernel    <- dist_q_1d_planes / _dist_q_kernel
-//       naturals -> SSM params -> marginals, the whole d=1 chain in one launch
+//   K3  sweep_kernel<double, Naturals>, then dist_q_kernel
+//                        <- dist_q_1d_planes / _dist_q_kernel
+//       naturals -> SSM params -> marginals, the whole d=1 chain
 //
 // What bounds them on an H100: the latency of a sequential dependency chain,
 // not bytes.  At T = 100k every f64 plane is 0.8 MB, which the card streams in
 // well under a microsecond; the chain is T dependent divisions and FMAs.
 //
-// All three spread one sequence over many SMs, in one launch:
+// The pivot sweep (K1, and K3's phase R) is sweep_windows.cuh's windowed
+// sweep, which takes every Moebius product in sequential order: a tree of
+// them loses digits where a window boundary falls on a small gap.  The
+// affine scans (K2, and K3's phases U, Z, V and M) compose affine maps,
+// which a tree keeps exact, and spread one sequence over many SMs, in one
+// launch:
 //   * the sequence is cut into tiles of kTile = 256 threads x kChunk = 2
 //     elements; thread j of a tile owns the contiguous pair [2j, 2j+2), so
 //     neighbouring threads touch neighbouring addresses and a warp's two
@@ -22,35 +28,31 @@
 //   * a block owns a contiguous run of tiles; the launcher picks blocks per
 //     sequence (bps) from the batch, the SM count and the kernel's occupancy
 //     (queried once per device and cached), up to one block per tile;
-//   * within a tile, each thread composes its pair's map (affine x -> a*x+b,
-//     or a normalised 2x2 Moebius map for the pivot sweep); a warp-shuffle
-//     scan and a pass over the 8 warp totals give every thread the map of
-//     all earlier pairs, in the recurrence's order (suffix for reverse
-//     recurrences and the sweep, prefix for forward ones); the tile's total
+//   * within a tile, each thread composes its pair's affine map; a
+//     warp-shuffle scan and a pass over the 8 warp totals give every thread
+//     the map of all earlier pairs, in the recurrence's order (suffix for
+//     reverse recurrences, prefix for forward ones); the tile's total
 //     carries the boundary value to the block's next tile;
 //   * across blocks: when bps > 1 the kernel is a cooperative launch.  Each
 //     block publishes its run's aggregate map to a small global array, waits
 //     at cooperative_groups::this_grid().sync(), and one warp composes the
-//     aggregates of the blocks before it into its entry value.  K1 and K2
-//     need one such grid sync; K3 four (after the sweep's aggregates; after
-//     R, with V's aggregate and every covs; after U, with Z's; after M's).  When bps = 1 (large batch) the launch is an
-//     ordinary one with one block per sequence and no grid sync.
+//     aggregates of the blocks before it into its entry value.  K2 needs one
+//     such grid sync; dist_q_kernel three (after R, with V's aggregate and
+//     every covs; after U, with Z's; after M's).  When bps = 1 (large batch)
+//     the launch is an ordinary one with one block per sequence and no grid
+//     sync.
 // The sequential depth drops from N to a few tiles per block, each a pair
 // of dependent steps and two log-depth scans, plus the grid syncs.
-// K1 is K3's phase R alone, on (kd, b2) in place of the naturals: the two
-// share the pair loader, the pair's map and the entry pivot.
 // Everything is native f64 (Hopper has FP64 units), so the TPU's
 // double-float (hi, lo) f32 arithmetic is not carried over; K2's f32 scans
-// stay f32.  The Moebius maps are normalised after every product, which
-// keeps a tree scan of them exact enough in f64 (only the f32 sweep, K4 in
-// cuda_riccati.cu, must stay in sequential order).
+// stay f32.
 //
 // Interface: plain C launchers that return a cudaError_t as an int.  They
 // launch on the given stream, never synchronise and allocate nothing:
-// outputs and scratch come from the caller, which sizes the aggregate
-// scratch with vidp_scan_shape.
+// outputs and scratch come from the caller, which sizes the scratch with
+// vidp_scan_shape and vidp_riccati_f64_shape.
 
-#include "scan_launch.cuh"
+#include "sweep_windows.cuh"
 
 #include <algorithm>
 
@@ -58,27 +60,6 @@ namespace {
 
 using vidp::Shape;
 using vidp::sync_sequence;
-
-// Diagonal preconditioner of the sweep: s = sqrt(b2), or |kd| where b2 = 0
-// (pallas_scan.py:359).  Any positive s leaves the algebra exact; it keeps
-// the Moebius maps O(1)-conditioned.
-__device__ __forceinline__ double precond(double kd, double b2) {
-  return b2 > 0.0 ? sqrt(b2) : fabs(kd) + 1e-300;
-}
-
-// One element of the sweep: W <- M_i W, right to left, with
-// M_i = [[kd_i, -b2_i], [1, 0]] on preconditioned channels; the new bottom
-// row is the old top row, and the map is renormalised every step.
-__device__ __forceinline__ void mobius_step(double kdt, double nb2t, double& w00,
-                                            double& w01, double& w10, double& w11) {
-  const double p00 = kdt * w00 + nb2t * w10;
-  const double p01 = kdt * w01 + nb2t * w11;
-  const double r = rsqrt(p00 * p00 + p01 * p01 + w00 * w00 + w01 * w01 + 1e-300);
-  w10 = w00 * r;
-  w11 = w01 * r;
-  w00 = p00 * r;
-  w01 = p01 * r;
-}
 
 // -------------------------------------------------- multi-block scans
 constexpr int kScanThreads = 256;
@@ -92,29 +73,15 @@ template <typename T>
 struct Aff {
   T a, b;
 };
-// Moebius map on (numerator, denominator) columns, kept normalised.
-struct Mob {
-  double w00, w01, w10, w11;
-};
 
 template <typename T>
 __device__ __forceinline__ Aff<T> identity(Aff<T>) { return {T(1), T(0)}; }
-__device__ __forceinline__ Mob identity(Mob) { return {1.0, 0.0, 0.0, 1.0}; }
 
 // The map that applies `first`, then `second`.
 template <typename T>
 __device__ __forceinline__ Aff<T> compose(Aff<T> first, Aff<T> second) {
   return {second.a * first.a, second.a * first.b + second.b};
 }
-__device__ __forceinline__ Mob compose(Mob f, Mob g) {
-  const double n00 = g.w00 * f.w00 + g.w01 * f.w10;
-  const double n01 = g.w00 * f.w01 + g.w01 * f.w11;
-  const double n10 = g.w10 * f.w00 + g.w11 * f.w10;
-  const double n11 = g.w10 * f.w01 + g.w11 * f.w11;
-  const double r = rsqrt(n00 * n00 + n01 * n01 + n10 * n10 + n11 * n11 + 1e-300);
-  return {n00 * r, n01 * r, n10 * r, n11 * r};
-}
-
 // The map of the lane d places earlier in scan order (lower lanes for a
 // prefix scan, higher for a suffix scan); every lane of the warp calls it.
 template <typename T>
@@ -125,19 +92,12 @@ template <typename T>
 __device__ __forceinline__ Aff<T> shfl_earlier(Aff<T> m, int d, bool suffix) {
   return {shfl_earlier(m.a, d, suffix), shfl_earlier(m.b, d, suffix)};
 }
-__device__ __forceinline__ Mob shfl_earlier(Mob m, int d, bool suffix) {
-  return {shfl_earlier(m.w00, d, suffix), shfl_earlier(m.w01, d, suffix),
-          shfl_earlier(m.w10, d, suffix), shfl_earlier(m.w11, d, suffix)};
-}
 
 // Global loads that bypass L1: the aggregates and K3's scratch planes are
 // written by other blocks in the same launch.
 template <typename T>
 __device__ __forceinline__ Aff<T> load_cg(const Aff<T>* p) {
   return {__ldcg(&p->a), __ldcg(&p->b)};
-}
-__device__ __forceinline__ Mob load_cg(const Mob* p) {
-  return {__ldcg(&p->w00), __ldcg(&p->w01), __ldcg(&p->w10), __ldcg(&p->w11)};
 }
 
 // Inclusive scan over the warp's lanes, in scan order.
@@ -292,167 +252,31 @@ linrec_kernel(const T* __restrict__ t, const T* __restrict__ c,
   }
 }
 
-// The pivot sweep's inputs at element i < n: kd, b2 and ks (K3's
-// superdiagonal, b2 = ks^2; K1 has none).
-struct SweepOfKdB2 {  // K1
-  const double* kd;
-  const double* b2;
-  __device__ __forceinline__ void at(int i, int, double& kd_i, double& b2_i, double& ks_i) const {
-    kd_i = kd[i];
-    b2_i = b2[i];
-    ks_i = 0.0;
-  }
-};
-struct SweepOfNaturals {  // K3: kd = -2*nat2d and ks = -nat2s, zero at the last element
-  const double* nat2d;
-  const double* nat2s;
-  __device__ __forceinline__ void at(int i, int n, double& kd_i, double& b2_i, double& ks_i) const {
-    ks_i = i < n - 1 ? -nat2s[i] : 0.0;
-    kd_i = -2.0 * nat2d[i];
-    b2_i = ks_i * ks_i;
-  }
-};
-
-template <typename In>
-__device__ __forceinline__ double s_at(const In& in, int i, int n) {
-  if (i >= n) return 1.0;
-  double kd, b2, ks;
-  in.at(i, n, kd, b2, ks);
-  return precond(kd, b2);
-}
-
-// The preconditioned sweep inputs of this thread's pair in tile `tile`,
-// right to left (k = 0 is the right element): kd~, -b2~, s, ks; s_after is
-// s of the element after the pair.  Elements past n are (1, 0, 1, 0).
-template <typename In>
-__device__ __forceinline__ void sweep_pair(const In& in, int tile, int n, double* kdt,
-                                           double* nb2t, double* s, double* ks,
-                                           double& s_after) {
-  s_after = s_at(in, elem_at(tile, 0, true) + 1, n);
-  double s_next = s_after;
-#pragma unroll
-  for (int e = 0; e < kChunk; ++e) {
-    const int i = elem_at(tile, e, true);
-    if (i < n) {
-      double kd, b2;
-      in.at(i, n, kd, b2, ks[e]);
-      s[e] = precond(kd, b2);
-      kdt[e] = kd / s[e];
-      nb2t[e] = -b2 / (s[e] * s_next);
-      s_next = s[e];
-    } else {
-      kdt[e] = 1.0;
-      nb2t[e] = 0.0;
-      s[e] = 1.0;
-      ks[e] = 0.0;
-    }
-  }
-}
-
-// The Moebius map of this thread's pair; pairs past n are the identity.
-__device__ __forceinline__ Mob pair_map(int tile, int n, const double* kdt,
-                                        const double* nb2t) {
-  Mob w = {1.0, 0.0, 0.0, 1.0};
-#pragma unroll
-  for (int e = 0; e < kChunk; ++e) {
-    if (elem_at(tile, e, true) < n) mobius_step(kdt[e], nb2t[e], w.w00, w.w01, w.w10, w.w11);
-  }
-  return w;
-}
-
-// The suffix Moebius map of the block's tiles [lo, hi): what the blocks to
-// its left need of it.  tot is a kWarps array in shared memory.
-template <typename In>
-__device__ Mob sweep_aggregate(const In& in, int lo, int hi, int n, Mob* tot) {
-  double kdt[kChunk], nb2t[kChunk], s[kChunk], ks[kChunk], s_after;
-  Mob mine = {1.0, 0.0, 0.0, 1.0};
-  for (int k = 0; k < hi - lo; ++k) {
-    const int tile = tile_at(lo, hi, k, true);
-    sweep_pair(in, tile, n, kdt, nb2t, s, ks, s_after);
-    mine = compose(mine, block_total(pair_map(tile, n, kdt, nb2t), true, tot));
-  }
-  return mine;
-}
-
-// The pivot D~ entering a pair: the first-column ratio of the map of
-// everything to its right.  With nothing there the map is the identity,
-// whose ratio 1/0 is replaced by 1; b2 = 0 at the final element resets the
-// recursion there, so that placeholder never reaches a real pivot
-// (pallas_scan.py:312-321).
-__device__ __forceinline__ double entry_pivot(Mob entry) {
-  return entry.w10 == 0.0 ? 1.0 : entry.w00 / entry.w10;
-}
-
-// ---------------------------------------------------------------- K1
-// agg holds one Mob per block (used when bps > 1).
-__global__ void __launch_bounds__(kScanThreads)
-riccati_kernel(const double* __restrict__ kd, const double* __restrict__ b2,
-               double* __restrict__ out, Mob* agg, int n, int bps) {
-  __shared__ Mob tot[kWarps];
-  __shared__ Mob slot;
-  const int seq = blockIdx.x / bps;
-  const int blk = blockIdx.x % bps;
-  const long long off = static_cast<long long>(seq) * n;
-  const SweepOfKdB2 in = {kd + off, b2 + off};
-  out += off;
-  int lo, hi;
-  tiles_of(n, bps, blk, lo, hi);
-
-  // the block's suffix map, published for the blocks to its left
-  Mob carry = {1.0, 0.0, 0.0, 1.0};
-  if (bps > 1) {
-    const Mob mine = sweep_aggregate(in, lo, hi, n, tot);
-    if (threadIdx.x == 0) agg[blockIdx.x] = mine;
-    sync_sequence(bps);
-    carry = blocks_before(agg + seq * bps, sizeof(Mob), bps, blk, true, &slot);
-  }
-
-  // the exact recursion of each pair from the pivot entering it
-  double kdt[kChunk], nb2t[kChunk], s[kChunk], ks[kChunk], s_after;
-  for (int k = 0; k < hi - lo; ++k) {
-    const int tile = tile_at(lo, hi, k, true);
-    sweep_pair(in, tile, n, kdt, nb2t, s, ks, s_after);
-    Mob excl, total;
-    block_scan(pair_map(tile, n, kdt, nb2t), true, tot, excl, total);
-    double d = entry_pivot(compose(carry, excl));
-    carry = compose(carry, total);
-#pragma unroll
-    for (int e = 0; e < kChunk; ++e) {
-      const int i = elem_at(tile, e, true);
-      if (i >= n) continue;
-      d = kdt[e] + nb2t[e] / d;
-      out[i] = d * s[e];
-    }
-  }
-}
-
 // ---------------------------------------------------------------- K3
 // Phases R -> Z -> M, V of pallas_scan.py::_dist_q_kernel, in f64, with u
-// taken in a phase U of its own from the covs that R writes.
-// scratch is [3, B, n] f64 (u, covs, w) followed by one KAgg per block.
+// taken in a phase U of its own from the covs that R writes.  Phase R's
+// pivot sweep is a launch of its own before this kernel
+// (sweep_kernel<double, Naturals>), which leaves the pivots D in the covs
+// plane.  scratch is [3, B, n] f64 (u, covs, w), then the sweep's 6 values
+// a window, then one KAgg per block.
 struct KAgg {
-  Mob r;
   Aff<double> z, v, m;
 };
 
 template <typename TO>
 __global__ void __launch_bounds__(kScanThreads)
-dist_q_kernel(const double* __restrict__ nat1, const double* __restrict__ nat2d,
-              const double* __restrict__ nat2s, double* __restrict__ scratch,
+dist_q_kernel(const double* __restrict__ nat1, const double* __restrict__ nat2s,
+              double* __restrict__ scratch,
               TO* __restrict__ covs_o, TO* __restrict__ a_o, TO* __restrict__ w_o,
-              TO* __restrict__ mu_o, TO* __restrict__ v_o, int n, int bps) {
-  __shared__ Mob tot_r[kWarps];
+              TO* __restrict__ mu_o, TO* __restrict__ v_o, KAgg* agg, int n, int bps) {
   __shared__ Aff<double> tot_a[kWarps];
-  __shared__ Mob slot_r;
   __shared__ Aff<double> slot_a;
   const int seq = blockIdx.x / bps;
   const int blk = blockIdx.x % bps;
   const long long plane = static_cast<long long>(gridDim.x / bps) * n;
   const long long off = static_cast<long long>(seq) * n;
-  KAgg* agg = reinterpret_cast<KAgg*>(scratch + 3 * plane);
   KAgg* agg_seq = agg + seq * bps;
   nat1 += off;
-  nat2d += off;
   nat2s += static_cast<long long>(seq) * (n - 1);
   covs_o += off;
   a_o += off;
@@ -465,37 +289,19 @@ dist_q_kernel(const double* __restrict__ nat1, const double* __restrict__ nat2d,
   int lo, hi;
   tiles_of(n, bps, blk, lo, hi);
   const int ntl = hi - lo;
-  const Mob mob_id = {1.0, 0.0, 0.0, 1.0};
   const Aff<double> aff_id = {1.0, 0.0};
-  double kdt[kChunk], nb2t[kChunk], s[kChunk], ks[kChunk], s_after;
 
-  // R, aggregate: the block's suffix Moebius map
-  const SweepOfNaturals in = {nat2d, nat2s};
-  Mob carry_r = mob_id;
-  if (bps > 1) {
-    const Mob mine = sweep_aggregate(in, lo, hi, n, tot_r);
-    if (threadIdx.x == 0) agg[blockIdx.x].r = mine;
-    sync_sequence(bps);
-    carry_r = blocks_before(&agg_seq->r, sizeof(KAgg), bps, blk, true, &slot_r);
-  }
-
-  // R, exact: covs = 1/D from the pivot entering each pair; with it the
-  // aggregate of V (prefix)
+  // R: covs = 1/D from the pivots the sweep left in the covs plane; with
+  // them the aggregate of V (prefix)
   Aff<double> mine_v = aff_id;
   for (int k = 0; k < ntl; ++k) {
     const int tile = tile_at(lo, hi, k, true);
-    sweep_pair(in, tile, n, kdt, nb2t, s, ks, s_after);
-    Mob excl, total;
-    block_scan(pair_map(tile, n, kdt, nb2t), true, tot_r, excl, total);
-    double rec = 1.0 / entry_pivot(compose(carry_r, excl));
-    carry_r = compose(carry_r, total);
     Aff<double> mv = aff_id;
 #pragma unroll
     for (int e = 0; e < kChunk; ++e) {
       const int i = elem_at(tile, e, true);
       if (i >= n) continue;
-      rec = 1.0 / (kdt[e] + nb2t[e] * rec);
-      const double cov = rec / s[e];
+      const double cov = 1.0 / cov_p[i];
       cov_p[i] = cov;
       covs_o[i] = static_cast<TO>(cov);
       // v_i = u_{i-1}^2 v_{i-1} + covs_i with u_{i-1} = ks_{i-1}/D_i = ks_{i-1} covs_i
@@ -511,10 +317,8 @@ dist_q_kernel(const double* __restrict__ nat1, const double* __restrict__ nat2d,
 
   // U: u_i = ks_i/D_{i+1} = ks_i covs_{i+1} (a = -u) from the covs written
   // above, so that a, the three recurrences and covs hold one pivot at every
-  // element: the pivot entering a pair from the Moebius scan differs from
-  // the one its neighbour's recursion writes in the last bits, and the
-  // Girsanov gradient amplifies such a mismatch; with u the aggregate of Z
-  // (suffix)
+  // element (the Girsanov gradient amplifies a mismatch in the last bits);
+  // with u the aggregate of Z (suffix)
   Aff<double> mine_z = aff_id;
   for (int k = 0; k < ntl; ++k) {
     const int tile = tile_at(lo, hi, k, true);
@@ -653,15 +457,24 @@ int launch_linrec(const T* t, const T* c, const T* x0, T* out, void* agg, int ba
   return launch(kernel, shape, args, stream);
 }
 
+// K3: the pivot sweep on the naturals into the covs plane, then
+// dist_q_kernel; scratch as dist_q_kernel's comment says, the sweep on nb
+// windows of l.
 template <typename TO>
 int launch_dist_q(const double* nat1, const double* nat2d, const double* nat2s,
                   double* scratch, TO* covs, TO* a, TO* w, TO* mu, TO* v, int batch,
-                  int n, void* stream) {
+                  int n, int nb, int l, void* stream) {
   const void* kernel = reinterpret_cast<const void*>(&dist_q_kernel<TO>);
   Shape shape;
-  const cudaError_t err = plan(kernel, batch, n, shape);
+  cudaError_t err = plan(kernel, batch, n, shape);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&nat1, &nat2d, &nat2s, &scratch, &covs, &a, &w, &mu, &v, &n, &shape.bps};
+  const size_t plane = static_cast<size_t>(batch) * n;
+  double* sweep_scratch = scratch + 3 * plane;
+  KAgg* agg = reinterpret_cast<KAgg*>(sweep_scratch + 6 * static_cast<size_t>(batch) * nb);
+  const int e = vidp::sweep::launch<double>(vidp::sweep::Naturals{nat2d, nat2s}, scratch + plane,
+                                            sweep_scratch, batch, n, nb, l, stream);
+  if (e != 0) return e;
+  void* args[] = {&nat1, &nat2s, &scratch, &covs, &a, &w, &mu, &v, &agg, &n, &shape.bps};
   return launch(kernel, shape, args, stream);
 }
 
@@ -671,7 +484,6 @@ const void* scan_kernel(int which) {
     case 1: return reinterpret_cast<const void*>(&linrec_kernel<double>);
     case 2: return reinterpret_cast<const void*>(&dist_q_kernel<float>);
     case 3: return reinterpret_cast<const void*>(&dist_q_kernel<double>);
-    case 4: return reinterpret_cast<const void*>(&riccati_kernel);
     default: return nullptr;
   }
 }
@@ -680,10 +492,10 @@ const void* scan_kernel(int which) {
 
 extern "C" {
 
-// The launch shape of K2 (which = 0 f32, 1 f64), K3 (2 f32 out, 3 f64 out)
-// or K1 (4) for this batch and length on the current device: out[0] the grid,
-// out[1] blocks per sequence, out[2] threads per block, out[3] elements per
-// tile, out[4] doubles of aggregate scratch per block.
+// The launch shape of K2 (which = 0 f32, 1 f64) or K3's dist_q_kernel (2 f32
+// out, 3 f64 out) for this batch and length on the current device: out[0]
+// the grid, out[1] blocks per sequence, out[2] threads per block, out[3]
+// elements per tile, out[4] doubles of aggregate scratch per block.
 int vidp_scan_shape(int which, int batch, int n, int* out) {
   const void* kernel = scan_kernel(which);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -694,20 +506,22 @@ int vidp_scan_shape(int which, int batch, int n, int* out) {
   out[1] = shape.bps;
   out[2] = kScanThreads;
   out[3] = kTile;
-  out[4] = static_cast<int>((which < 2 ? sizeof(Aff<double>) : which == 4 ? sizeof(Mob) : sizeof(KAgg)) /
-                            sizeof(double));
+  out[4] = static_cast<int>((which < 2 ? sizeof(Aff<double>) : sizeof(KAgg)) / sizeof(double));
   return 0;
 }
 
-int vidp_riccati_f64(const double* kd, const double* b2, double* out, double* agg,
-                     int batch, int n, void* stream) {
-  const void* kernel = reinterpret_cast<const void*>(&riccati_kernel);
-  Shape shape;
-  const cudaError_t err = plan(kernel, batch, n, shape);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Mob* a = reinterpret_cast<Mob*>(agg);
-  void* args[] = {&kd, &b2, &out, &a, &n, &shape.bps};
-  return launch(kernel, shape, args, stream);
+// The launch of the float64 sweep (K1, and K3's phase R when naturals = 1)
+// for this batch and these windows: as vidp_riccati_f32_shape.
+int vidp_riccati_f64_shape(int naturals, int batch, int nb, int l, int* out) {
+  return naturals ? vidp::sweep::shape<double, vidp::sweep::Naturals>(batch, nb, l, out)
+                  : vidp::sweep::shape<double, vidp::sweep::KdB2<double>>(batch, nb, l, out);
+}
+
+// K1; scratch: 6 * batch * nb doubles (the windows' maps, then their entries).
+int vidp_riccati_f64(const double* kd, const double* b2, double* out, double* scratch,
+                     int batch, int n, int nb, int l, void* stream) {
+  return vidp::sweep::launch<double>(vidp::sweep::KdB2<double>{kd, b2}, out, scratch, batch, n,
+                                     nb, l, stream);
 }
 
 int vidp_linrec_f64(const double* t, const double* c, const double* x0,
@@ -721,20 +535,22 @@ int vidp_linrec_f32(const float* t, const float* c, const float* x0, float* out,
   return launch_linrec<float>(t, c, x0, out, agg, batch, n, reverse, stream);
 }
 
+// K3; scratch: 3 * batch * n + 6 * batch * nb doubles, then the aggregates
+// (vidp_scan_shape).
 int vidp_dist_q_1d_f32(const double* nat1, const double* nat2d,
                        const double* nat2s, double* scratch, float* covs,
                        float* a, float* w, float* mu, float* v, int batch, int n,
-                       void* stream) {
+                       int nb, int l, void* stream) {
   return launch_dist_q<float>(nat1, nat2d, nat2s, scratch, covs, a, w, mu, v,
-                              batch, n, stream);
+                              batch, n, nb, l, stream);
 }
 
 int vidp_dist_q_1d_f64(const double* nat1, const double* nat2d,
                        const double* nat2s, double* scratch, double* covs,
                        double* a, double* w, double* mu, double* v, int batch,
-                       int n, void* stream) {
+                       int n, int nb, int l, void* stream) {
   return launch_dist_q<double>(nat1, nat2d, nat2s, scratch, covs, a, w, mu, v,
-                               batch, n, stream);
+                               batch, n, nb, l, stream);
 }
 
 }  // extern "C"

@@ -28,7 +28,7 @@ from ..ssm.mean_functions import MeanFunction
 from ..ssm.state_space_model import StateSpaceModel
 from .posterior import AnalyticPosteriorProcess
 
-__all__ = ["GaussianProcessRegression"]
+__all__ = ["GaussianProcessRegression", "gaussian_observation_sites"]
 
 
 @dataclasses.dataclass(frozen=True)

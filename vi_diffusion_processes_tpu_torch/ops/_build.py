@@ -33,14 +33,15 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 #: argtypes of every launcher in csrc/*.cu; each returns a cudaError_t
 _SIGNATURES = {
-    "vidp_riccati_f64": [_vp, _vp, _vp, _vp, _int, _int, _vp],
+    "vidp_riccati_f64": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
+    "vidp_riccati_f64_shape": [_int, _int, _int, _int, _vp],
     "vidp_riccati_f32": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
     "vidp_riccati_f32_shape": [_int, _int, _int, _vp],
     "vidp_scan_shape": [_int, _int, _int, _vp],
     "vidp_linrec_f64": [_vp] * 5 + [_int, _int, _int, _vp],
     "vidp_linrec_f32": [_vp] * 5 + [_int, _int, _int, _vp],
-    "vidp_dist_q_1d_f32": [_vp] * 9 + [_int, _int, _vp],
-    "vidp_dist_q_1d_f64": [_vp] * 9 + [_int, _int, _vp],
+    "vidp_dist_q_1d_f32": [_vp] * 9 + [_int, _int, _int, _int, _vp],
+    "vidp_dist_q_1d_f64": [_vp] * 9 + [_int, _int, _int, _int, _vp],
 }
 
 #: wall seconds of the last compile in this process (0.0 when cached)

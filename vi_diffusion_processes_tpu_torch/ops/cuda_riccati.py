@@ -10,7 +10,9 @@ In float32 a log-depth tree of Möbius products loses the small singular
 direction on fine grids and the pivots come out negative
 (``btd.py::btd_udu_parallel_1d``), so the sweep keeps sequential order:
 per-window maps composed right to left, a boundary pass that walks the
-window maps one after another, then the exact recursion in each window.
+window maps one after another, then the exact recursion in each window
+(``csrc/sweep_windows.cuh``; K1 is the same kernel in float64, and
+:func:`~.cuda_scan.sweep_windows_plain` the plain version of both).
 Which windows is free, and :func:`window_shape` picks them for the card:
 ``nb`` windows of ``l`` elements with ``l`` odd (the kernel's walking
 threads, ``l`` words apart in shared memory, then hit different banks) and
@@ -28,36 +30,25 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from .cuda_scan import (
     _batch,
-    _blockify,
     _check_last_b2,
     _check_sweep,
     _launch,
     _lib,
     _ptr,
     _sweep_op_setup,
-    _unblockify,
     sweep_adjoint,
+    sweep_launch_shape,
+    sweep_windows_plain,
+    window_shape,
 )
 
 __all__ = ["riccati_d_sweep_f32", "riccati_d_sweep_f32_plain", "window_shape", "launch_shape"]
-
-#: ``l ≈ √(WINDOW_RATIO·N)``: the cost of a step of the boundary pass over
-#: that of a step of phase A plus one of phase C
-WINDOW_RATIO = 0.55
-
-
-def window_shape(n: int) -> Tuple[int, int]:
-    """``(nb, l)`` that the kernel uses for ``n`` elements: ``l`` odd and near
-    ``√(WINDOW_RATIO·n)``, ``nb = ceil(n / l)``."""
-    l = max(1, round(math.sqrt(WINDOW_RATIO * n))) | 1
-    return max(1, -(-n // l)), l
 
 
 def riccati_d_sweep_f32_plain(
@@ -72,44 +63,7 @@ def riccati_d_sweep_f32_plain(
     nb, l = window_shape(n) if windows is None else windows
     if nb < 1 or l < 1 or nb * l < n:
         raise ValueError(f"windows ({nb}, {l}) do not cover {n} elements")
-    s = torch.where(b2 > 0, torch.sqrt(b2), torch.abs(kd) + 1e-30)
-    s_next = torch.cat([s[..., 1:], torch.ones_like(s[..., :1])], dim=-1)
-    kdb = _blockify(kd / s, nb, l, 1.0)
-    b2b = _blockify(b2 / (s * s_next), nb, l, 0.0)
-
-    # phase A: each window's Möbius map, right to left
-    w00 = torch.ones_like(kdb[..., 0])
-    w01 = torch.zeros_like(w00)
-    w10 = torch.zeros_like(w00)
-    w11 = torch.ones_like(w00)
-    for i in range(l - 1, -1, -1):
-        p00 = kdb[..., i] * w00 - b2b[..., i] * w10
-        p01 = kdb[..., i] * w01 - b2b[..., i] * w11
-        r = torch.rsqrt(p00**2 + p01**2 + w00**2 + w01**2 + 1e-30)
-        w00, w01, w10, w11 = p00 * r, p01 * r, w00 * r, w01 * r
-
-    # phase B: the window maps one after another, right to left; the pair
-    # (p, q) entering each window gives its boundary pivot p/q
-    p = torch.ones_like(w00[..., 0])
-    q = torch.zeros_like(p)
-    hb0, hb1 = [None] * nb, [None] * nb
-    for w in range(nb - 1, -1, -1):
-        hb0[w], hb1[w] = p, q
-        p2 = w00[..., w] * p + w01[..., w] * q
-        q2 = w10[..., w] * p + w11[..., w] * q
-        r = torch.rsqrt(p2**2 + q2**2 + 1e-30)
-        p, q = p2 * r, q2 * r
-    hb0, hb1 = torch.stack(hb0, dim=-1), torch.stack(hb1, dim=-1)
-    flat = hb1 == 0
-    d = torch.where(flat, torch.full_like(hb0, float("inf")),
-                    hb0 / torch.where(flat, torch.ones_like(hb1), hb1))
-
-    # phase C: exact recursion inside each window
-    outs = [None] * l
-    for i in range(l - 1, -1, -1):
-        d = kdb[..., i] - b2b[..., i] / d
-        outs[i] = d
-    return _unblockify(torch.stack(outs, dim=-1), n) * s
+    return sweep_windows_plain(kd, b2, nb, l, 1e-30)
 
 
 @functools.lru_cache(maxsize=256)
@@ -128,10 +82,7 @@ def launch_shape(batch: int, n: int, device=0, windows: Optional[Tuple[int, int]
     cut into chunks of shared memory (one chunk: the run stays resident)."""
     dev = torch.device("cuda", device) if isinstance(device, int) else torch.device(device)
     nb, l = window_shape(n) if windows is None else windows
-    grid, bps, threads, per_block, per_chunk, smem = _plan(dev.index or 0, batch, nb, l)
-    return {"windows": nb, "window_length": l, "grid": grid, "blocks_per_sequence": bps,
-            "threads_per_block": threads, "windows_per_block": per_block,
-            "windows_per_chunk": per_chunk, "shared_memory_bytes": smem}
+    return sweep_launch_shape(_plan(dev.index or 0, batch, nb, l), nb, l)
 
 
 def _forward(kd: torch.Tensor, b2: torch.Tensor,

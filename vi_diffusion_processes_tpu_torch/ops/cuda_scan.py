@@ -8,29 +8,39 @@ kernels, written by hand for Hopper in ``csrc/cuda_scan.cu``:
 * :func:`linear_recurrence` (K2) replaces ``pallas_scan.py::linear_recurrence``
   (``_linrec_kernel_df``/``_linrec_kernel_f32``): ``x_k = t_k·x_{k∓1} + c_k``.
 * :func:`dist_q_1d_planes` (K3) replaces ``pallas_scan.py::dist_q_1d_planes``
-  (``_dist_q_kernel``): naturals → SSM params → marginals in one launch.
+  (``_dist_q_kernel``): naturals → SSM params → marginals, in two launches
+  (the pivot sweep, then the affine phases).
 
 What bounds them on the card is the latency of a sequential dependency
-chain, not bytes: at T = 100k an f64 plane is 0.8 MB.  All three spread one
-sequence over many SMs in one launch: tiles of 256 threads × 2 contiguous
-elements (coalesced loads), each thread composing its pair's map,
-warp-shuffle scans inside a tile and, when a sequence has several blocks, a
-cooperative launch whose blocks exchange their aggregate maps across a grid
-sync (one for K1 and K2, three for K3); the pair is then re-run exactly
-from its boundary value.  K1 is K3's pivot-sweep phase alone.
-:func:`launch_shape` gives the grid the launcher picks from the batch, the
-SM count and the kernel's occupancy; at a batch too large for two blocks a
-sequence, it is one block each.
+chain, not bytes: at T = 100k an f64 plane is 0.8 MB.  The pivot sweep (K1,
+and the first of K3's two launches) is ``csrc/sweep_windows.cuh``'s
+windowed sweep, K4's design in float64: one thread per window composes the
+window's Möbius map, one thread walks the window maps in sequence, and one
+thread per window runs the exact recursion from its entry pivot, on
+:func:`window_shape`'s windows, one block per SM a sequence (a cooperative
+launch with one grid sync).  Its products stay in sequential order: a tree
+of composed Möbius maps loses digits where a window boundary falls on a
+small gap (1e-9 on a Matern12 chain: 1e-8 of the pivot there, against the
+recursion's 1e-11).  The affine scans (K2, and K3's ``dist_q_kernel``)
+spread one sequence over many SMs in one launch: tiles of 256 threads × 2
+contiguous elements (coalesced loads), each thread composing its pair's
+affine map, warp-shuffle scans inside a tile and, when a sequence has
+several blocks, a cooperative launch whose blocks exchange their aggregate
+maps across a grid sync (one for K2, three for K3); the pair is then re-run
+exactly from its boundary value.  :func:`launch_shape` gives the grid each
+launcher picks from the batch, the SM count and the kernel's occupancy; at
+a batch too large for two blocks a sequence, it is one block each.
 
 Each wrapper checks device, dtype, shape and contiguity, launches its kernel
 for CUDA tensors and calls the plain version for CPU tensors; it raises on
 anything else, a refused launch included.  The plain versions run the same
-windowed algorithm in PyTorch (sequential over the window length,
-vectorised over windows, a Hillis–Steele scan across windows), on any
-device; ``windows=`` sets their window count, so that the CPU tests can
-reach the kernels' edge cases (windows of one or two elements, empty
-trailing windows).  Each wrapper carries a plain-int ``launches`` count,
-raised by one where it launches its kernel.
+windowed algorithms in PyTorch (sequential over the window length,
+vectorised over windows), on any device: K2's a Hillis–Steele scan across
+windows, the sweep's (:func:`sweep_windows_plain`) a walk over the window
+maps in sequence, on the kernel's windows.  ``windows=`` sets their window
+count, so that the CPU tests can reach the kernels' edge cases (windows of
+one or two elements, empty trailing windows).  Each wrapper carries a
+plain-int ``launches`` count, raised by one where it launches its kernel.
 
 Each forward launch is registered as a ``torch.library.custom_op``
 (``vidp_torch::riccati_d_sweep``, ``::linear_recurrence``,
@@ -48,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -84,6 +95,20 @@ def _chunking(n: int, windows: Optional[int] = None) -> Tuple[int, int]:
     return -(-n // l), l
 
 
+#: ``l ≈ √(WINDOW_RATIO·N)`` in the sweep's windows (K1 and K4): the cost
+#: of a step of the boundary pass over that of a step of phase A plus one
+#: of phase C
+WINDOW_RATIO = 0.55
+
+
+def window_shape(n: int) -> Tuple[int, int]:
+    """``(nb, l)`` of the sweep (K1 and K4, kernel and plain version) for
+    ``n`` elements: ``l`` odd and near ``√(WINDOW_RATIO·n)``,
+    ``nb = ceil(n / l)``."""
+    l = max(1, round(math.sqrt(WINDOW_RATIO * n))) | 1
+    return max(1, -(-n // l)), l
+
+
 def _blockify(x: torch.Tensor, nb: int, l: int, fill: float) -> torch.Tensor:
     """[..., n] → [..., nb, l]; window w owns the chunk [w·l, (w+1)·l)."""
     pad = nb * l - x.shape[-1]
@@ -108,63 +133,76 @@ def _shift(x: torch.Tensor, sh: int, fill: float, toward_start: bool) -> torch.T
     return torch.cat([f, x[..., :-sh]], dim=-1)
 
 
+def sweep_windows_plain(kd: torch.Tensor, b2: torch.Tensor, nb: int, l: int,
+                       eps: float) -> torch.Tensor:
+    """The pivot sweep ``D_k = kd_k − b2_k/D_{k+1}`` over ``[..., N]`` in the
+    input dtype, on ``nb`` windows of ``l`` elements (``nb·l ≥ N``; the
+    windows past the end padded with ``kd~ = 1, b2~ = 0``), in sequential
+    order as the kernels K1 and K4 take it:
+
+    A. each window's Möbius map ``W ← M_i W``, right to left, with
+       ``M_i = [[kd~_i, −b2~_i], [1, 0]]``, normalised after every step;
+    B. the pivot entering each window: the window maps applied to a vector
+       one after another from the right (``btd.py:750-765``), normalised
+       after every step (a window map can shrink it by orders of
+       magnitude, past float32's range within a few windows).  A tree of
+       composed maps loses their subdominant direction, which a window
+       boundary on a small gap turns into 1e-8 of the pivot: the product's
+       columns cancel where the sequence's vector does not;
+    C. the exact recursion inside each window from that pivot.
+
+    The diagonal preconditioning ``s = √b2``, else ``|kd| + eps``, keeps each
+    map O(1)-conditioned (``kd~ = kd/s``, ``b2~ = b2/(s·s_next)``); the
+    output is ``D~·s``."""
+    n = kd.shape[-1]
+    s = torch.where(b2 > 0, torch.sqrt(b2), torch.abs(kd) + eps)
+    s_next = torch.cat([s[..., 1:], torch.ones_like(s[..., :1])], dim=-1)
+    # [l, ..., nb, 1]: element i of every window
+    kdb = _blockify(kd / s, nb, l, 1.0).movedim(-1, 0).unsqueeze(-1)
+    b2b = _blockify(b2 / (s * s_next), nb, l, 0.0).movedim(-1, 0).unsqueeze(-1)
+
+    # A: W = (w00, w01, w10, w11) on the last axis; the new bottom row is
+    # the old top row
+    w = kd.new_tensor([1.0, 0.0, 0.0, 1.0]).expand(kdb.shape[1:-1] + (4,))
+    for i in range(l - 1, -1, -1):
+        top = torch.addcmul(kdb[i] * w[..., :2], b2b[i], w[..., 2:], value=-1.0)
+        w = torch.cat([top, w[..., :2]], dim=-1)
+        w = w * torch.rsqrt(torch.sum(w * w, dim=-1, keepdim=True) + eps)
+
+    # B: the pair (p, q) entering each window; D~ = p/q, or +inf where
+    # q = 0 (past the last window: b2 = 0 at N−1 makes the first real step
+    # forget it)
+    maps = w.unflatten(-1, (2, 2)).movedim(-3, 0)  # [nb, ..., 2, 2]
+    v = kd.new_tensor([1.0, 0.0]).expand(maps.shape[1:-1])
+    entering = [None] * nb
+    for k in range(nb - 1, -1, -1):
+        entering[k] = v
+        v = torch.sum(maps[k] * v[..., None, :], dim=-1)
+        v = v * torch.rsqrt(torch.sum(v * v, dim=-1, keepdim=True) + eps)
+    pq = torch.stack(entering, dim=-2)
+    flat = pq[..., 1] == 0
+    d = torch.where(flat, torch.full_like(pq[..., 0], float("inf")),
+                    pq[..., 0] / torch.where(flat, torch.ones_like(pq[..., 1]), pq[..., 1]))
+
+    # C
+    outs = [None] * l
+    for i in range(l - 1, -1, -1):
+        d = torch.addcdiv(kdb[i][..., 0], b2b[i][..., 0], d, value=-1.0)
+        outs[i] = d
+    return _unblockify(torch.stack(outs, dim=-1), n) * s
+
+
 def riccati_d_sweep_plain(
     kd: torch.Tensor, b2: torch.Tensor, *, windows: Optional[int] = None
 ) -> torch.Tensor:
     """Plain PyTorch K1: ``D_k = kd_k − b2_k/D_{k+1}`` over f64 ``[..., N]``
-    (``b2[..., N−1] = 0``), by the windowed Möbius algorithm of
-    ``btd.py::_riccati_d_xla`` with the diagonal preconditioning of
+    (``b2[..., N−1] = 0``), by :func:`sweep_windows_plain` on the kernel's
+    windows (:func:`window_shape`) with the preconditioning of
     ``pallas_scan.py::_ric_fwd`` (``s = √b2``, else ``|kd| + 1e-300``).
-    ``windows`` sets the window count (see :func:`_chunking`)."""
+    ``windows`` sets the window count instead (see :func:`_chunking`)."""
     n = kd.shape[-1]
-    s = torch.where(b2 > 0, torch.sqrt(b2), torch.abs(kd) + 1e-300)
-    s_next = torch.cat([s[..., 1:], torch.ones_like(s[..., :1])], dim=-1)
-    kd_t = kd / s
-    b2_t = b2 / (s * s_next)
-    nb, l = _chunking(n, windows)
-    kdb = _blockify(kd_t, nb, l, 1.0)
-    b2b = _blockify(b2_t, nb, l, 0.0)
-
-    # phase A: each window's Möbius map, right to left
-    w00 = torch.ones_like(kdb[..., 0])
-    w01 = torch.zeros_like(w00)
-    w10 = torch.zeros_like(w00)
-    w11 = torch.ones_like(w00)
-    for i in range(l - 1, -1, -1):
-        p00 = kdb[..., i] * w00 - b2b[..., i] * w10
-        p01 = kdb[..., i] * w01 - b2b[..., i] * w11
-        r = torch.rsqrt(p00**2 + p01**2 + w00**2 + w01**2 + 1e-300)
-        w00, w01, w10, w11 = p00 * r, p01 * r, w00 * r, w01 * r
-
-    # phase B: suffix scan of the window maps (earlier window = left factor)
-    sh = 1
-    while sh < nb:
-        p00 = _shift(w00, sh, 1.0, True)
-        p01 = _shift(w01, sh, 0.0, True)
-        p10 = _shift(w10, sh, 0.0, True)
-        p11 = _shift(w11, sh, 1.0, True)
-        n00 = w00 * p00 + w01 * p10
-        n01 = w00 * p01 + w01 * p11
-        n10 = w10 * p00 + w11 * p10
-        n11 = w10 * p01 + w11 * p11
-        r = torch.rsqrt(n00**2 + n01**2 + n10**2 + n11**2 + 1e-300)
-        w00, w01, w10, w11 = n00 * r, n01 * r, n10 * r, n11 * r
-        sh *= 2
-    # pivot entering each window from the right; the identity past the last
-    # window gives 1/0, replaced by 1 (b2 = 0 at the end resets the sweep)
-    t00 = _shift(w00, 1, 1.0, True)
-    t10 = _shift(w10, 1, 0.0, True)
-    degenerate = t10 == 0
-    d = torch.where(degenerate, torch.ones_like(t00), t00) / torch.where(
-        degenerate, torch.ones_like(t10), t10
-    )
-
-    # phase C: exact recursion inside each window
-    outs = [None] * l
-    for i in range(l - 1, -1, -1):
-        d = kdb[..., i] - b2b[..., i] / d
-        outs[i] = d
-    return _unblockify(torch.stack(outs, dim=-1), n) * s
+    nb, l = window_shape(n) if windows is None else _chunking(n, windows)
+    return sweep_windows_plain(kd, b2, nb, l, 1e-300)
 
 
 def linear_recurrence_plain(
@@ -270,18 +308,18 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
 
-#: kernel index of ``vidp_scan_shape``: (K2 f32, K2 f64, K3 f32 out, K3 f64 out, K1)
+#: kernel index of ``vidp_scan_shape``: (K2 f32, K2 f64, K3 f32 out, K3 f64 out)
 _SCAN_KERNELS = {("linear_recurrence", torch.float32): 0,
                  ("linear_recurrence", torch.float64): 1,
                  ("dist_q_1d_planes", torch.float32): 2,
-                 ("dist_q_1d_planes", torch.float64): 3,
-                 ("riccati_d_sweep", torch.float64): 4}
+                 ("dist_q_1d_planes", torch.float64): 3}
 
 
 @functools.lru_cache(maxsize=256)
 def _scan_shape(which: int, device: int, batch: int, n: int) -> Tuple[int, ...]:
     """(grid, blocks per sequence, threads per block, tile, elements of
-    aggregate scratch per block) that the launcher of K1, K2 or K3 picks."""
+    aggregate scratch per block) that the launcher of K2 or K3's
+    ``dist_q_kernel`` picks."""
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
         err = _lib().vidp_scan_shape(which, batch, n, out)
@@ -290,16 +328,44 @@ def _scan_shape(which: int, device: int, batch: int, n: int) -> Tuple[int, ...]:
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=256)
+def _sweep_plan(device: int, naturals: bool, batch: int, nb: int, l: int) -> Tuple[int, ...]:
+    """(grid, blocks per sequence, threads per block, windows per block,
+    windows per chunk, bytes of dynamic shared memory) of the float64
+    sweep: K1's, or with ``naturals`` K3's phase R."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        err = _lib().vidp_riccati_f64_shape(int(naturals), batch, nb, l, out)
+    if err != 0:
+        raise RuntimeError(f"vidp_riccati_f64_shape failed with cudaError_t {err}")
+    return tuple(out)
+
+
+def sweep_launch_shape(plan: Tuple[int, ...], nb: int, l: int) -> dict:
+    """A windowed sweep's launch (K1, K3's phase R, K4) as a dict."""
+    grid, bps, threads, per_block, per_chunk, smem = plan
+    return {"windows": nb, "window_length": l, "grid": grid, "blocks_per_sequence": bps,
+            "threads_per_block": threads, "windows_per_block": per_block,
+            "windows_per_chunk": per_chunk, "shared_memory_bytes": smem}
+
+
 def launch_shape(name: str, dtype: torch.dtype, batch: int, n: int, device=0) -> dict:
-    """The launch that K1 (``name="riccati_d_sweep"``, float64), K2
-    (``"linear_recurrence"``, ``dtype`` of the data) or K3
-    (``"dist_q_1d_planes"``, ``dtype`` of the outputs) makes for ``batch``
-    sequences of ``n`` elements on a CUDA ``device``."""
-    dev = torch.device("cuda", device) if isinstance(device, int) else torch.device(device)
-    grid, bps, threads, tile, _ = _scan_shape(_SCAN_KERNELS[name, dtype], dev.index or 0,
-                                              batch, n)
-    return {"grid": grid, "blocks_per_sequence": bps, "threads_per_block": threads,
-            "tile": tile}
+    """The launch that K1 (``name="riccati_d_sweep"``, float64: its windows,
+    grid and chunks of shared memory), K2 (``"linear_recurrence"``,
+    ``dtype`` of the data: grid and tile) or K3 (``"dist_q_1d_planes"``,
+    ``dtype`` of the outputs: ``dist_q_kernel``'s grid and tile, and its
+    sweep's launch under ``"sweep"``) makes for ``batch`` sequences of
+    ``n`` elements on a CUDA ``device``."""
+    dev = (torch.device("cuda", device) if isinstance(device, int) else torch.device(device)).index or 0
+    nb, l = window_shape(n)
+    if name == "riccati_d_sweep":
+        return sweep_launch_shape(_sweep_plan(dev, False, batch, nb, l), nb, l)
+    grid, bps, threads, tile, _ = _scan_shape(_SCAN_KERNELS[name, dtype], dev, batch, n)
+    shape = {"grid": grid, "blocks_per_sequence": bps, "threads_per_block": threads,
+             "tile": tile}
+    if name == "dist_q_1d_planes":
+        shape["sweep"] = sweep_launch_shape(_sweep_plan(dev, True, batch, nb, l), nb, l)
+    return shape
 
 
 def _riccati_forward(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
@@ -308,12 +374,12 @@ def _riccati_forward(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(kd)
     if out.numel():
         batch, n = _batch(kd), kd.shape[-1]
-        grid, *_, per_block = _scan_shape(_SCAN_KERNELS["riccati_d_sweep", kd.dtype],
-                                          kd.device.index, batch, n)
-        agg = torch.empty(grid * per_block, dtype=kd.dtype, device=kd.device)
+        nb, l = window_shape(n)
+        # the windows' maps (4 doubles each), then their entry pairs (2)
+        scratch = torch.empty(6 * batch * nb, dtype=kd.dtype, device=kd.device)
         with torch.cuda.device(kd.device):
             _launch("riccati_d_sweep", _lib().vidp_riccati_f64, _ptr(kd), _ptr(b2),
-                    _ptr(out), _ptr(agg), batch, n)
+                    _ptr(out), _ptr(scratch), batch, n, nb, l)
         riccati_d_sweep.launches += 1
     return out
 
@@ -452,17 +518,19 @@ def _dist_q_buffers(nat1, nat2d, nat2s, out_dtype):
     )
     batch = _batch(nat1)
     if batch:
-        # u, covs and w in f64, then the blocks' aggregate maps
+        # u, covs and w in f64, the sweep's 6 doubles a window, then the
+        # blocks' aggregate maps
         grid, *_, per_block = _scan_shape(_SCAN_KERNELS["dist_q_1d_planes", out_dtype],
                                           nat1.device.index, batch, n)
-        scratch = torch.empty(3 * batch * n + grid * per_block, dtype=torch.float64,
-                              device=nat1.device)
+        nb, l = window_shape(n)
+        scratch = torch.empty(3 * batch * n + 6 * batch * nb + grid * per_block,
+                              dtype=torch.float64, device=nat1.device)
         lib = _lib()
         fn = lib.vidp_dist_q_1d_f64 if out_dtype == torch.float64 else lib.vidp_dist_q_1d_f32
         with torch.cuda.device(nat1.device):
             _launch("dist_q_1d_planes", fn, _ptr(nat1), _ptr(nat2d), _ptr(nat2s),
                     _ptr(scratch), _ptr(covs), _ptr(a), _ptr(w), _ptr(means),
-                    _ptr(varis), batch, n)
+                    _ptr(varis), batch, n, nb, l)
         dist_q_1d_planes.launches += 1
     return covs, a, w, means, varis
 

@@ -37,6 +37,7 @@ __all__ = [
     "ssm_kl_with_grads_wrt_exp_params",
     "sde_ssm_kl_with_grads_wrt_exp_params",
     "transform_girsanov_sites",
+    "tranform_girsanov_sites",
 ]
 
 
@@ -271,3 +272,7 @@ def transform_girsanov_sites(
         nat2_diag=girsanov_sites.nat2_diag + old.nat2_diag - new.nat2_diag,
         nat2_sub=girsanov_sites.nat2_sub + old.nat2_sub - new.nat2_sub,
     )
+
+
+#: the reference's misspelled name of the same function (sde/utils.py:295)
+tranform_girsanov_sites = transform_girsanov_sites

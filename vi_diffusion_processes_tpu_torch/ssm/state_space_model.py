@@ -178,7 +178,10 @@ class StateSpaceModel:
         ``scalar_affine_all`` (kernel K2 on CUDA, one row per sample), at
         d ≥ 2 the associative scan over ``(A, b̃)``.  ``generator`` must live
         on the tensors' device; the stream is PyTorch's own, so samples agree
-        with the JAX package's in their moments only."""
+        with the JAX package's in their moments only.  ``generator`` may
+        instead be a draw source, ``generator(shape, dtype=, device=)`` → a
+        tensor of standard normals, which takes the place of ``torch.randn``
+        (a comparison feeds both packages the same draws so)."""
         from ..ops.btd import affine_scan
 
         sample_shape = tuple(sample_shape)
@@ -187,6 +190,8 @@ class StateSpaceModel:
         lead = sample_shape + self.batch_shape
 
         def normal(shape):
+            if callable(generator):  # a draw source standing in for torch.randn
+                return generator(shape, dtype=like.dtype, device=like.device)
             return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
 
         eps0 = normal(lead + (d,))
@@ -270,6 +275,10 @@ class StateSpaceModel:
         diag = torch.cat(
             [precisions[..., :-1, :, :] + at_qinv_a, precisions[..., -1:, :, :]], dim=-3)
         return BTD(diag=diag, sub=-q_inv_a)
+
+
+#: the names of a :class:`StateSpaceModel`'s tensor fields, in order
+SSM_FIELDS = tuple(f.name for f in dataclasses.fields(StateSpaceModel))
 
 
 def ssm_from_covariances(
