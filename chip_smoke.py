@@ -379,7 +379,7 @@ def phase_build() -> None:
     log(f"[build] {_build.build_seconds():.2f} s nvcc, {time.perf_counter() - t0:.2f} s "
         f"to build and load, into {_build.BUILD_DIR}")
     for line in _build.ptxas_report().splitlines():
-        if "Compiling entry" in line or "registers" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
 
@@ -547,6 +547,8 @@ def phase_kernels(dev) -> dict:
             rec["ms"] = median_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s))
             rec["device_ms"] = device_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s),
                                          K3_KERNELS, "dist_q_1d_planes")
+            rec["sweep_device_ms"] = device_ms(lambda: cs.dist_q_1d_planes(nat1, nat2d, nat2s),
+                                               K3_KERNELS[0], "dist_q_1d_planes")
             rec["plain_ms"] = median_ms(lambda: cs.dist_q_1d_planes_plain(nat1, nat2d, nat2s))
     _interior_zeros(dev, result)
     for name, dtype in (("linear_recurrence", torch.float64), ("linear_recurrence", torch.float32),
@@ -557,24 +559,40 @@ def phase_kernels(dev) -> dict:
             f"threads per block, tiles of {shape['tile']} elements")
         if not (shape["grid"] > 1 and shape["blocks_per_sequence"] > 1):
             raise AssertionError(f"{name} runs one sequence on one block")
-    # the windowed sweeps: K1, K3's first launch, K4
-    for name, dtype, shape in (
-            ("riccati_d_sweep", "float64", cs.launch_shape("riccati_d_sweep", torch.float64, 1,
-                                                          T_FLAGSHIP, dev)),
-            ("dist_q_1d_planes sweep", "float64",
-             cs.launch_shape("dist_q_1d_planes", torch.float32, 1, T_FLAGSHIP, dev)["sweep"]),
-            ("riccati_d_sweep_f32", "float32", cuda_riccati.launch_shape(1, T_FLAGSHIP, dev))):
-        log(f"[launch] {name} ({dtype}) batch 1 T={T_FLAGSHIP}: grid {shape['grid']}, "
+    # the windowed sweeps: K1, K3's first launch, K4; each chain step's device
+    # time is the launch's device time over 2·l + nb
+    sweeps = {
+        "riccati_d_sweep": ("float64", cs.launch_shape("riccati_d_sweep", torch.float64, 1,
+                                                       T_FLAGSHIP, dev)),
+        "dist_q_1d_planes": ("float64", cs.launch_shape("dist_q_1d_planes", torch.float32, 1,
+                                                        T_FLAGSHIP, dev)["sweep"]),
+        "riccati_d_sweep_f32": ("float32", cuda_riccati.launch_shape(1, T_FLAGSHIP, dev)),
+    }
+    for name, (dtype, shape) in sweeps.items():
+        label = name + " sweep" if name == "dist_q_1d_planes" else name
+        log(f"[launch] {label} ({dtype}) batch 1 T={T_FLAGSHIP}: grid {shape['grid']}, "
             f"{shape['blocks_per_sequence']} blocks per sequence, {shape['threads_per_block']} "
-            f"threads per block, {shape['windows']} windows of {shape['window_length']} elements, "
-            f"{shape['windows_per_block']} a block in chunks of {shape['windows_per_chunk']}, "
-            f"{shape['shared_memory_bytes']} bytes of dynamic shared memory")
+            f"threads per block, windows (nb, l) = ({shape['windows']}, "
+            f"{shape['window_length']}), chain 2·l + nb = {shape['chain_steps']} steps, "
+            f"normalisation stride {shape['normalisation_stride']}, "
+            f"{shape['windows_per_block']} windows a block in chunks of "
+            f"{shape['windows_per_chunk']}, {shape['shared_memory_bytes']} bytes of dynamic "
+            f"shared memory")
         if not (shape["grid"] > 1 and shape["blocks_per_sequence"] > 1):
-            raise AssertionError(f"{name} runs one sequence on one block")
+            raise AssertionError(f"{label} runs one sequence on one block")
     for name, rec in result.items():
+        chain = ""
+        if name in sweeps:
+            shape = sweeps[name][1]
+            sweep_ms = rec.get("sweep_device_ms", rec["device_ms"])
+            rec["chain_ns_per_step"] = sweep_ms * 1e6 / shape["chain_steps"]
+            chain = (f"; sweep {sweep_ms:.5f} ms on windows ({shape['windows']}, "
+                     f"{shape['window_length']}), chain {shape['chain_steps']} steps, stride "
+                     f"{shape['normalisation_stride']}, {rec['chain_ns_per_step']:.2f} ns device "
+                     f"per chain step")
         log(f"[kernels] {name} T={T_FLAGSHIP}: kernel {rec['ms']:.4f} ms host clock, "
             f"{rec['device_ms']:.5f} ms device per launch, plain {rec['plain_ms']:.4f} ms "
-            f"(median of {REPS}); bound {rec['bound'][0]:.6f} ms ({rec['bound'][1]})")
+            f"(median of {REPS}); bound {rec['bound'][0]:.6f} ms ({rec['bound'][1]}){chain}")
     return result
 
 

@@ -2,7 +2,8 @@
 
     python3 profile_step.py [--root DIR] [--label NAME]
         [--x64-off [--k4-windows NB L] | --batched | --vdp | --prior | --k4-shapes
-         | --gpr | --scan | --vanderpol | --cvi-poisson | --spatio | --sharded | --routes]
+         | --gpr | --scan | --vanderpol | --cvi-poisson | --spatio | --sharded | --routes
+         | --generic]
 
 Imports ``vi_diffusion_processes_tpu_torch`` from ``DIR`` (default: this
 checkout), so that two trees can be compared in one run on one card.
@@ -16,8 +17,14 @@ runs the flagship with the float64 policy off (float32 naturals, kernel K4);
 ``--k4-windows NB L`` then runs K4 on those windows in place of
 ``window_shape``'s, to tell a change of rounding order from a fault.
 Last, the device time per launch of the pivot sweeps K1 (``riccati_d_sweep``,
-off the packed step) and K4 (``riccati_d_sweep_f32``) over 20 calls at
-T = 100,000.
+off the packed step), K3 (``dist_q_1d_planes``: both launches, and its sweep
+alone) and K4 (``riccati_d_sweep_f32``) over 20 calls at T = 100,000, with
+the sweeps' windows, chain length and device ns per chain step.
+
+``--generic`` times the generic d = 1 step on the flagship's data
+(``CVISitesTrainer(use_packed=False)``'s inner iteration: both site updates
+and ``classic_elbo``, five ``dist_q`` a step, each one K1 and four K2):
+median of 7 runs of 4 steps, then ``torch.profiler`` over 2.
 
 ``--batched`` times and profiles ``packed_natgrad_step_batched`` the same
 way on ``chip_smoke.py``'s batched configuration (8 flagship models at
@@ -138,6 +145,9 @@ def _device_ms(fn, kernel, calls: int = 20) -> float:
 #: the sweeps' kernel names: csrc/sweep_windows.cuh's, then those of the
 #: trees before it, which --root may name
 K1_NAMES = ("sweep_kernel<double", "riccati_kernel")
+#: a K3 call launches the sweep on the naturals, then dist_q_kernel
+K3_NAMES = ("sweep_kernel<double", "dist_q_kernel")
+K3_SWEEP_NAMES = ("sweep_kernel<double",)
 K4_NAMES = ("sweep_kernel<float", "riccati_f32_kernel")
 
 
@@ -149,16 +159,52 @@ def _sweep_inputs(dev):
 
 
 def sweeps_device_ms(dev) -> dict:
-    """Device time per launch of K1 and K4 over 20 calls on random inputs."""
+    """Device time per launch of K1, K3 (both launches, and its sweep alone)
+    and K4 over 20 calls on random inputs, and of each windowed sweep its
+    windows ``(nb, l)``, its chain of ``2·l + nb`` steps and the device ns
+    per chain step."""
     from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
     from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import riccati_d_sweep_f32
 
     kd, b2 = _sweep_inputs(dev)
     kd4, b24 = kd.float(), b2.float()
-    return {"k1_device_ms_per_launch": _device_ms(lambda: cs.riccati_d_sweep(kd, b2),
-                                                  K1_NAMES),
-            "k4_device_ms_per_launch": _device_ms(lambda: riccati_d_sweep_f32(kd4, b24),
-                                                  K4_NAMES)}
+    nat1 = torch.tensor(np.random.default_rng(1).normal(size=T), device=dev)
+    nat2d, nat2s = -0.5 * kd, -torch.sqrt(b2[:-1])
+
+    def k3():
+        return cs.dist_q_1d_planes(nat1, nat2d, nat2s)
+
+    out = {"k1_device_ms_per_launch": _device_ms(lambda: cs.riccati_d_sweep(kd, b2), K1_NAMES),
+           "k3_device_ms_per_launch": _device_ms(k3, K3_NAMES) * 2,
+           "k3_sweep_device_ms_per_launch": _device_ms(k3, K3_SWEEP_NAMES),
+           "k4_device_ms_per_launch": _device_ms(lambda: riccati_d_sweep_f32(kd4, b24), K4_NAMES)}
+    nb, l = cs.window_shape(T)
+    out["sweep_windows"], out["sweep_chain_steps"] = [nb, l], 2 * l + nb
+    for key in ("k1", "k3_sweep", "k4"):
+        out[f"{key}_ns_per_chain_step"] = out[f"{key}_device_ms_per_launch"] * 1e6 / (2 * l + nb)
+    return out
+
+
+def generic_stepper(dev):
+    """``(advance, model)`` of the generic d = 1 step on the flagship
+    (``CVISitesTrainer(use_packed=False)``'s inner iteration: both site
+    updates, then ``classic_elbo``; five ``dist_q``, each K1 and four K2)."""
+    from vi_diffusion_processes_tpu_torch.exp.data import build_prior_sde
+    from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
+
+    smoke = _chip_smoke()
+    model, obs_idx, obs_y = smoke.flagship_model(T, torch.float32, dev)
+    data = smoke.flagship_dataset(model.time_grid, obs_idx, obs_y, dev)
+    model = CVISitesSDE.initialize_sde(
+        build_prior_sde("dw", q=0.8, device=dev), data.time_grid,
+        (data.obs_times, data.obs_values), Gaussian(data.noise_stddev**2).to(dev))
+
+    def advance(m):
+        m = m.update_data_sites(LR).update_girsanov_sites(LR)
+        return m, m.classic_elbo()
+
+    return advance, model
 
 
 def k4_shapes(dev) -> dict:
@@ -611,6 +657,7 @@ def main() -> None:
     mode.add_argument("--spatio", action="store_true")
     mode.add_argument("--sharded", action="store_true")
     mode.add_argument("--routes", action="store_true")
+    mode.add_argument("--generic", action="store_true")
     ap.add_argument("--k4-windows", type=int, nargs=2, metavar=("NB", "L"))
     ap.add_argument("--label", default="")
     args = ap.parse_args()
@@ -659,19 +706,23 @@ def main() -> None:
         advance, state = batched_stepper(dev)
     elif args.vdp:
         advance, state = vdp_stepper(dev)
+    elif args.generic:
+        advance, state = generic_stepper(dev)
     else:
         model = flagship(dev)
         advance, state = (lambda s: packed_natgrad_step(model, s, LR)), pack_state(model)
     for _ in range(5):
         state, elbo = advance(state)
-    record, state, elbo = time_and_profile(advance, state, runs=7, steps=32, profiled=8)
+    runs, steps, profiled = (7, 4, 2) if args.generic else (7, 32, 8)
+    record, state, elbo = time_and_profile(advance, state, runs, steps, profiled)
     if args.vdp:
         elbo = advance.elbo(state)
-    # K1 and K4 alone, beside the steps that may run them
-    sweeps = {} if args.batched or args.vdp else sweeps_device_ms(dev)
+    # K1, K3 and K4 alone, beside the steps that may run them
+    sweeps = {} if args.batched or args.vdp or args.generic else sweeps_device_ms(dev)
     print(json.dumps({
         "label": args.label, "root": args.root, "x64_off": args.x64_off,
-        "batched": args.batched, "vdp": args.vdp, "k4_windows": args.k4_windows,
+        "batched": args.batched, "vdp": args.vdp, "generic": args.generic,
+        "k4_windows": args.k4_windows,
         "elbo": float(elbo), **record, **sweeps,
     }), flush=True)
 

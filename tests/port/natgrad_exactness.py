@@ -15,7 +15,8 @@ between the two lengthscales (the one-ulp sensitivity of the route).
     python -m tests.port.natgrad_exactness --sweep  # the pivot sweep alone
 
 ``--sweep`` prints, on a Matern12 chain whose smallest gap (1e-9) joins two
-windows (:func:`chain_with_a_small_gap`), the largest relative error
+windows (:func:`chain_with_a_small_gap`: of 64 windows at 4,096 points, and
+of the kernel's own at 4,096 and 100,000), the largest relative error
 against a long-double recursion of the float64 sequential recursion, of
 K1's plain version on the CPU and, where there is a card, of K1 itself.
 """
@@ -52,33 +53,88 @@ def chain_with_a_small_gap(n=4096, windows=64, gap=1e-9, lengthscale=0.7, site=2
     return kd, np.concatenate([(a / q) ** 2, [0.0]])
 
 
+def chain_with_magnitudes(n=4096, windows=64, exponent=498, seed=5):
+    """:func:`chain_with_a_small_gap` under a diagonal similarity that is
+    constant in each window: ``kd_k·c_k²``, ``b2_k·c_k²·c_{k+1}²`` with
+    ``c² = 2^e``, ``e`` drawn per window from ``[−exponent, exponent]`` (498:
+    ``kd`` and ``b2`` span 1e±150 across windows).  Its pivots are the small
+    gap chain's times ``c²``; powers of two keep the float64 inputs, and the
+    float64 recursion's roundings, those of the unscaled chain.  Returns
+    ``(kd, b2, c²)``."""
+    kd, b2 = chain_with_a_small_gap(n, windows)
+    e = np.random.default_rng(seed).integers(-exponent, exponent + 1, windows)
+    c2 = np.ldexp(1.0, np.repeat(e, -(-n // windows))[:n])
+    return kd * c2, b2 * c2 * np.append(c2[1:], 1.0), c2
+
+
+def chain_with_weak_couplings(n=4096, windows=64, decades=300, seed=6):
+    """``kd`` in [2, 3] and ``b2 = 0.2·kd_k·kd_{k+1}·10^−c`` with ``c`` drawn
+    per window from ``[0, decades]``: the preconditioned ``kd~ = kd/s``
+    reaches 1e150 at every element of a weakly coupled window."""
+    rng = np.random.default_rng(seed)
+    kd = rng.uniform(2.0, 3.0, n)
+    c = np.repeat(rng.uniform(0.0, decades, windows), -(-n // windows))[:n]
+    return kd, 0.2 * kd * np.append(kd[1:], 0.0) * 10.0 ** -c
+
+
+def chain_with_a_zero(n=4096, windows=64, at="pivot_first", seed=7):
+    """A random chain (``kd`` in [2, 3], ``b2`` in [0.1, 0.2]) with, on the
+    boundary between windows 19 and 20, a zero pivot (``kd = b2 = 0``: the
+    pivot is 0, the one before it −inf, the one before that ``kd``) at the
+    first element of window 20 (``at="pivot_first"``) or the last of window
+    19 (``"pivot_last"``), or a zero coupling (``b2 = 0``) at the last element
+    of window 19 (``"coupling"``)."""
+    rng = np.random.default_rng(seed)
+    kd = rng.uniform(2.0, 3.0, n)
+    b2 = 0.2 * rng.uniform(0.5, 1.0, n)
+    b2[-1] = 0.0
+    k = 20 * -(-n // windows) - (0 if at == "pivot_first" else 1)
+    b2[k] = 0.0
+    if at != "coupling":
+        kd[k] = 0.0
+    return kd, b2
+
+
 def sweep_errors(kd, b2, pivots) -> dict:
     """The largest relative error against a long-double recursion of the
-    float64 sequential recursion and of each of ``pivots`` (name → D)."""
+    float64 sequential recursion and of each of ``pivots`` (name → D).
+    Where the exact pivot is 0 or infinite, a pivot must equal it (else its
+    error is infinite)."""
     exact = np.empty(len(kd), np.longdouble)
     seq = np.empty(len(kd))
     exact[-1], seq[-1] = kd[-1], kd[-1]
-    for k in range(len(kd) - 2, -1, -1):
-        exact[k] = np.longdouble(kd[k]) - np.longdouble(b2[k]) / exact[k + 1]
-        seq[k] = kd[k] - b2[k] / seq[k + 1]
+    with np.errstate(divide="ignore"):
+        for k in range(len(kd) - 2, -1, -1):
+            exact[k] = np.longdouble(kd[k]) - np.longdouble(b2[k]) / exact[k + 1]
+            seq[k] = kd[k] - b2[k] / seq[k + 1]
+    regular = np.isfinite(exact) & (exact != 0)
 
     def rel(d):
-        return float(np.max(np.abs((np.asarray(d).astype(np.longdouble) - exact) / exact)))
+        d = np.asarray(d).astype(np.longdouble)
+        if not np.array_equal(d[~regular], exact[~regular]):
+            return float("inf")
+        return float(np.max(np.abs((d[regular] - exact[regular]) / exact[regular])))
 
     return {"float64_sequential": rel(seq), **{name: rel(d) for name, d in pivots.items()}}
 
 
 def sweep_record() -> dict:
+    """``sweep_errors`` on the small-gap chain with the gap on a boundary of
+    64 windows, and of the kernel's own windows at 4,096 and 100,000
+    points."""
     import torch
 
     from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
-    kd, b2 = chain_with_a_small_gap()
-    pivots = {"plain_cpu": cs.riccati_d_sweep_plain(torch.tensor(kd), torch.tensor(b2)).numpy()}
-    if torch.cuda.is_available():
-        on_card = [torch.tensor(x, device="cuda") for x in (kd, b2)]
-        pivots["k1_card"] = cs.riccati_d_sweep(*on_card).cpu().numpy()
-    return sweep_errors(kd, b2, pivots)
+    record = {}
+    for n, windows in ((4096, 64), (4096, 88), (100_000, 426)):
+        kd, b2 = chain_with_a_small_gap(n, windows)
+        pivots = {"plain_cpu": cs.riccati_d_sweep_plain(torch.tensor(kd), torch.tensor(b2)).numpy()}
+        if torch.cuda.is_available():
+            on_card = [torch.tensor(x, device="cuda") for x in (kd, b2)]
+            pivots["k1_card"] = cs.riccati_d_sweep(*on_card).cpu().numpy()
+        record[f"n={n} gap on a boundary of {windows} windows"] = sweep_errors(kd, b2, pivots)
+    return record
 
 
 def _record(elbo, loglik, marginals, ref_marginals) -> dict:

@@ -30,6 +30,7 @@ from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import (
 )
 
 from .helpers import affine_inputs, assert_close_scaled, naturals, riccati_inputs
+from .natgrad_exactness import chain_with_a_zero, chain_with_weak_couplings
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +78,58 @@ def test_riccati_kernel_edge_sizes(cuda_device, n, batch):
     assert cs.riccati_d_sweep.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), cs.riccati_d_sweep_plain(kd, b2).cpu().numpy(),
                                rtol=1e-10)
+
+
+def _extreme_chain(kind, n):
+    """A chain at the edges of float64's range on the kernels' windows
+    (``window_shape``), and the per-element factor ``c²`` of its magnitudes
+    (1 where it has none): the random chain of :func:`riccati_inputs` under
+    powers of two ``2^e``, ``e`` in [−498, 498] per window (1e±150), or the
+    chains of ``natgrad_exactness.py`` with their special element or weak
+    windows on the kernel's window boundaries."""
+    nb, l = window_shape(n)
+    c2 = np.ones(n)
+    if kind == "magnitudes":
+        kd, b2 = riccati_inputs(np.random.default_rng(n), n)
+        e = np.random.default_rng(5).integers(-498, 499, nb)
+        c2 = np.ldexp(1.0, np.repeat(e, l)[:n])
+        kd, b2 = kd * c2, b2 * c2 * np.append(c2[1:], 1.0)
+    elif kind == "weak_couplings":
+        kd, b2 = chain_with_weak_couplings(n, nb)
+    else:
+        kd, b2 = chain_with_a_zero(n, nb, at=kind)
+    return kd, b2, c2
+
+
+@pytest.mark.parametrize("kind", ["magnitudes", "weak_couplings", "pivot_first", "pivot_last",
+                                  "coupling"])
+@pytest.mark.parametrize("n", [4096, 100_000])
+def test_sweep_kernels_match_plain_on_extreme_chains(cuda_device, n, kind):
+    """K1 against the plain version (rtol 1e-10; the pivots 0 and −inf of a
+    zero pivot exactly), and on the power-of-two magnitudes its own run on
+    the unscaled chain times ``c²``, bit for bit; K3 (f64 out) against its
+    plain version on the naturals of the same chain (``covs`` to rtol 1e-10,
+    every output finite), where no pivot is 0."""
+    kd, b2, c2 = _extreme_chain(kind, n)
+    k1 = cs.riccati_d_sweep(*(torch.tensor(x, device=cuda_device) for x in (kd, b2))).cpu().numpy()
+    plain = cs.riccati_d_sweep_plain(torch.tensor(kd), torch.tensor(b2)).numpy()
+    regular = np.isfinite(plain) & (plain != 0)
+    assert np.array_equal(k1[~regular], plain[~regular])
+    np.testing.assert_allclose(k1[regular], plain[regular], rtol=1e-10)
+    if kind == "magnitudes":
+        unscaled = [torch.tensor(x / y, device=cuda_device) for x, y in
+                    ((kd, c2), (b2, c2 * np.append(c2[1:], 1.0)))]
+        assert np.array_equal(k1, cs.riccati_d_sweep(*unscaled).cpu().numpy() * c2)
+    if kind.startswith("pivot"):
+        return
+    nat = [np.random.default_rng(1).normal(size=n), -0.5 * kd, -np.sqrt(b2[:-1])]
+    got = cs.dist_q_1d_planes(*(torch.tensor(x, device=cuda_device) for x in nat), torch.float64)
+    ref = cs.dist_q_1d_planes_plain(*(torch.tensor(x) for x in nat), torch.float64)
+    for name, g, r in zip(NAMES, got, ref):
+        assert bool(torch.isfinite(g).all()), name
+    for i in (2, 4):  # qv and p0v: covs = 1/D
+        np.testing.assert_allclose(got[i].cpu().numpy(), ref[i].numpy(), rtol=1e-10,
+                                   err_msg=NAMES[i])
 
 
 @pytest.mark.parametrize("batch", BATCHES)

@@ -33,6 +33,7 @@ from .helpers import (
     riccati_inputs,
     row_perturbation,
 )
+from .natgrad_exactness import sweep_errors
 
 SIZES = [1500, 5000]  # both ragged against the 1024 windows
 NAMES = ["a", "b", "qv", "mu0", "p0v", "means", "vars"]
@@ -51,10 +52,13 @@ def test_riccati_plain_matches_jax(rng, n):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12)
 
 
-@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 2, 3, 7])
 def test_riccati_plain_tiny_sizes(rng, n):
     """N = 1 gives D = kd; N = 2 and 3 the recursion written out, whatever
-    the windows (the kernel's tile then holds one to three real elements)."""
+    the windows (the kernel's tile then holds one to three real elements),
+    N + 2 windows among them (more windows than elements); each within four
+    times the float64 recursion's own error against a long-double one (one
+    unit roundoff where the float64 recursion rounds to less)."""
     kd, b2 = riccati_inputs(rng, n)
     want = kd.copy()
     for k in range(n - 2, -1, -1):
@@ -62,6 +66,8 @@ def test_riccati_plain_tiny_sizes(rng, n):
     for windows in (None, 1, n, n + 2):
         got = cs.riccati_d_sweep_plain(torch.tensor(kd), torch.tensor(b2), windows=windows)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, err_msg=str(windows))
+        err = sweep_errors(kd, b2, {"plain": got.numpy()})
+        assert err["plain"] <= 4 * max(err["float64_sequential"], 2.0**-53), (windows, err)
     np.testing.assert_allclose(cs.riccati_d_sweep(torch.tensor(kd), torch.tensor(b2)).numpy(),
                                want, rtol=1e-13)
 

@@ -7,7 +7,10 @@
 // with the XLA lax.scan boundary pass between them (phase B).  It serves
 // the x64-off configuration, whose naturals are float32.  The kernel is
 // sweep_windows.cuh's windowed sweep in sequential order, in float32 (with
-// eps = 1e-30 in the preconditioning); K1 is the same kernel in float64.
+// eps = 1e-30 in the preconditioning, a reciprocal square root to normalise
+// each step and a division in the recursion); K1 is the same kernel in
+// float64, where every step is multiplies, fused multiply-adds and an exact
+// power-of-two scaling.
 //
 // Interface: plain C functions that return a cudaError_t as an int.  The
 // launcher launches on the given stream, never synchronises and allocates

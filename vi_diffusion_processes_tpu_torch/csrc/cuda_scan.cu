@@ -17,10 +17,17 @@
 //
 // The pivot sweep (K1, and K3's phase R) is sweep_windows.cuh's windowed
 // sweep, which takes every Moebius product in sequential order: a tree of
-// them loses digits where a window boundary falls on a small gap.  The
-// affine scans (K2, and K3's phases U, Z, V and M) compose affine maps,
-// which a tree keeps exact, and spread one sequence over many SMs, in one
-// launch:
+// them loses digits where a window boundary falls on a small gap.  What
+// bounds it is its chain of 2*l + nb dependent steps (896 at T = 100k).  In
+// float64 each step is a multiply and a fused multiply-add beside an
+// integer maximum of exponent fields, then an exact multiply by a power of
+// two: no division, square root or reciprocal square root is on the chain
+// (those ran from a MUFU seed through Newton iterations, about 150 cycles a
+// step), and the recursion in each window runs in projective form, its
+// divisions taken by the whole block after the chain (sweep_windows.cuh).
+// K4 keeps the float32 arithmetic it was measured with.  The affine scans
+// (K2, and K3's phases U, Z, V and M) compose affine maps, which a tree
+// keeps exact, and spread one sequence over many SMs, in one launch:
 //   * the sequence is cut into tiles of kTile = 256 threads x kChunk = 2
 //     elements; thread j of a tile owns the contiguous pair [2j, 2j+2), so
 //     neighbouring threads touch neighbouring addresses and a warp's two

@@ -12,32 +12,64 @@
 // left.  The sequence is cut into nb windows of l elements (the caller's
 // choice, ops/cuda_scan.py::window_shape; elements past N are padded with
 // kd~ = 1, b2~ = 0), and
-//   A. one thread per window composes the window's map, normalised after
-//      every step;
+//   A. one thread per window composes the window's map;
 //   B. one thread walks the window maps right to left, one after another,
-//      and leaves the pair (p, q) entering each window, normalised after
-//      every step; D~ = p/q, or +inf where q = 0 (b2 = 0 at N-1 makes the
-//      first real step forget it);
-//   C. one thread per window runs the exact recursion from that value.
-// The diagonal preconditioning s = sqrt(b2), or |kd| + eps where b2 = 0,
-// keeps each map O(1)-conditioned (kd~ = kd/s, b2~ = b2/(s*s_next)); the
-// output is D~ * s.
+//      and leaves the pair (p, q) entering each window (D~ = p/q; the walk
+//      starts from (1, 0), which b2 = 0 at N-1 makes the first real step
+//      forget);
+//   C. one thread per window runs the recursion from that pair.
+// A diagonal preconditioning s keeps each map O(1)-conditioned (kd~ = kd/s,
+// b2~ = b2/(s*s_next)); the output is D~ * s.
+//
+// The two value types take the steps differently.
+//   float64 (K1, K3): every dependent step is multiplies and fused
+//   multiply-adds, and a scaling by an exact power of two.  The state
+//   (W in A, (p, q) in B and C) is multiplied by g = 2^-e, e the largest
+//   binary exponent among its entries, read from their exponent bits
+//   (scale() below: masks, integer maxima and a subtraction).  g is
+//   taken from the state before the step, in parallel with the step's
+//   products, and applied after them; a power of two rounds nothing, so
+//   the maps and pairs move by powers of two alone and their directions,
+//   which the pivots are, do not move at all.  C is projective:
+//   P = kd~*p - b2~*q, then (p, q) <- g*(P, p), and D~ = P/p is a division
+//   that no later step reads: the walking threads leave (P, p) in shared
+//   memory and all threads of the block divide afterwards; where b2~ = 0
+//   they leave (kd~, 1), so that the pivot there is kd exactly.  s is a
+//   power of two as well (2^floor(E(b2)/2) where b2 > 0, else 2^E(kd), else
+//   1; E the binary exponent), so that kd/s, b2/s/s_next and D~*s round
+//   nothing.  The normalisation runs every step (stride 1).  Its range: a
+//   step's factors may span about 2^+-511 around the state (the product of
+//   two steps' factors must stay inside float64's exponents), which holds
+//   for magnitudes of 1e+-150 that change across windows, where the
+//   sequence comes out as the unscaled one times powers of two, bit for bit.
+//   float32 (K4): each step normalises by the reciprocal square root of the
+//   state's sum of squares, and C divides: D~ <- kd~ - b2~/D~, from +inf
+//   where q = 0.  K4 keeps that arithmetic: its near-parabolic case needs
+//   the renormalisation at every step, and float32 has neither the
+//   exponent range that a scaling taken before the step needs nor a
+//   reciprocal square root slower than one hardware instruction.
 //
 // What bounds it on an H100: the latency of the dependency chain, not bytes
 // (2.4 MB in float64 at N = 100,000).  The chain is l steps of A, nb of B
-// and l of C, each some tens of cycles of dependent arithmetic (two FMAs, a
-// sum of squares, a reciprocal square root and a multiply in A and B; a
-// division and a subtraction in C): 2*l + nb steps, 2*235 + 426 = 896 at
-// N = 100,000 with the windows of window_shape.  The design keeps
-// everything else off that chain:
+// and l of C: 2*l + nb steps, 2*235 + 426 = 896 at N = 100,000 with the
+// windows of window_shape.  In float64 a step is a multiply and a fused
+// multiply-add (two of each in A), beside an integer maximum of exponent
+// fields, then one exact multiply: on an H100 80GB HBM3 at 700 W about
+// 24 ns a step of A or C and 26 of B (some 45 cycles; a dependent float64
+// operation takes about 13), beside some 7 us of launch, staging, grid
+// sync and output, where the reciprocal square root and the division it
+// replaces, iterated from a MUFU seed, took 83 ns a step.  The design
+// keeps everything else off that chain:
 //   * one launch; a sequence is spread over up to one block per SM, each
 //     block owning a contiguous run of windows (a cooperative launch, whose
 //     blocks meet at one grid sync between A and B);
 //   * a block loads its run of kd and b2 with coalesced loads into dynamic
 //     shared memory and computes s, kd~ and b2~ there once, with all its
 //     threads; the walking threads (one per window, the first of the
-//     block) then read shared memory only.  l is odd, so the 32 threads of
-//     a warp, l words apart, hit 32 different banks;
+//     block) then read shared memory only, kBatch elements ahead of the
+//     chain (the next batch is loaded while the current one runs).  l is
+//     odd, so the 32 threads of a warp, l words apart, hit 32 different
+//     banks;
 //   * the run stays resident from A to C, so global memory is read once.
 //     Rule: a block's run is cut into chunks of at most kThreads windows
 //     and at most what the device's opt-in shared memory holds (3 values an
@@ -83,14 +115,6 @@ struct Num<float> {
   static __device__ __forceinline__ float mag(float x) { return fabsf(x); }
   static __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 };
-template <>
-struct Num<double> {
-  static constexpr double kEps = 1e-300;
-  static __device__ __forceinline__ double rsq(double x) { return rsqrt(x); }
-  static __device__ __forceinline__ double root(double x) { return sqrt(x); }
-  static __device__ __forceinline__ double mag(double x) { return fabs(x); }
-  static __device__ __forceinline__ double inf() { return __longlong_as_double(0x7ff0000000000000LL); }
-};
 
 // A window's Moebius map and the pair entering a window.
 template <typename T>
@@ -135,6 +159,42 @@ template <typename T>
 __device__ __forceinline__ T precond(T kd, T b2) {
   return b2 > T(0) ? Num<T>::root(b2) : Num<T>::mag(kd) + Num<T>::kEps;
 }
+template <typename T>
+__device__ __forceinline__ T precond_b2(T b2, T s, T s_next) {
+  return b2 / (s * s_next);
+}
+
+// ------------------------------------------- float64: exact powers of two
+// The exponent field of x (bits 20-30 of its high word): as ints these
+// order like |x|'s binary exponent.
+__device__ __forceinline__ int exponent_bits(double x) { return __double2hiint(x) & 0x7ff00000; }
+// 2^-e for the exponent field of 2^e: it brings that value to [1, 2) (2^1023
+// for a zero field)
+__device__ __forceinline__ double inverse_pow2(int bits) {
+  return __hiloint2double(0x7fe00000 - bits, 0);
+}
+// g = 2^-e, e the largest binary exponent among the state's entries
+__device__ __forceinline__ double scale(double a, double b) {
+  return inverse_pow2(max(exponent_bits(a), exponent_bits(b)));
+}
+__device__ __forceinline__ double scale(double a, double b, double c, double d) {
+  return inverse_pow2(max(max(exponent_bits(a), exponent_bits(b)),
+                          max(exponent_bits(c), exponent_bits(d))));
+}
+// s = 2^floor(E(b2)/2) where b2 > 0 (sqrt(b2)/2 < s <= sqrt(b2)), else
+// 2^E(kd) (at least the smallest normal), else 1
+__device__ __forceinline__ double precond(double kd, double b2) {
+  if (b2 > 0.0) {
+    const int e = (__double2hiint(b2) >> 20) & 0x7ff;
+    return __hiloint2double((1023 + ((e - 1023) >> 1)) << 20, 0);
+  }
+  if (kd != 0.0) return __hiloint2double(max(exponent_bits(kd), 0x00100000), 0);
+  return 1.0;
+}
+// two exact divisions: s * s_next may fall below the normal range
+__device__ __forceinline__ double precond_b2(double b2, double s, double s_next) {
+  return b2 / s / s_next;
+}
 
 // Load elements [e0, e0 + len) of the sequence into shared memory and
 // precondition them in place: skd <- kd~, sb2 <- b2~, ss <- s (len + 1
@@ -161,12 +221,217 @@ __device__ void stage_chunk(const In& in, int e0, int len, int n, T* skd, T* sb2
     if (e0 + e < n) {
       const T s = ss[e];
       skd[e] = skd[e] / s;
-      sb2[e] = sb2[e] / (s * ss[e + 1]);
+      sb2[e] = precond_b2(sb2[e], s, ss[e + 1]);
     }
   }
   __syncthreads();
 }
 
+// ------------------------------------------------------------ the phases
+// A: one window's Moebius map, W <- M_i W for i = l-1 ... 0, with
+// M_i = [[kd~_i, -b2~_i], [1, 0]], from the l elements at pk, pb.
+template <typename T>
+__device__ __forceinline__ Map4<T> window_map(const T* pk, const T* pb, int l) {
+  T w00 = T(1), w01 = T(0), w10 = T(0), w11 = T(1);
+  for (int top = l; top > 0; top -= kBatch) {
+    T kv[kBatch], bv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = top - 1 - u;
+      kv[u] = i >= 0 ? pk[i] : T(0);
+      bv[u] = i >= 0 ? pb[i] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (top - 1 - u < 0) break;
+      const T p00 = kv[u] * w00 - bv[u] * w10;
+      const T p01 = kv[u] * w01 - bv[u] * w11;
+      const T r = Num<T>::rsq(p00 * p00 + p01 * p01 + w00 * w00 + w01 * w01 + Num<T>::kEps);
+      w10 = w00 * r;
+      w11 = w01 * r;
+      w00 = p00 * r;
+      w01 = p01 * r;
+    }
+  }
+  return Map4<T>{w00, w01, w10, w11};
+}
+
+// kBatch values of a window ahead of the chain: v[u] = p[top - 1 - u],
+// clamped to the window's first element (values past it are not used)
+__device__ __forceinline__ void load_batch(const double* p, int top, double (&v)[kBatch]) {
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) v[u] = p[max(top - 1 - u, 0)];
+}
+
+// W = [[t0, t1], [c0, c1]] <- g * M W, g from W before the step
+__device__ __forceinline__ void map_step(double k, double b, double& t0, double& t1, double& c0,
+                                         double& c1) {
+  const double g = scale(t0, t1, c0, c1);
+  const double u0 = fma(-b, c0, k * t0);
+  const double u1 = fma(-b, c1, k * t1);
+  c0 = t0 * g;
+  c1 = t1 * g;
+  t0 = u0 * g;
+  t1 = u1 * g;
+}
+
+__device__ __forceinline__ Map4<double> window_map(const double* pk, const double* pb, int l) {
+  double t0 = 1.0, t1 = 0.0, c0 = 0.0, c1 = 1.0;
+  double kv[kBatch], bv[kBatch];
+  load_batch(pk, l, kv);
+  load_batch(pb, l, bv);
+  int top = l;
+  for (; top >= kBatch; top -= kBatch) {
+    double kn[kBatch], bn[kBatch];
+    load_batch(pk, top - kBatch, kn);
+    load_batch(pb, top - kBatch, bn);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) map_step(kv[u], bv[u], t0, t1, c0, c1);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      kv[u] = kn[u];
+      bv[u] = bn[u];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kBatch - 1; ++u) {
+    if (u < top) map_step(kv[u], bv[u], t0, t1, c0, c1);
+  }
+  const double g = scale(t0, t1, c0, c1);
+  return Map4<double>{t0 * g, t1 * g, c0 * g, c1 * g};
+}
+
+// B: one thread applies the staged maps of windows [lo, hi) to (p, q),
+// right to left, and leaves the pair entering each window below w_hi.
+template <typename T>
+__device__ __forceinline__ void walk(const Map4<T>* staged, int lo, int hi, int w_hi,
+                                     Pair<T>* entry, T& p, T& q) {
+  for (int w = hi - 1; w >= lo; --w) {
+    if (w < w_hi) entry[w] = Pair<T>{p, q};
+    const Map4<T> m = staged[w - lo];
+    const T p2 = m.w00 * p + m.w01 * q;
+    const T q2 = m.w10 * p + m.w11 * q;
+    const T r = Num<T>::rsq(p2 * p2 + q2 * q2 + Num<T>::kEps);
+    p = p2 * r;
+    q = q2 * r;
+  }
+}
+
+constexpr int kWalkBatch = 4;  // maps the walking thread reads ahead
+
+__device__ __forceinline__ void load_maps(const Map4<double>* staged, int lo, int w,
+                                          Map4<double> (&m)[kWalkBatch]) {
+#pragma unroll
+  for (int u = 0; u < kWalkBatch; ++u) m[u] = staged[max(w - u, lo) - lo];
+}
+
+// (p, q) <- g * W (p, q), g from (p, q) before the step
+__device__ __forceinline__ void walk_step(const Map4<double>& m, double& p, double& q) {
+  const double g = scale(p, q);
+  const double p2 = fma(m.w01, q, m.w00 * p);
+  const double q2 = fma(m.w11, q, m.w10 * p);
+  p = p2 * g;
+  q = q2 * g;
+}
+
+__device__ __forceinline__ void walk(const Map4<double>* staged, int lo, int hi, int w_hi,
+                                     Pair<double>* entry, double& p, double& q) {
+  Map4<double> m[kWalkBatch];
+  load_maps(staged, lo, hi - 1, m);
+  int w = hi - 1;
+  for (; w - lo >= kWalkBatch - 1; w -= kWalkBatch) {
+    Map4<double> mn[kWalkBatch];
+    load_maps(staged, lo, w - kWalkBatch, mn);
+#pragma unroll
+    for (int u = 0; u < kWalkBatch; ++u) {
+      if (w - u < w_hi) entry[w - u] = Pair<double>{p, q};
+      walk_step(m[u], p, q);
+    }
+#pragma unroll
+    for (int u = 0; u < kWalkBatch; ++u) m[u] = mn[u];
+  }
+#pragma unroll
+  for (int u = 0; u < kWalkBatch - 1; ++u) {
+    if (w - u >= lo) {
+      if (w - u < w_hi) entry[w - u] = Pair<double>{p, q};
+      walk_step(m[u], p, q);
+    }
+  }
+}
+
+// C: one window's recursion from its entry pair, over the l elements at pk,
+// pb (kd~, b2~; ps: s).  float32 leaves D = D~ * s in pk.
+template <typename T>
+__device__ __forceinline__ void recur(Pair<T> pq, T* pk, T* pb, const T* ps, int l) {
+  T d = pq.q == T(0) ? Num<T>::inf() : pq.p / pq.q;
+  for (int top = l; top > 0; top -= kBatch) {
+    T kv[kBatch], bv[kBatch], sv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = top - 1 - u;
+      kv[u] = i >= 0 ? pk[i] : T(0);
+      bv[u] = i >= 0 ? pb[i] : T(0);
+      sv[u] = i >= 0 ? ps[i] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = top - 1 - u;
+      if (i < 0) break;
+      d = kv[u] - bv[u] / d;
+      pk[i] = d * sv[u];
+    }
+  }
+}
+
+// P = kd~ p - b2~ q, (p, q) <- g * (P, p) with g from (p, q) before the
+// step; element i's (P, p) goes to pk[i], pb[i], or (kd~, 1) where b2~ = 0
+__device__ __forceinline__ void recur_step(double k, double b, double& p, double& q, double* pk,
+                                           double* pb, int i) {
+  const double g = scale(p, q);
+  const double big_p = fma(-b, q, k * p);
+  pk[i] = b == 0.0 ? k : big_p;
+  pb[i] = b == 0.0 ? 1.0 : p;
+  q = p * g;
+  p = big_p * g;
+}
+
+// float64 leaves (P, p) in pk, pb: D = P/p * s is taken after the chain
+__device__ __forceinline__ void recur(Pair<double> pq, double* pk, double* pb, const double*,
+                                      int l) {
+  double p = pq.p, q = pq.q;
+  double kv[kBatch], bv[kBatch];
+  load_batch(pk, l, kv);
+  load_batch(pb, l, bv);
+  int top = l;
+  for (; top >= kBatch; top -= kBatch) {
+    double kn[kBatch], bn[kBatch];
+    load_batch(pk, top - kBatch, kn);
+    load_batch(pb, top - kBatch, bn);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) recur_step(kv[u], bv[u], p, q, pk, pb, top - 1 - u);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      kv[u] = kn[u];
+      bv[u] = bn[u];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kBatch - 1; ++u) {
+    if (u < top) recur_step(kv[u], bv[u], p, q, pk, pb, top - 1 - u);
+  }
+}
+
+// The pivot D of element e of a chunk after C
+template <typename T>
+__device__ __forceinline__ T pivot(const T* skd, const T*, const T*, int e) {
+  return skd[e];
+}
+__device__ __forceinline__ double pivot(const double* skd, const double* sb2, const double* ss,
+                                        int e) {
+  return skd[e] / sb2[e] * ss[e];
+}
+
+// ------------------------------------------------------------ the kernel
 // wpb windows a block, wpc windows a chunk; maps and entry hold nb entries
 // a sequence; out receives D.
 template <typename T, typename In>
@@ -188,39 +453,13 @@ sweep_kernel(In in, T* __restrict__ out, Map4<T>* maps, Pair<T>* entry, int n, i
   T* sb2 = skd + wpc * l;
   T* ss = sb2 + wpc * l;
   const int j = threadIdx.x;
-  const T* pk = skd + j * l;
-  const T* pb = sb2 + j * l;
 
-  // A: each window's Moebius map, W <- M_i W for i = l-1 ... 0, with
-  // M_i = [[kd~_i, -b2~_i], [1, 0]]
+  // A
   for (int c = 0; c < nchunks; ++c) {
     const int w0 = w_lo + c * wpc;
     const int nw = min(wpc, w_hi - w0);
     stage_chunk(in, w0 * l, nw * l, n, skd, sb2, ss);
-    if (j < nw) {
-      T w00 = T(1), w01 = T(0), w10 = T(0), w11 = T(1);
-      for (int top = l; top > 0; top -= kBatch) {
-        T kv[kBatch], bv[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int i = top - 1 - u;
-          kv[u] = i >= 0 ? pk[i] : T(0);
-          bv[u] = i >= 0 ? pb[i] : T(0);
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          if (top - 1 - u < 0) break;
-          const T p00 = kv[u] * w00 - bv[u] * w10;
-          const T p01 = kv[u] * w01 - bv[u] * w11;
-          const T r = Num<T>::rsq(p00 * p00 + p01 * p01 + w00 * w00 + w01 * w01 + Num<T>::kEps);
-          w10 = w00 * r;
-          w11 = w01 * r;
-          w00 = p00 * r;
-          w01 = p01 * r;
-        }
-      }
-      maps[w0 + j] = Map4<T>{w00, w01, w10, w11};
-    }
+    if (j < nw) maps[w0 + j] = window_map(skd + j * l, sb2 + j * l, l);
   }
   vidp::sync_sequence(bps);
 
@@ -234,52 +473,20 @@ sweep_kernel(In in, T* __restrict__ out, Map4<T>* maps, Pair<T>* entry, int n, i
       staged[k] = Map4<T>{__ldcg(&m->w00), __ldcg(&m->w01), __ldcg(&m->w10), __ldcg(&m->w11)};
     }
     __syncthreads();
-    if (j == 0) {
-      for (int w = hi - 1; w >= lo; --w) {
-        if (w < w_hi) entry[w] = Pair<T>{p, q};
-        const Map4<T> m = staged[w - lo];
-        const T p2 = m.w00 * p + m.w01 * q;
-        const T q2 = m.w10 * p + m.w11 * q;
-        const T r = Num<T>::rsq(p2 * p2 + q2 * q2 + Num<T>::kEps);
-        p = p2 * r;
-        q = q2 * r;
-      }
-    }
+    if (j == 0) walk(staged, lo, hi, w_hi, entry, p, q);
     __syncthreads();
   }
 
-  // C: the exact recursion from the boundary value
+  // C: the recursion from the boundary pair
   for (int c = 0; c < nchunks; ++c) {
     const int w0 = w_lo + c * wpc;
     const int nw = min(wpc, w_hi - w0);
     if (nchunks > 1) stage_chunk(in, w0 * l, nw * l, n, skd, sb2, ss);
-    if (j < nw) {
-      const Pair<T> pq = entry[w0 + j];
-      T d = pq.q == T(0) ? Num<T>::inf() : pq.p / pq.q;
-      T* po = skd + j * l;
-      const T* ps = ss + j * l;
-      for (int top = l; top > 0; top -= kBatch) {
-        T kv[kBatch], bv[kBatch], sv[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int i = top - 1 - u;
-          kv[u] = i >= 0 ? pk[i] : T(0);
-          bv[u] = i >= 0 ? pb[i] : T(0);
-          sv[u] = i >= 0 ? ps[i] : T(0);
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int i = top - 1 - u;
-          if (i < 0) break;
-          d = kv[u] - bv[u] / d;
-          po[i] = d * sv[u];
-        }
-      }
-    }
+    if (j < nw) recur(entry[w0 + j], skd + j * l, sb2 + j * l, ss + j * l, l);
     __syncthreads();
     const int e0 = w0 * l;
     for (int e = j; e < nw * l; e += kThreads) {
-      if (e0 + e < n) out[e0 + e] = skd[e];
+      if (e0 + e < n) out[e0 + e] = pivot(skd, sb2, ss, e);
     }
   }
 }

@@ -11,7 +11,9 @@ direction on fine grids and the pivots come out negative
 (``btd.py::btd_udu_parallel_1d``), so the sweep keeps sequential order:
 per-window maps composed right to left, a boundary pass that walks the
 window maps one after another, then the exact recursion in each window
-(``csrc/sweep_windows.cuh``; K1 is the same kernel in float64, and
+(``csrc/sweep_windows.cuh``; K1 is the same kernel in float64, with exact
+power-of-two scalings and a projective recursion in place of the float32
+reciprocal square roots and divisions, and
 :func:`~.cuda_scan.sweep_windows_plain` the plain version of both).
 Which windows is free, and :func:`window_shape` picks them for the card:
 ``nb`` windows of ``l`` elements with ``l`` odd (the kernel's walking

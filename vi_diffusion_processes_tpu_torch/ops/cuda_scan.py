@@ -14,14 +14,18 @@ kernels, written by hand for Hopper in ``csrc/cuda_scan.cu``:
 What bounds them on the card is the latency of a sequential dependency
 chain, not bytes: at T = 100k an f64 plane is 0.8 MB.  The pivot sweep (K1,
 and the first of K3's two launches) is ``csrc/sweep_windows.cuh``'s
-windowed sweep, K4's design in float64: one thread per window composes the
-window's Möbius map, one thread walks the window maps in sequence, and one
-thread per window runs the exact recursion from its entry pivot, on
-:func:`window_shape`'s windows, one block per SM a sequence (a cooperative
-launch with one grid sync).  Its products stay in sequential order: a tree
-of composed Möbius maps loses digits where a window boundary falls on a
-small gap (1e-9 on a Matern12 chain: 1e-8 of the pivot there, against the
-recursion's 1e-11).  The affine scans (K2, and K3's ``dist_q_kernel``)
+windowed sweep: one thread per window composes the window's Möbius map, one
+thread walks the window maps in sequence, and one thread per window runs
+the recursion from its entry pair, on :func:`window_shape`'s windows, one
+block per SM a sequence (a cooperative launch with one grid sync).  Its
+products stay in sequential order: a tree of composed Möbius maps loses
+digits where a window boundary falls on a small gap (1e-9 on a Matern12
+chain: 1e-8 of the pivot there, against the recursion's 1e-11).  In
+float64 every dependent step of its chain is multiplies and fused
+multiply-adds with a scaling by an exact power of two, and the recursion in
+each window is projective (``P = kd~·p − b2~·q``), its divisions off the
+chain; K4 keeps the float32 arithmetic (a reciprocal square root and a
+division a step).  The affine scans (K2, and K3's ``dist_q_kernel``)
 spread one sequence over many SMs in one launch: tiles of 256 threads × 2
 contiguous elements (coalesced loads), each thread composing its pair's
 affine map, warp-shuffle scans inside a tile and, when a sequence has
@@ -133,6 +137,78 @@ def _shift(x: torch.Tensor, sh: int, fill: float, toward_start: bool) -> torch.T
     return torch.cat([f, x[..., :-sh]], dim=-1)
 
 
+def _pow2_scale(*xs: torch.Tensor) -> torch.Tensor:
+    """``2^−e`` with ``e`` the largest binary exponent among ``xs``, read from
+    their exponent bits as ``csrc/sweep_windows.cuh::scale`` does: it brings
+    the largest to [1, 2) and rounds nothing (``2^1023`` where all are 0)."""
+    bits = functools.reduce(torch.maximum, [(x.view(torch.int64) >> 52) & 0x7FF for x in xs])
+    return ((2046 - bits) << 52).view(torch.float64)
+
+
+def _pow2_precond(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The float64 sweep's preconditioning: ``s = 2^⌊E(b2)/2⌋`` where
+    ``b2 > 0`` (``E`` the binary exponent: ``√b2/2 < s ≤ √b2``), else
+    ``2^E(kd)``, else 1; a power of two, so that ``kd/s``, ``b2/s/s_next``
+    and ``D~·s`` round nothing (``csrc/sweep_windows.cuh::precond``)."""
+    e_b2 = (b2.view(torch.int64) >> 52) & 0x7FF
+    e_kd = torch.clamp((kd.view(torch.int64) >> 52) & 0x7FF, min=1)
+    s = torch.where(b2 > 0, (1023 + ((e_b2 - 1023) >> 1)) << 52, e_kd << 52).view(torch.float64)
+    return torch.where((b2 > 0) | (kd != 0), s, torch.ones_like(s))
+
+
+def _sweep_windows_f64(kd: torch.Tensor, b2: torch.Tensor, nb: int, l: int) -> torch.Tensor:
+    """:func:`sweep_windows_plain` in float64, step for step as the kernel's
+    float64 instantiation (K1, K3's first launch) takes it: every dependent
+    step is multiplies and adds, and a scaling by an exact power of two
+    (:func:`_pow2_scale`), taken from the state before the step and applied
+    after it.
+
+    A. each window's map ``W ← g·M_i W`` with ``g`` from ``W``;
+    B. the pair ``(p, q)`` entering each window: ``(p, q) ← g·W_w (p, q)``;
+    C. projective: ``P = kd~·p − b2~·q``, then ``(p, q) ← g·(P, p)``; the
+       pivot ``D~ = P/p`` (``kd~`` where ``b2~ = 0``, so that ``D = kd``
+       there exactly) is a division that no later step reads.
+
+    Scaling changes the maps and pairs by powers of two alone, so their
+    directions, and the pivots, are those of the unscaled products."""
+    n = kd.shape[-1]
+    s = _pow2_precond(kd, b2)
+    s_next = torch.cat([s[..., 1:], torch.ones_like(s[..., :1])], dim=-1)
+    # [l, ..., nb]: element i of every window
+    kdb = _blockify(kd / s, nb, l, 1.0).movedim(-1, 0)
+    b2b = _blockify(b2 / s / s_next, nb, l, 0.0).movedim(-1, 0)
+
+    # A: W = [[t0, t1], [c0, c1]]; the new bottom row is the old top row
+    one, zero = torch.ones_like(kdb[0]), torch.zeros_like(kdb[0])
+    t0, t1, c0, c1 = one, zero, zero, one
+    for i in range(l - 1, -1, -1):
+        g = _pow2_scale(t0, t1, c0, c1)
+        u0 = kdb[i] * t0 - b2b[i] * c0
+        u1 = kdb[i] * t1 - b2b[i] * c1
+        t0, t1, c0, c1 = u0 * g, u1 * g, t0 * g, t1 * g
+    g = _pow2_scale(t0, t1, c0, c1)
+    maps = [m * g for m in (t0, t1, c0, c1)]
+
+    # B
+    p, q = one[..., 0], zero[..., 0]
+    entering = [None] * nb
+    for k in range(nb - 1, -1, -1):
+        entering[k] = (p, q)
+        g = _pow2_scale(p, q)
+        w00, w01, w10, w11 = (m[..., k] for m in maps)
+        p, q = (w00 * p + w01 * q) * g, (w10 * p + w11 * q) * g
+    p, q = (torch.stack(x, dim=-1) for x in zip(*entering))
+
+    # C
+    outs = [None] * l
+    for i in range(l - 1, -1, -1):
+        g = _pow2_scale(p, q)
+        big_p = kdb[i] * p - b2b[i] * q
+        outs[i] = torch.where(b2b[i] == 0, kdb[i], big_p / p)
+        p, q = big_p * g, p * g
+    return _unblockify(torch.stack(outs, dim=-1), n) * s
+
+
 def sweep_windows_plain(kd: torch.Tensor, b2: torch.Tensor, nb: int, l: int,
                        eps: float) -> torch.Tensor:
     """The pivot sweep ``D_k = kd_k − b2_k/D_{k+1}`` over ``[..., N]`` in the
@@ -153,7 +229,12 @@ def sweep_windows_plain(kd: torch.Tensor, b2: torch.Tensor, nb: int, l: int,
 
     The diagonal preconditioning ``s = √b2``, else ``|kd| + eps``, keeps each
     map O(1)-conditioned (``kd~ = kd/s``, ``b2~ = b2/(s·s_next)``); the
-    output is ``D~·s``."""
+    output is ``D~·s``.  In float64 the normalisations and ``s`` are exact
+    powers of two and C runs in projective form (:func:`_sweep_windows_f64`;
+    ``eps`` is not used); float32 (K4) normalises by the root of a sum of
+    squares and divides in C."""
+    if kd.dtype == torch.float64:
+        return _sweep_windows_f64(kd, b2, nb, l)
     n = kd.shape[-1]
     s = torch.where(b2 > 0, torch.sqrt(b2), torch.abs(kd) + eps)
     s_next = torch.cat([s[..., 1:], torch.ones_like(s[..., :1])], dim=-1)
@@ -197,9 +278,12 @@ def riccati_d_sweep_plain(
 ) -> torch.Tensor:
     """Plain PyTorch K1: ``D_k = kd_k − b2_k/D_{k+1}`` over f64 ``[..., N]``
     (``b2[..., N−1] = 0``), by :func:`sweep_windows_plain` on the kernel's
-    windows (:func:`window_shape`) with the preconditioning of
-    ``pallas_scan.py::_ric_fwd`` (``s = √b2``, else ``|kd| + 1e-300``).
-    ``windows`` sets the window count instead (see :func:`_chunking`)."""
+    windows (:func:`window_shape`), step for step as the kernel's float64
+    arithmetic takes it, with the preconditioning of
+    ``pallas_scan.py::_ric_fwd`` rounded down to a power of two
+    (:func:`_pow2_precond`: ``s`` within a factor 2 of ``√b2``, else of
+    ``|kd|``).  ``windows`` sets the window count instead (see
+    :func:`_chunking`)."""
     n = kd.shape[-1]
     nb, l = window_shape(n) if windows is None else _chunking(n, windows)
     return sweep_windows_plain(kd, b2, nb, l, 1e-300)
@@ -341,10 +425,17 @@ def _sweep_plan(device: int, naturals: bool, batch: int, nb: int, l: int) -> Tup
     return tuple(out)
 
 
+#: steps of the sweep's dependency chain between two normalisations of its
+#: state (``csrc/sweep_windows.cuh``): every step, in float64 and in float32
+NORM_STRIDE = 1
+
+
 def sweep_launch_shape(plan: Tuple[int, ...], nb: int, l: int) -> dict:
-    """A windowed sweep's launch (K1, K3's phase R, K4) as a dict."""
+    """A windowed sweep's launch (K1, K3's phase R, K4) as a dict, with the
+    length of its dependency chain (``2·l + nb`` steps: A, B and C)."""
     grid, bps, threads, per_block, per_chunk, smem = plan
-    return {"windows": nb, "window_length": l, "grid": grid, "blocks_per_sequence": bps,
+    return {"windows": nb, "window_length": l, "chain_steps": 2 * l + nb,
+            "normalisation_stride": NORM_STRIDE, "grid": grid, "blocks_per_sequence": bps,
             "threads_per_block": threads, "windows_per_block": per_block,
             "windows_per_chunk": per_chunk, "shared_memory_bytes": smem}
 
