@@ -45,6 +45,14 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     1e-6, which must launch K2 exactly 128 times; then ``run_vdp`` on the
     same data under an OU prior (``VDPTrainer``, 5 warm-up steps, rate
     0.01), which must move ``A`` and ``b`` and end on a finite ELBO;
+10b. compiled: the trainers' CUDA graphs (``optim/compiled.py``):
+    ``run_cvi_dp`` on phase 6's data with its packed d = 1 step and ELBO
+    captured once each, against the same run with the steps eager (ELBO
+    trace and sites bit for bit); then 32 eager steps against 32 replays
+    from one state, an ELBO read on the host after each, bit for bit: the
+    flagship (K3 exactly 64 times on each), x64 off (K4 64, K2 256) and VDP
+    (K2 128), with steps/s, device ms and launches per step of both, peak
+    memory, captures and replays;
 11. generic: ``CVISitesTrainer(use_packed=False)``, 3 inner iterations of the
     generic update rules at T = 100,000, which must launch K1 and K2;
 12. scan: ``StateSpaceModel.marginals()`` of a Matern32 (d = 2) and a
@@ -159,8 +167,8 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     the batched step (B = 3, T = 300) and three VDP steps (T = 500) on the
     card against the same on the CPU.
 
-Launch counts are set to 0 just before each of phases 5-22 and 24-34 and
-read just after (phase 34's on each rank, around its sharded step).  The second-to-last line is a JSON object with each kernel's
+Launch counts are set to 0 just before each of phases 5-22 (10b
+included) and 24-34 and read just after (phase 34's on each rank, around its sharded step).  The second-to-last line is a JSON object with each kernel's
 launches in those phases, its max error, times (host clock ``ms``, device
 ``device_ms``) and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1015,6 +1023,154 @@ def phase_vdp(dev, card: str) -> None:
         raise AssertionError("run_vdp: A and b did not move, or the posterior is not finite")
     if cs.linear_recurrence.launches == before:
         raise AssertionError("run_vdp did not launch K2")
+
+
+def _equal_outputs(a, b) -> bool:
+    """Whether two step outputs (a state, an ELBO, or both) hold the same
+    tensors bit for bit."""
+    def tensors(out):
+        if isinstance(out, tuple):
+            return [t for x in out for t in tensors(x)]
+        return [out] if isinstance(out, torch.Tensor) else list(vars(out).values())
+
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(tensors(a), tensors(b)))
+
+
+def device_ms_per_call(fn, calls: int = 8) -> tuple:
+    """Device time and device launches per call of ``fn`` (``torch.profiler``,
+    every kernel, copy and memset); where the profiler records none of a
+    CUDA graph's kernels, the time between CUDA events around the calls,
+    with launches ``None``."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        rec = profile_calls(fn, calls)
+        return rec["device_ms"], rec["launches"], "torch.profiler"
+    except AssertionError:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls, None, "CUDA events"
+
+
+def _compiled_route(label: str, card: str, captured, model, state, rates, expect: dict) -> None:
+    """``len(rates)`` eager calls of ``captured.fn`` and as many replays of
+    ``captured`` (a ``CapturedStep`` whose first call captured its graph)
+    from ``state``, one rate tuple each and one value read on the host after
+    each, as the trainers read the ELBO (VDP's step has none: its q(x₀)
+    mean): bit for bit equal, ``expect``'s launches a step on each; logs the
+    rates, device ms and launches per step of both, and the peak memory of
+    the captured run."""
+    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+
+    def run(fn):
+        outs, s = [], state
+        before = cs.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for rate in rates:
+            out = fn(model, s, *rate)
+            s = out[0] if isinstance(out, tuple) else out
+            float(out[1] if isinstance(out, tuple) else out.q0_mean)
+            outs.append(out)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        made = {k: v - before[k] for k, v in cs.launch_counts().items()}
+        if made != {k: expect.get(k, 0) * len(rates) for k in made}:
+            raise AssertionError(f"{label}: launches {made} in {len(rates)} steps, expected "
+                                 f"{expect} a step")
+        return outs, len(rates) / seconds
+
+    replays = captured.replays
+    eager_outs, eager_rate = run(captured.fn)
+    torch.cuda.reset_peak_memory_stats()
+    captured_outs, captured_rate = run(captured)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if captured.replays - replays != len(rates) or captured.captures != 1:
+        raise AssertionError(f"{label}: {captured.captures} captures and "
+                             f"{captured.replays - replays} replays for {len(rates)} calls")
+    for i, (e, c) in enumerate(zip(eager_outs, captured_outs)):
+        if not _equal_outputs(e, c):
+            raise AssertionError(f"{label}: replay {i} differs from the eager step")
+    e_ms, e_launches, e_how = device_ms_per_call(lambda: captured.fn(model, state, *rates[-1]))
+    c_ms, c_launches, c_how = device_ms_per_call(lambda: captured(model, state, *rates[-1]))
+    rec = {"eager_steps_per_s": eager_rate, "captured_steps_per_s": captured_rate,
+           "eager_device_ms_per_step": e_ms, "captured_device_ms_per_step": c_ms,
+           "eager_launches_per_step": e_launches, "captured_launches_per_step": c_launches,
+           "device_time_by": [e_how, c_how], "captured_peak_memory_mib": peak,
+           "captures": captured.captures, "replays": captured.replays}
+    log(f"[compiled] {label} on {card}: {json.dumps(rec)}")
+
+
+def phase_compiled(dev, card: str, dataset) -> None:
+    """The trainers' captured steps (``optim/compiled.py``) at T = 100,000:
+    ``run_cvi_dp`` on phase 6's data, captured, against the same run with the
+    steps eager (``trainers.CapturedStep`` replaced by the bare function):
+    the ELBO trace and the trained sites bit for bit, one capture of the step
+    and one of ``packed_elbo``; then STEPS eager steps against STEPS replays
+    of the flagship through K3 (2 a step), with x64 off through K4 (2) and
+    K2 (8), and of VDP through K2 (4 a step), bit for bit, each with its
+    steps/s, device ms and launches a step; a failed capture fails the run."""
+    from vi_diffusion_processes_tpu_torch import config
+    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_cvi_dp
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import pack_state, packed_natgrad_step
+    from vi_diffusion_processes_tpu_torch.models.vdp_packed import pack_vdp, packed_inference_step
+    from vi_diffusion_processes_tpu_torch.optim import trainers
+    from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
+
+    made, post_init = [], trainers.CVISitesTrainer.__post_init__
+
+    def keep(self):
+        post_init(self)
+        made.append(self)
+
+    cfg = ExperimentConfig(prior_sde="dw", q=0.8, max_inner_iters=5, max_outer_iters=2)
+    runs, seconds = {}, {}
+    trainers.CVISitesTrainer.__post_init__ = keep
+    try:
+        for route in ("captured", "eager"):
+            if route == "eager":
+                trainers.CapturedStep = lambda fn: fn
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[route] = run_cvi_dp(cfg, dataset), made[-1]
+            torch.cuda.synchronize()
+            seconds[route] = time.perf_counter() - t0
+    finally:
+        trainers.CVISitesTrainer.__post_init__ = post_init
+        trainers.CapturedStep = CapturedStep
+    (out, trainer), (ref, ref_trainer) = runs["captured"], runs["eager"]
+    step, elbo_of = trainer._packed[2:]
+    log(f"[compiled] run_cvi_dp on {card}: captured {seconds['captured']:.2f} s, eager "
+        f"{seconds['eager']:.2f} s: ELBO trace {trainer.elbo_trace!r}; step {step.captures} "
+        f"capture, {step.replays} replays; packed_elbo {elbo_of.captures} capture, "
+        f"{elbo_of.replays} replays")
+    if trainer.elbo_trace != ref_trainer.elbo_trace or out["elbos"] != ref["elbos"]:
+        raise AssertionError(f"compiled: run_cvi_dp's ELBO trace {trainer.elbo_trace} differs "
+                             f"from the eager trainer's {ref_trainer.elbo_trace}")
+    if not all(torch.equal(a, b) for a, b in zip(out["model"].girsanov_sites,
+                                                  ref["model"].girsanov_sites)):
+        raise AssertionError("compiled: run_cvi_dp's sites differ from the eager trainer's")
+    if (step.captures, elbo_of.captures) != (1, 1) or step.replays < 2:
+        raise AssertionError("compiled: the trainer did not capture its step and ELBO once each")
+
+    for route, x64 in (("flagship", True), ("x64_off", False)):
+        with config.enable_x64(x64):
+            model = flagship_model(T_FLAGSHIP, torch.float32, dev)[0]
+            state = pack_state(model)
+            captured = CapturedStep(packed_natgrad_step)
+            state = captured(model, state, LR)[0]  # warm-up and capture
+            expect = ({"dist_q_1d_planes": 2} if x64
+                      else {"riccati_d_sweep_f32": 2, "linear_recurrence": 8})
+            _compiled_route(route, card, captured, model, state, [(LR,)] * STEPS, expect)
+    model = vdp_model(T_FLAGSHIP, torch.float32, dev)[0]
+    captured = CapturedStep(packed_inference_step)
+    state = captured(model, pack_vdp(model), 1e-6, 0.0)  # warm-up and capture
+    _compiled_route("vdp", card, captured, model, state, [(1e-6, 1e-6)] * STEPS,
+                    {"linear_recurrence": 4})
 
 
 def phase_generic(dataset) -> None:
@@ -2275,6 +2431,7 @@ def phase_harness(dev, card: str):
     from vi_diffusion_processes_tpu_torch.exp import cli
     from vi_diffusion_processes_tpu_torch.exp.data import load_exp_data
     from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed as packed
+    from vi_diffusion_processes_tpu_torch.optim import trainers
 
     work = _work_dir("harness")
     data = [f"num_grid={T_FLAGSHIP}", "t1=10", "num_observations=200", "q=0.8",
@@ -2283,22 +2440,23 @@ def phase_harness(dev, card: str):
     gen = _cli(["generate_data", *data, "--out", f"{work}/flagship.npz"])
     gen_s = time.perf_counter() - t0
     calls = {"steps": 0, "elbos": 0}
-    step, elbo = packed.packed_natgrad_step, packed.packed_elbo
+    names = {packed.packed_natgrad_step: "steps", packed.packed_elbo: "elbos"}
     run, captured = cli._RUNNERS["run_cvi_dp"], {}
+    captured_step = trainers.CapturedStep
 
-    def counted_step(*a):
-        calls["steps"] += 1
-        return step(*a)
+    class CountedStep(captured_step):
+        """The trainer's captured step, counting its calls (a replay runs
+        no Python of the step itself)."""
 
-    def counted_elbo(*a):
-        calls["elbos"] += 1
-        return elbo(*a)
+        def __call__(self, *a, **k):
+            calls[names[self.fn]] += 1
+            return super().__call__(*a, **k)
 
     def capturing_run(config, dataset):
         captured.update(run(config, dataset), dataset=dataset)
         return captured
 
-    packed.packed_natgrad_step, packed.packed_elbo = counted_step, counted_elbo
+    trainers.CapturedStep = CountedStep
     cli._RUNNERS["run_cvi_dp"] = capturing_run
     try:
         from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
@@ -2311,7 +2469,7 @@ def phase_harness(dev, card: str):
         run_s = time.perf_counter() - t0
         counts = {k: v - before[k] for k, v in cs.launch_counts().items()}
     finally:
-        packed.packed_natgrad_step, packed.packed_elbo = step, elbo
+        trainers.CapturedStep = captured_step
         cli._RUNNERS["run_cvi_dp"] = run
     k3 = 2 * calls["steps"] + calls["elbos"]
     with open(f"{work}/run/metrics.jsonl") as fh:
@@ -2592,6 +2750,7 @@ def main() -> None:
     (row_model, batched_trace), batched_counts = _counted(phase_batched, dev, card)
     check_batched_row(row_model, batched_trace)
     _, vdp_counts = _counted(phase_vdp, dev, card)
+    _, compiled_counts = _counted(phase_compiled, dev, card, dataset)
     _, generic_counts = _counted(phase_generic, dataset)
     for name in ("riccati_d_sweep", "linear_recurrence"):
         if generic_counts[name] == 0:
@@ -2651,7 +2810,7 @@ def main() -> None:
     # on each rank, around the sharded step, and summed here
     sharded_counts, _ = _counted(phase_sharded, dev, card)
     paths = (main_counts, trainer_counts, prior_counts, x64_off_counts, batched_counts,
-             vdp_counts, generic_counts, scan_counts, gpr_reference_counts, gpr_counts,
+             vdp_counts, compiled_counts, generic_counts, scan_counts, gpr_reference_counts, gpr_counts,
              run_gpr_counts, vanderpol_counts, vanderpol_reference_counts,
              vanderpol_trainer_counts, cvi_counts, cvi_d1_counts, sparse_counts,
              cvi_reference_counts, spatio_counts, spatio_reference_counts, natgrad_counts,

@@ -3,7 +3,7 @@
     python3 profile_step.py [--root DIR] [--label NAME]
         [--x64-off [--k4-windows NB L] | --batched | --vdp | --prior | --k4-shapes
          | --gpr | --scan | --vanderpol | --cvi-poisson | --spatio | --sharded | --routes
-         | --generic]
+         | --generic] [--captured]
 
 Imports ``vi_diffusion_processes_tpu_torch`` from ``DIR`` (default: this
 checkout), so that two trees can be compared in one run on one card.
@@ -20,6 +20,13 @@ Last, the device time per launch of the pivot sweeps K1 (``riccati_d_sweep``,
 off the packed step), K3 (``dist_q_1d_planes``: both launches, and its sweep
 alone) and K4 (``riccati_d_sweep_f32``) over 20 calls at T = 100,000, with
 the sweeps' windows, chain length and device ns per chain step.
+
+``--captured`` times the flagship's step (with ``--x64-off`` or ``--vdp``
+theirs) eagerly and replayed from one CUDA graph as the trainers run it
+(``optim/compiled.py``), in turns in one process: median of 7 warm runs of
+32 steps without and with the ELBO read on the host a step, the profile,
+and the peak memory allocated and reserved (the graph's pool); one JSON
+line per turn.
 
 ``--generic`` times the generic d = 1 step on the flagship's data
 (``CVISitesTrainer(use_packed=False)``'s inner iteration: both site updates
@@ -318,6 +325,67 @@ def time_and_profile(advance, state, runs: int, steps: int, profiled: int) -> tu
                                     for e in top},
         "top_kernels_launches_per_step": {e.key[:60]: e.count / profiled for e in top},
     }, state, value
+
+
+def captured_profiles(dev, args) -> None:
+    """``--captured``: the flagship's step (``--x64-off``: x64 off;
+    ``--vdp``: VDP's) run eagerly and as the trainers run it, replayed from
+    one CUDA graph (``optim/compiled.py``), in turns (eager, captured,
+    eager, captured), each after 5 warm-up calls: the median of 7 runs of
+    32 steps, busy share, launches and device ms from ``torch.profiler``
+    over 8 steps, the median of 7 runs with the ELBO read on the host after
+    every step (as the trainers read it; VDP: after every step, its ELBO
+    taken beside it), and the peak device memory allocated and reserved
+    (the graph's private pool is reserved memory)."""
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import (
+        pack_state,
+        packed_elbo,
+        packed_natgrad_step,
+    )
+    from vi_diffusion_processes_tpu_torch.models.vdp_packed import (
+        pack_vdp,
+        packed_inference_step,
+        packed_vdp_elbo,
+    )
+    from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
+
+    if args.vdp:
+        model = _chip_smoke().vdp_model(T, torch.float32, dev)[0]
+        fns, start, rates = (packed_inference_step, packed_vdp_elbo), pack_vdp(model), (1e-6, 0.0)
+    else:
+        model = flagship(dev)
+        fns, start, rates = (packed_natgrad_step, packed_elbo), pack_state(model), (LR,)
+    routes = {"eager": fns, "captured": tuple(CapturedStep(fn) for fn in fns)}
+
+    def stepper(step, elbo_of, read):
+        def advance(state):
+            out = step(model, state, *rates)
+            state = out[0] if isinstance(out, tuple) else out
+            if read:
+                float(out[1] if isinstance(out, tuple) else elbo_of(model, state))
+            return state, None
+        return advance
+
+    for route in ("eager", "captured", "eager", "captured"):
+        step, elbo_of = routes[route]
+        state = start
+        for _ in range(5):
+            state, _ = stepper(step, elbo_of, True)(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        record, state, _ = time_and_profile(stepper(step, elbo_of, False), state, 7, 32, 8)
+        read, _, _ = time_and_profile(stepper(step, elbo_of, True), state, 7, 32, 8)
+        print(json.dumps({
+            "label": args.label, "root": args.root, "route": route, "x64_off": args.x64_off,
+            "vdp": args.vdp, **record,
+            "with_read": {k: read[k] for k in ("steps_per_s_median", "steps_per_s_runs",
+                                               "device_busy_ms_per_step", "device_busy_share",
+                                               "launches_per_step")},
+            "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "peak_reserved_mib": torch.cuda.max_memory_reserved() / 2**20,
+            "captures": [getattr(f, "captures", None) for f in routes[route]],
+            "replays": [getattr(f, "replays", None) for f in routes[route]],
+        }), flush=True)
 
 
 def gpr_profiles(dev, label: str, root: str) -> None:
@@ -659,6 +727,7 @@ def main() -> None:
     mode.add_argument("--routes", action="store_true")
     mode.add_argument("--generic", action="store_true")
     ap.add_argument("--k4-windows", type=int, nargs=2, metavar=("NB", "L"))
+    ap.add_argument("--captured", action="store_true")
     ap.add_argument("--label", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -702,6 +771,9 @@ def main() -> None:
 
         rule, windows = cuda_riccati.window_shape, tuple(args.k4_windows)
         cuda_riccati.window_shape = lambda n: windows if n == T else rule(n)
+    if args.captured:
+        captured_profiles(dev, args)
+        return
     if args.batched:
         advance, state = batched_stepper(dev)
     elif args.vdp:

@@ -25,7 +25,7 @@ print(" ".join(names))
 MODULES = """
 config interop exp.data exp.metrics exp.runners likelihoods.base likelihoods.gaussian
 models.cvi_dp models.cvi_dp_packed models.cvi_dp_packed_batched models.vdp models.vdp_packed
-ops._build ops.btd ops.cuda_riccati ops.cuda_scan ops.quadrature optim.trainers
+ops._build ops.btd ops.cuda_riccati ops.cuda_scan ops.quadrature optim.trainers optim.compiled
 sde.base sde.drift sde.utils sde.zoo ssm.state_space_model ssm.transforms utils.linalg
 utils.shapes ops.blocked_scan ssm.emission ssm.mean_functions ssm.conditionals
 kernels.base kernels.matern kernels.misc parallel.pskf parallel.sites parallel.kalman

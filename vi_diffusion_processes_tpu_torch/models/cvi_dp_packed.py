@@ -144,8 +144,7 @@ def _kl_path(e1, ed, es, drift_fn, p_var, quad_z, quad_w, dt):
 
     # Gauss–Hermite over q's marginals (mvnquad with jittered cholesky)
     chol = torch.sqrt(var[:n_pairs] + default_jitter())
-    sqrt2 = torch.sqrt(torch.tensor(2.0, dtype=mu.dtype, device=mu.device))
-    x = mu[:n_pairs, None] + sqrt2 * chol[:, None] * quad_z
+    x = mu[:n_pairs, None] + _sqrt2(mu.dtype, mu.device) * chol[:, None] * quad_z
     f_p = x + dt * drift_fn(x)
     f_q = a[:, None] * x + b[:, None]
     diff2 = (f_p - f_q) ** 2 / p_var[:, None]
@@ -172,6 +171,26 @@ def _kl_packed(e1, ed, es, drift_fn, p_var, p_mu0, p_var0, quad_z, quad_w, dt):
 def _quad_grid_1d(dtype, device, n_points: int = 20):
     z, w = gauss_hermite_grid(1, n_points, dtype, device)
     return z[:, 0], w
+
+
+@functools.lru_cache(maxsize=None)
+def _sqrt2(dtype, device) -> torch.Tensor:
+    """``√2`` as the device's own ``sqrt`` rounds it, a 0-d tensor made once
+    per dtype and device (in a captured step's warm-up, never inside the
+    capture: ``optim/compiled.py``).  The CPU's float64 ``sqrt(2)`` is one ulp
+    below ``math.sqrt(2)``, so no Python constant gives both devices' bits."""
+    return torch.sqrt(torch.tensor(2.0, dtype=dtype, device=device))
+
+
+def _rates(lr, dtype) -> Tuple:
+    """``(1 − lr, lr)`` as factors of a ``dtype`` tensor.  A Python float
+    stays as it is.  A 0-d float64 tensor (the learning rate of a captured
+    step, ``optim/compiled.py``) takes ``1 − lr`` in float64 and is then cast
+    to ``dtype``, as the Python scalar is: both give the same bits, and a 0-d
+    state (VDP's q(x₀)) keeps its dtype."""
+    if isinstance(lr, torch.Tensor):
+        return (1.0 - lr).to(dtype), lr.to(dtype)
+    return 1.0 - lr, lr
 
 
 def _step_constants(model: CVISitesSDE):
@@ -231,6 +250,8 @@ def packed_natgrad_step(
     """One CVI-DP natgrad step on packed state (cvi_dp_packed.py:328-415):
     ``update_data_sites(lr)`` → ``update_girsanov_sites(lr)`` →
     ``classic_elbo()``.  Returns the new state and the ELBO (0-d tensor).
+    ``lr`` is a Python float or a 0-d float64 tensor, with the same bits
+    (:func:`_rates`).
     ``dist_q`` is the naturals → marginals chain: :func:`~..ops.btd.dist_q_1d`
     (K3 in float64), or :func:`~..ops.btd.dist_q_1d_core`, its composition
     of K1 and K2, which is the algebra of the time-sharded step."""
@@ -248,8 +269,9 @@ def packed_natgrad_step(
         ve = _masked_ve(model, state, eta1, eta2 - eta1**2)
         g1, g2 = torch.autograd.grad(ve, (eta1, eta2))
     # off-observation entries of g are zero (mask): dense sites stay zero there
-    d_nat1 = (1.0 - lr) * state.d_nat1 + lr * g1
-    d_nat2 = (1.0 - lr) * state.d_nat2 + lr * g2
+    keep, rate = _rates(lr, state.d_nat1.dtype)
+    d_nat1 = keep * state.d_nat1 + rate * g1
+    d_nat2 = keep * state.d_nat2 + rate * g2
     state = state.replace(d_nat1=d_nat1, d_nat2=d_nat2)
 
     # refreshed posterior after the data-site update (dist_q(B))
@@ -263,9 +285,9 @@ def packed_natgrad_step(
         kl = _kl_packed(e1, ed, es, drift_fn, p_var, p_mu0, p_var0, quad_z, quad_w, dt)
         grad_e1, grad_ed, grad_es = torch.autograd.grad(kl, (e1, ed, es))
     state = state.replace(
-        g_nat1=state.g_nat1 + lr * (d_nat1 - grad_e1),
-        g_nat2d=state.g_nat2d + lr * (d_nat2 - grad_ed),
-        g_nat2s=state.g_nat2s - lr * grad_es,
+        g_nat1=state.g_nat1 + rate * (d_nat1 - grad_e1),
+        g_nat2d=state.g_nat2d + rate * (d_nat2 - grad_ed),
+        g_nat2s=state.g_nat2s - rate * grad_es,
     )
 
     # ---- refreshed posterior (dist_q(C)) + classic ELBO

@@ -33,6 +33,7 @@ from .cvi_dp_packed import (
     PackedCVIState,
     _dist_q_1d,
     _quad_grid_1d,
+    _sqrt2,
     pack_state,
     unpack_state,
 )
@@ -136,8 +137,7 @@ def _kl_packed_rows(
     c_term = -(torch.log(qv) - torch.log(p_var)) - 1.0 + qv / p_var
 
     chol = torch.sqrt(var[:-1] + default_jitter())
-    sqrt2 = torch.sqrt(torch.tensor(2.0, dtype=mu.dtype, device=mu.device))
-    x = mu[:-1, None] + sqrt2 * chol[:, None] * quad_z
+    x = mu[:-1, None] + _sqrt2(mu.dtype, mu.device) * chol[:, None] * quad_z
     f_p = x + dt * drift_fn(x)
     f_q = a[:, None] * x + bb[:, None]
     diff2 = (f_p - f_q) ** 2 / p_var[:, None]

@@ -22,7 +22,7 @@ import torch
 
 from ..config import default_jitter
 from ..ops.btd import _marginals_1d, scalar_affine_all
-from .cvi_dp_packed import _quad_grid_1d
+from .cvi_dp_packed import _quad_grid_1d, _rates, _sqrt2
 from .vdp import CLIP_MAX, CLIP_MIN, VariationalMarkovGP, _nan_clip
 
 __all__ = [
@@ -122,8 +122,7 @@ def _quad_points(m_t, v_t, quad_z):
     """Gauss–Hermite abscissae under ``N(m_t, v_t)``, ``[N, P]``, with the
     jittered square root of ``mvnquad``."""
     chol = torch.sqrt(v_t + default_jitter())
-    sqrt2 = torch.sqrt(torch.tensor(2.0, dtype=m_t.dtype, device=m_t.device))
-    return m_t[:, None] + sqrt2 * chol[:, None] * quad_z
+    return m_t[:, None] + _sqrt2(m_t.dtype, m_t.device) * chol[:, None] * quad_z
 
 
 def _e_sde_packed(m_t, v_t, a, b, drift_fn, q_scalar, dt, quad_z, quad_w):
@@ -180,7 +179,9 @@ def packed_inference_step(
     (vdp_packed.py:170-251): forward marginals, backward Lagrange
     recurrences, smoothed ``(a, b)`` update, q(x₀) update.  ``model``
     supplies the configuration (SDE, likelihood, grid step, p(x₀),
-    ``stabilize``); its variational fields are not read."""
+    ``stabilize``); its variational fields are not read.  ``lr`` and
+    ``x0_lr`` are Python floats or 0-d float64 tensors, with the same bits
+    (``cvi_dp_packed._rates``)."""
     dtype, device = state.b.dtype, state.b.device
     dt = model.dt
     n_tr = state.a.shape[0]
@@ -227,11 +228,13 @@ def packed_inference_step(
     # q(x₀) boundary update (vdp.py::update_initial_statistics)
     m0_new = p_mu0 - p_var0 * lam[0]
     v0_new = 1.0 / (1.0 / p_var0 + 2.0 * psi[0])
+    keep, rate = _rates(lr, dtype)
+    keep0, rate0 = _rates(x0_lr, dtype)
     return state.replace(
-        a=(1.0 - lr) * state.a + lr * a_tilde,
-        b=(1.0 - lr) * state.b + lr * b_tilde,
+        a=keep * state.a + rate * a_tilde,
+        b=keep * state.b + rate * b_tilde,
         lam=lam,
         psi=psi,
-        q0_mean=(1.0 - x0_lr) * state.q0_mean + x0_lr * m0_new,
-        q0_var=(1.0 - x0_lr) * state.q0_var + x0_lr * v0_new,
+        q0_mean=keep0 * state.q0_mean + rate0 * m0_new,
+        q0_var=keep0 * state.q0_var + rate0 * v0_new,
     )

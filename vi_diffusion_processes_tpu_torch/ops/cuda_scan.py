@@ -746,4 +746,12 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in _kernels()}
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add ``{wrapper name: launches}`` to the counts: a CUDA graph's replay
+    adds the launches it captured, and a capture takes back the wrappers'
+    increments, which launched nothing (``optim/compiled.py``)."""
+    for fn in _kernels():
+        fn.launches += counts.get(fn.__name__, 0)
+
+
 riccati_d_sweep.launches = linear_recurrence.launches = dist_q_1d_planes.launches = 0

@@ -9,7 +9,11 @@ zigzag detection.  Its inner loop runs the packed step of
 at 2 ≤ d ≤ 8, and the generic update rules otherwise (``use_packed=False``,
 an SSM prior, or d > 8).  :class:`VDPTrainer`: the VDP fixed-point loop with
 warm-up, on the packed state at d = 1 and on the generic ``inference_step``
-above.  The control flow is plain Python, as in the reference.
+above.  The control flow is plain Python, as in the reference.  The packed
+d = 1 steps and ELBOs of both trainers run as :class:`.compiled.CapturedStep`:
+CUDA graphs captured once and replayed on the card, where the reference
+jits them; the other routes run eagerly.  The ELBO is read on the host once
+a step, as ``float(elbo_arr)`` is in the reference.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 
 from ..models.cvi_dp import CVISitesSDE, CVISitesSSM
 from ..models.vdp import VariationalMarkovGP
+from .compiled import CapturedStep
 
 __all__ = ["CVISitesTrainer", "VDPTrainer"]
 
@@ -81,8 +86,10 @@ class CVISitesTrainer:
             if self.model.state_dim == 1:
                 from ..models import cvi_dp_packed as p
 
-                self._packed = (p.pack_state, p.unpack_state, p.packed_natgrad_step,
-                                p.packed_elbo)
+                # captured once as CUDA graphs on the card, as jax.jit'ed
+                # there (trainers.py:68)
+                self._packed = (p.pack_state, p.unpack_state,
+                                CapturedStep(p.packed_natgrad_step), CapturedStep(p.packed_elbo))
             else:
                 from ..models import cvi_dp_packed_ch as p
 
@@ -186,6 +193,13 @@ class VDPTrainer:
 
     def __post_init__(self):
         self._packed = self.model.state_dim == 1
+        if self._packed:
+            from ..models.vdp_packed import packed_inference_step, packed_vdp_elbo
+
+            # captured once as CUDA graphs on the card, as jax.jit'ed there
+            # (trainers.py:191-194); the warm-up's x0_lr = 0 is a value
+            self._step = CapturedStep(packed_inference_step)
+            self._elbo = CapturedStep(packed_vdp_elbo)
         if self.learn_prior_sde:
             self._prior_learner = _PriorSDELearner(self.model.prior_sde, self.prior_sde_lr)
 
@@ -194,22 +208,17 @@ class VDPTrainer:
         the step and shrinks the rate; a step whose ELBO fell is accepted and
         only damps the rate, since VDP steps transiently decrease the ELBO
         (trainers.py:202-234)."""
-        from ..models.vdp_packed import (
-            pack_vdp,
-            packed_inference_step,
-            packed_vdp_elbo,
-            unpack_vdp,
-        )
+        from ..models.vdp_packed import pack_vdp, unpack_vdp
 
         # both routes share a carry: the packed state, or the model itself
         if self._packed:
             state = pack_vdp(self.model)
 
             def step(carry, lr, x0_lr):
-                return packed_inference_step(self.model, carry, lr, x0_lr)
+                return self._step(self.model, carry, lr, x0_lr)
 
             def elbo_of(carry):
-                return packed_vdp_elbo(self.model, carry)
+                return self._elbo(self.model, carry)
         else:
             state = self.model
 
