@@ -51,8 +51,16 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     trace and sites bit for bit); then 32 eager steps against 32 replays
     from one state, an ELBO read on the host after each, bit for bit: the
     flagship (K3 exactly 64 times on each), x64 off (K4 64, K2 256) and VDP
-    (K2 128), with steps/s, device ms and launches per step of both, peak
-    memory, captures and replays;
+    (K2 128), with steps/s, device ms, launches and busy share per step of
+    both, peak memory allocated and reserved, captures and replays;
+10c. compiled generic: the rest of the trainers' CUDA graphs:
+    ``run_cvi_dp`` with ``use_packed=False`` captured against eager in the
+    same way; then 32 eager steps against 32 replays at T = 100,000, bit for
+    bit, with the same figures: the Van der Pol d = 2 packed step (R1, no
+    K1-K4), the generic site step on the flagship under its SDE prior and
+    under an SSM prior (R2, K1 5 and K2 20 a step) and VDP's generic step at
+    d = 2 on the Van der Pol prior and data (R3, no K1-K4); each
+    ``run_cvi_dp`` prints its steps taken, accepted and lr decays;
 11. generic: ``CVISitesTrainer(use_packed=False)``, 3 inner iterations of the
     generic update rules at T = 100,000, which must launch K1 and K2;
 12. scan: ``StateSpaceModel.marginals()`` of a Matern32 (d = 2) and a
@@ -80,7 +88,9 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     steps on the card against the CPU (ELBOs, sites, marginals, 1e-9), and the
     Schur-segment UDU' on the card against the sequential ``btd_udu`` (1e-10);
 18. vanderpol trainer: ``run_cvi_dp(prior_sde="vanderpol")`` at T = 10,000 (2
-    outer and 5 inner iterations), and one re-linearization timed alone;
+    outer and 5 inner iterations), its d = 2 packed step and ELBO captured,
+    against the same run eager (ELBO trace and sites bit for bit, one
+    capture each), and one re-linearization timed alone;
 19. cvi poisson: ``cvi_poisson_site_step_100k`` of
     ``benchmarks/secondary.py:208-244`` (Matern32, d = 2, Poisson, N = 100,000
     on [0, 100], float32, lr 0.3): one warm-up ``update_sites``, then 16 from
@@ -1026,14 +1036,22 @@ def phase_vdp(dev, card: str) -> None:
 
 
 def _equal_outputs(a, b) -> bool:
-    """Whether two step outputs (a state, an ELBO, or both) hold the same
-    tensors bit for bit."""
-    def tensors(out):
-        if isinstance(out, tuple):
-            return [t for x in out for t in tensors(x)]
-        return [out] if isinstance(out, torch.Tensor) else list(vars(out).values())
+    """Whether two step outputs (a state, a model, an ELBO, or a pair) hold
+    the same tensors bit for bit, modules' parameters included."""
+    from vi_diffusion_processes_tpu_torch.optim.compiled import _flatten
 
-    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(tensors(a), tensors(b)))
+    def tensors(out):
+        leaves = []
+        _flatten(out, leaves, [])
+        return leaves
+
+    def bits(t):  # NaNs compare by their bits too
+        ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+        return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+    x, y = tensors(a), tensors(b)
+    return len(x) == len(y) and all(p.dtype == q.dtype and torch.equal(bits(p), bits(q))
+                                    for p, q in zip(x, y))
 
 
 def device_ms_per_call(fn, calls: int = 8) -> tuple:
@@ -1056,25 +1074,39 @@ def device_ms_per_call(fn, calls: int = 8) -> tuple:
         return start.elapsed_time(end) / calls, None, "CUDA events"
 
 
-def _compiled_route(label: str, card: str, captured, model, state, rates, expect: dict) -> None:
+def _packed_carry(args, out):
+    """The packed steps' next arguments: the model and the new state."""
+    return args[0], out[0] if isinstance(out, tuple) else out
+
+
+def _packed_read(out):
+    """The value a packed step's caller reads on the host: the ELBO, or
+    VDP's q(x₀) mean (its step has no ELBO)."""
+    return out[1] if isinstance(out, tuple) else out.q0_mean
+
+
+def _compiled_route(label: str, card: str, captured, args: tuple, rates, expect: dict,
+                    carry=_packed_carry, read=_packed_read) -> dict:
     """``len(rates)`` eager calls of ``captured.fn`` and as many replays of
     ``captured`` (a ``CapturedStep`` whose first call captured its graph)
-    from ``state``, one rate tuple each and one value read on the host after
-    each, as the trainers read the ELBO (VDP's step has none: its q(x₀)
-    mean): bit for bit equal, ``expect``'s launches a step on each; logs the
-    rates, device ms and launches per step of both, and the peak memory of
-    the captured run."""
+    from ``args``, one rate tuple each, the next call's arguments
+    ``carry(args, out)`` and ``read(out)`` read on the host after each, as
+    the trainers read the ELBO: bit for bit equal, ``expect``'s launches a
+    step on each; logs and returns the rates, device ms, launches and busy
+    share per step and the peak memory allocated and reserved of both (the
+    captured run's reserved memory holds the graph's private pool)."""
     from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
     def run(fn):
-        outs, s = [], state
+        outs, a = [], args
         before = cs.launch_counts()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for rate in rates:
-            out = fn(model, s, *rate)
-            s = out[0] if isinstance(out, tuple) else out
-            float(out[1] if isinstance(out, tuple) else out.q0_mean)
+            out = fn(*a, *rate)
+            a = carry(a, out)
+            float(read(out))
             outs.append(out)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -1082,52 +1114,55 @@ def _compiled_route(label: str, card: str, captured, model, state, rates, expect
         if made != {k: expect.get(k, 0) * len(rates) for k in made}:
             raise AssertionError(f"{label}: launches {made} in {len(rates)} steps, expected "
                                  f"{expect} a step")
-        return outs, len(rates) / seconds
+        memory = (torch.cuda.max_memory_allocated() / 2**20,
+                  torch.cuda.max_memory_reserved() / 2**20)
+        return outs, len(rates) / seconds, memory
 
     replays = captured.replays
-    eager_outs, eager_rate = run(captured.fn)
-    torch.cuda.reset_peak_memory_stats()
-    captured_outs, captured_rate = run(captured)
-    peak = torch.cuda.max_memory_allocated() / 2**20
+    eager_outs, eager_rate, eager_mib = run(captured.fn)
+    captured_outs, captured_rate, captured_mib = run(captured)
     if captured.replays - replays != len(rates) or captured.captures != 1:
         raise AssertionError(f"{label}: {captured.captures} captures and "
                              f"{captured.replays - replays} replays for {len(rates)} calls")
     for i, (e, c) in enumerate(zip(eager_outs, captured_outs)):
         if not _equal_outputs(e, c):
             raise AssertionError(f"{label}: replay {i} differs from the eager step")
-    e_ms, e_launches, e_how = device_ms_per_call(lambda: captured.fn(model, state, *rates[-1]))
-    c_ms, c_launches, c_how = device_ms_per_call(lambda: captured(model, state, *rates[-1]))
+    del eager_outs, captured_outs
+    e_ms, e_launches, e_how = device_ms_per_call(lambda: captured.fn(*args, *rates[-1]))
+    c_ms, c_launches, c_how = device_ms_per_call(lambda: captured(*args, *rates[-1]))
     rec = {"eager_steps_per_s": eager_rate, "captured_steps_per_s": captured_rate,
            "eager_device_ms_per_step": e_ms, "captured_device_ms_per_step": c_ms,
+           "eager_busy_share": e_ms * eager_rate / 1e3,
+           "captured_busy_share": c_ms * captured_rate / 1e3,
            "eager_launches_per_step": e_launches, "captured_launches_per_step": c_launches,
-           "device_time_by": [e_how, c_how], "captured_peak_memory_mib": peak,
+           "device_time_by": [e_how, c_how],
+           "eager_peak_allocated_mib": eager_mib[0], "eager_peak_reserved_mib": eager_mib[1],
+           "captured_peak_allocated_mib": captured_mib[0],
+           "captured_peak_reserved_mib": captured_mib[1],
            "captures": captured.captures, "replays": captured.replays}
     log(f"[compiled] {label} on {card}: {json.dumps(rec)}")
+    return rec
 
 
-def phase_compiled(dev, card: str, dataset) -> None:
-    """The trainers' captured steps (``optim/compiled.py``) at T = 100,000:
-    ``run_cvi_dp`` on phase 6's data, captured, against the same run with the
-    steps eager (``trainers.CapturedStep`` replaced by the bare function):
-    the ELBO trace and the trained sites bit for bit, one capture of the step
-    and one of ``packed_elbo``; then STEPS eager steps against STEPS replays
-    of the flagship through K3 (2 a step), with x64 off through K4 (2) and
-    K2 (8), and of VDP through K2 (4 a step), bit for bit, each with its
-    steps/s, device ms and launches a step; a failed capture fails the run."""
-    from vi_diffusion_processes_tpu_torch import config
-    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_cvi_dp
-    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import pack_state, packed_natgrad_step
-    from vi_diffusion_processes_tpu_torch.models.vdp_packed import pack_vdp, packed_inference_step
+def _run_cvi_dp_captured_and_eager(label: str, card: str, cfg, dataset,
+                                   use_packed: bool = True) -> tuple:
+    """``run_cvi_dp`` with its trainer's steps captured, then the same run
+    with them eager (``trainers.CapturedStep`` replaced by the bare
+    function), the trainer's ``use_packed`` as given: the ELBO traces and
+    the trained sites bit for bit, one capture each of the step and the
+    ELBO, at least two replays of the step.  Returns the captured run's
+    result and the seconds of both runs."""
+    from vi_diffusion_processes_tpu_torch.exp.runners import run_cvi_dp
     from vi_diffusion_processes_tpu_torch.optim import trainers
     from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
 
     made, post_init = [], trainers.CVISitesTrainer.__post_init__
 
     def keep(self):
+        self.use_packed = use_packed
         post_init(self)
         made.append(self)
 
-    cfg = ExperimentConfig(prior_sde="dw", q=0.8, max_inner_iters=5, max_outer_iters=2)
     runs, seconds = {}, {}
     trainers.CVISitesTrainer.__post_init__ = keep
     try:
@@ -1143,20 +1178,43 @@ def phase_compiled(dev, card: str, dataset) -> None:
         trainers.CVISitesTrainer.__post_init__ = post_init
         trainers.CapturedStep = CapturedStep
     (out, trainer), (ref, ref_trainer) = runs["captured"], runs["eager"]
-    step, elbo_of = trainer._packed[2:]
-    log(f"[compiled] run_cvi_dp on {card}: captured {seconds['captured']:.2f} s, eager "
-        f"{seconds['eager']:.2f} s: ELBO trace {trainer.elbo_trace!r}; step {step.captures} "
-        f"capture, {step.replays} replays; packed_elbo {elbo_of.captures} capture, "
-        f"{elbo_of.replays} replays")
+    step, elbo_of = (trainer._packed or trainer._generic)[-2:]
+    # every inner iteration either accepts its step or decays the rate
+    calls, accepted = step.captures + step.replays, len(trainer.elbo_trace)
+    log(f"[compiled] {label} (use_packed={use_packed}) on {card}: captured "
+        f"{seconds['captured']:.2f} s, eager {seconds['eager']:.2f} s: {calls} steps taken, "
+        f"{accepted} accepted, {calls - accepted} lr decays; ELBO trace "
+        f"{trainer.elbo_trace!r}; step {step.captures} capture, {step.replays} replays; "
+        f"ELBO {elbo_of.captures} capture, {elbo_of.replays} replays")
     if trainer.elbo_trace != ref_trainer.elbo_trace or out["elbos"] != ref["elbos"]:
-        raise AssertionError(f"compiled: run_cvi_dp's ELBO trace {trainer.elbo_trace} differs "
+        raise AssertionError(f"compiled: {label}'s ELBO trace {trainer.elbo_trace} differs "
                              f"from the eager trainer's {ref_trainer.elbo_trace}")
     if not all(torch.equal(a, b) for a, b in zip(out["model"].girsanov_sites,
                                                   ref["model"].girsanov_sites)):
-        raise AssertionError("compiled: run_cvi_dp's sites differ from the eager trainer's")
+        raise AssertionError(f"compiled: {label}'s sites differ from the eager trainer's")
     if (step.captures, elbo_of.captures) != (1, 1) or step.replays < 2:
-        raise AssertionError("compiled: the trainer did not capture its step and ELBO once each")
+        raise AssertionError(f"compiled: {label}'s trainer did not capture its step and ELBO "
+                             "once each")
+    return out, seconds
 
+
+def phase_compiled(dev, card: str, dataset) -> None:
+    """The trainers' captured steps (``optim/compiled.py``) at T = 100,000:
+    ``run_cvi_dp`` on phase 6's data, captured, against the same run with the
+    steps eager (``trainers.CapturedStep`` replaced by the bare function):
+    the ELBO trace and the trained sites bit for bit, one capture of the step
+    and one of ``packed_elbo``; then STEPS eager steps against STEPS replays
+    of the flagship through K3 (2 a step), with x64 off through K4 (2) and
+    K2 (8), and of VDP through K2 (4 a step), bit for bit, each with its
+    steps/s, device ms and launches a step; a failed capture fails the run."""
+    from vi_diffusion_processes_tpu_torch import config
+    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import pack_state, packed_natgrad_step
+    from vi_diffusion_processes_tpu_torch.models.vdp_packed import pack_vdp, packed_inference_step
+    from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
+
+    cfg = ExperimentConfig(prior_sde="dw", q=0.8, max_inner_iters=5, max_outer_iters=2)
+    _run_cvi_dp_captured_and_eager("run_cvi_dp", card, cfg, dataset)
     for route, x64 in (("flagship", True), ("x64_off", False)):
         with config.enable_x64(x64):
             model = flagship_model(T_FLAGSHIP, torch.float32, dev)[0]
@@ -1165,12 +1223,70 @@ def phase_compiled(dev, card: str, dataset) -> None:
             state = captured(model, state, LR)[0]  # warm-up and capture
             expect = ({"dist_q_1d_planes": 2} if x64
                       else {"riccati_d_sweep_f32": 2, "linear_recurrence": 8})
-            _compiled_route(route, card, captured, model, state, [(LR,)] * STEPS, expect)
+            _compiled_route(route, card, captured, (model, state), [(LR,)] * STEPS, expect)
     model = vdp_model(T_FLAGSHIP, torch.float32, dev)[0]
     captured = CapturedStep(packed_inference_step)
     state = captured(model, pack_vdp(model), 1e-6, 0.0)  # warm-up and capture
-    _compiled_route("vdp", card, captured, model, state, [(1e-6, 1e-6)] * STEPS,
+    _compiled_route("vdp", card, captured, (model, state), [(1e-6, 1e-6)] * STEPS,
                     {"linear_recurrence": 4})
+
+
+#: K1-K4 launches of one generic site step at d = 1: five ``dist_q``, each
+#: K1 once and K2 four times
+GENERIC_LAUNCHES = {"riccati_d_sweep": 5, "linear_recurrence": 20}
+
+
+def phase_compiled_generic(dev, card: str, dataset) -> dict:
+    """Slice M's captured steps: ``run_cvi_dp`` with ``use_packed=False`` on
+    phase 6's data, captured against eager (``_run_cvi_dp_captured_and_eager``);
+    then, at T = 100,000, STEPS eager steps against STEPS replays, bit for
+    bit, each with its steps/s, device ms, launches, busy share and memory:
+    R1, the d = 2 packed step on the Van der Pol configuration (no K1-K4);
+    R2, the trainer's generic site step on the flagship under its SDE prior
+    and under the linearized prior as an SSM (K1 5 and K2 20 a step); R3,
+    VDP's generic step at d = 2 on the Van der Pol prior and data (no
+    K1-K4).  A failed capture fails the run.  Returns the records."""
+    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSSM
+    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed_ch import (
+        pack_state_ch,
+        packed_natgrad_step_ch,
+    )
+    from vi_diffusion_processes_tpu_torch.models.vdp import VariationalMarkovGP
+    from vi_diffusion_processes_tpu_torch.optim import trainers
+    from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
+
+    cfg = ExperimentConfig(prior_sde="dw", q=0.8, max_inner_iters=3, max_outer_iters=2)
+    _run_cvi_dp_captured_and_eager("run_cvi_dp", card, cfg, dataset, use_packed=False)
+    records = {}
+    vanderpol = vanderpol_model(T_FLAGSHIP, torch.float32, dev)[0]
+    captured = CapturedStep(packed_natgrad_step_ch)
+    state = captured(vanderpol, pack_state_ch(vanderpol), LR_VANDERPOL)[0]
+    records["vanderpol"] = _compiled_route("vanderpol", card, captured, (vanderpol, state),
+                                           [(LR_VANDERPOL,)] * STEPS, {})
+
+    def next_model(args, out):
+        return (out[0] if isinstance(out, tuple) else out,)
+
+    flagship = flagship_model(T_FLAGSHIP, torch.float32, dev)[0]
+    ssm_prior = CVISitesSSM.initialize(
+        flagship.dist_p, flagship.time_grid,
+        (flagship.time_grid[flagship.obs_indices], flagship.observations), flagship.likelihood)
+    for prior, model in (("sde", flagship), ("ssm", ssm_prior)):
+        captured = CapturedStep(trainers._site_step)
+        model = captured(model, LR)[0]  # warm-up and capture
+        records[f"generic_{prior}"] = _compiled_route(
+            f"generic_{prior}", card, captured, (model,), [(LR,)] * STEPS, GENERIC_LAUNCHES,
+            carry=next_model, read=lambda out: out[1])
+    vdp = VariationalMarkovGP.initialize(
+        (vanderpol.time_grid[vanderpol.obs_indices], vanderpol.observations),
+        vanderpol.prior_sde, vanderpol.time_grid, vanderpol.likelihood)
+    captured = CapturedStep(trainers._vdp_step)
+    vdp = captured(vdp, 1e-6, 0.0)  # warm-up and capture
+    records["vdp_d2"] = _compiled_route(
+        "vdp_d2", card, captured, (vdp,), [(1e-6, 1e-6)] * STEPS, {}, carry=next_model,
+        read=lambda out: out.q_initial_mean[0])
+    return records
 
 
 def phase_generic(dataset) -> None:
@@ -1549,22 +1665,22 @@ def phase_vanderpol_reference(dev) -> None:
         raise AssertionError("vanderpol: the Schur-segment UDU' disagrees with btd_udu")
 
 
-def phase_vanderpol_trainer(dev) -> None:
+def phase_vanderpol_trainer(dev, card: str) -> None:
     """``run_cvi_dp`` on the Van der Pol prior at T = 10,000 (the full-width
-    observation rule at that length, split 4:1), then one re-linearization
-    of the trained model alone: the ``vmap(jacrev)`` of the drift over
-    T·100 quadrature points."""
-    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_cvi_dp
+    observation rule at that length, split 4:1), its packed d = 2 step and
+    ELBO captured, against the same run eager
+    (``_run_cvi_dp_captured_and_eager``), then one re-linearization of the
+    trained model alone: the ``vmap(jacrev)`` of the drift over T·100
+    quadrature points."""
+    from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig
 
     grid_np, obs_idx, obs_y = vanderpol_observations(10_000, torch.float32)
     dataset = flagship_dataset(torch.tensor(grid_np, device=dev), obs_idx, obs_y, dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = run_cvi_dp(ExperimentConfig(prior_sde="vanderpol", q=0.5, sites_lr=LR_VANDERPOL,
-                                      max_inner_iters=5, max_outer_iters=2,
-                                      clip_state_transitions=(-2.0, 2.0)), dataset)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    out, runs = _run_cvi_dp_captured_and_eager(
+        "run_cvi_dp(prior_sde='vanderpol')", card,
+        ExperimentConfig(prior_sde="vanderpol", q=0.5, sites_lr=LR_VANDERPOL, max_inner_iters=5,
+                         max_outer_iters=2, clip_state_transitions=(-2.0, 2.0)), dataset)
+    seconds = runs["captured"]
     model = out["model"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2751,6 +2867,12 @@ def main() -> None:
     check_batched_row(row_model, batched_trace)
     _, vdp_counts = _counted(phase_vdp, dev, card)
     _, compiled_counts = _counted(phase_compiled, dev, card, dataset)
+    compiled_records, compiled_generic_counts = _counted(phase_compiled_generic, dev, card,
+                                                         dataset)
+    log("[compiled] " + json.dumps(compiled_records))
+    for name in ("riccati_d_sweep", "linear_recurrence"):
+        if compiled_generic_counts[name] == 0:
+            raise AssertionError(f"{name} was not launched by the captured generic steps")
     _, generic_counts = _counted(phase_generic, dataset)
     for name in ("riccati_d_sweep", "linear_recurrence"):
         if generic_counts[name] == 0:
@@ -2764,7 +2886,7 @@ def main() -> None:
     log("[gpr] " + json.dumps(gpr_records))
     vanderpol_record, vanderpol_counts = _counted(phase_vanderpol, dev, card)
     _, vanderpol_reference_counts = _counted(phase_vanderpol_reference, dev)
-    _, vanderpol_trainer_counts = _counted(phase_vanderpol_trainer, dev)
+    _, vanderpol_trainer_counts = _counted(phase_vanderpol_trainer, dev, card)
     # the d = 2 path computes its UDU', solves and marginals on the generic scan
     for label, counts in (("vanderpol", vanderpol_counts),
                           ("vanderpol trainer", vanderpol_trainer_counts)):
@@ -2810,8 +2932,8 @@ def main() -> None:
     # on each rank, around the sharded step, and summed here
     sharded_counts, _ = _counted(phase_sharded, dev, card)
     paths = (main_counts, trainer_counts, prior_counts, x64_off_counts, batched_counts,
-             vdp_counts, compiled_counts, generic_counts, scan_counts, gpr_reference_counts, gpr_counts,
-             run_gpr_counts, vanderpol_counts, vanderpol_reference_counts,
+             vdp_counts, compiled_counts, compiled_generic_counts, generic_counts, scan_counts,
+             gpr_reference_counts, gpr_counts, run_gpr_counts, vanderpol_counts, vanderpol_reference_counts,
              vanderpol_trainer_counts, cvi_counts, cvi_d1_counts, sparse_counts,
              cvi_reference_counts, spatio_counts, spatio_reference_counts, natgrad_counts,
              examples_counts, models_h_counts, harness_counts, runners_reference_counts,

@@ -3,7 +3,7 @@
     python3 profile_step.py [--root DIR] [--label NAME]
         [--x64-off [--k4-windows NB L] | --batched | --vdp | --prior | --k4-shapes
          | --gpr | --scan | --vanderpol | --cvi-poisson | --spatio | --sharded | --routes
-         | --generic] [--captured]
+         | --generic | --vdp-d2] [--captured]
 
 Imports ``vi_diffusion_processes_tpu_torch`` from ``DIR`` (default: this
 checkout), so that two trees can be compared in one run on one card.
@@ -21,12 +21,15 @@ off the packed step), K3 (``dist_q_1d_planes``: both launches, and its sweep
 alone) and K4 (``riccati_d_sweep_f32``) over 20 calls at T = 100,000, with
 the sweeps' windows, chain length and device ns per chain step.
 
-``--captured`` times the flagship's step (with ``--x64-off`` or ``--vdp``
-theirs) eagerly and replayed from one CUDA graph as the trainers run it
-(``optim/compiled.py``), in turns in one process: median of 7 warm runs of
-32 steps without and with the ELBO read on the host a step, the profile,
-and the peak memory allocated and reserved (the graph's pool); one JSON
-line per turn.
+``--captured`` times the flagship's step (with ``--x64-off``, ``--vdp``,
+``--vanderpol``, ``--generic`` or ``--vdp-d2`` theirs: x64 off, VDP's
+packed step, the d = 2 packed step, the generic d = 1 site step, VDP's
+generic step at d = 2 on the Van der Pol prior and data) eagerly and
+replayed from one CUDA graph as the trainers run it (``optim/compiled.py``),
+in turns in one process: median of 7 warm runs of 32 steps (8 at d = 2, 16
+for the generic step) without and with the ELBO read on the host a step,
+the profile, and the peak memory allocated and reserved (the graph's
+pool); one JSON line per turn.
 
 ``--generic`` times the generic d = 1 step on the flagship's data
 (``CVISitesTrainer(use_packed=False)``'s inner iteration: both site updates
@@ -214,6 +217,16 @@ def generic_stepper(dev):
     return advance, model
 
 
+def vdp_d2_model(dev):
+    """VDP at d = 2 on ``chip_smoke.py``'s Van der Pol prior and data
+    (T = 100,000, float32), from ``A = b = 0``."""
+    from vi_diffusion_processes_tpu_torch.models.vdp import VariationalMarkovGP
+
+    m = _chip_smoke().vanderpol_model(T, torch.float32, dev)[0]
+    return VariationalMarkovGP.initialize((m.time_grid[m.obs_indices], m.observations),
+                                          m.prior_sde, m.time_grid, m.likelihood)
+
+
 def k4_shapes(dev) -> dict:
     """K4's device time per launch at T over window shapes l ≈ √(r·T)."""
     from vi_diffusion_processes_tpu_torch.ops import cuda_riccati as cr
@@ -327,64 +340,118 @@ def time_and_profile(advance, state, runs: int, steps: int, profiled: int) -> tu
     }, state, value
 
 
-def captured_profiles(dev, args) -> None:
-    """``--captured``: the flagship's step (``--x64-off``: x64 off;
-    ``--vdp``: VDP's) run eagerly and as the trainers run it, replayed from
-    one CUDA graph (``optim/compiled.py``), in turns (eager, captured,
-    eager, captured), each after 5 warm-up calls: the median of 7 runs of
-    32 steps, busy share, launches and device ms from ``torch.profiler``
-    over 8 steps, the median of 7 runs with the ELBO read on the host after
-    every step (as the trainers read it; VDP: after every step, its ELBO
-    taken beside it), and the peak device memory allocated and reserved
-    (the graph's private pool is reserved memory)."""
-    from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import (
-        pack_state,
-        packed_elbo,
-        packed_natgrad_step,
-    )
-    from vi_diffusion_processes_tpu_torch.models.vdp_packed import (
-        pack_vdp,
-        packed_inference_step,
-        packed_vdp_elbo,
-    )
-    from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
+def _captured_route(dev, args):
+    """``(fns, start, call, elbo)`` of ``--captured``'s route: the step and
+    ELBO functions the trainer captures, the first state, ``call(step,
+    state)`` → the step's output, and ``elbo(out, elbo_of, state)`` → the
+    ELBO that the trainer reads after the step."""
+    from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed as p1
+    from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed_ch as pch
+    from vi_diffusion_processes_tpu_torch.models import vdp_packed as pv
+    from vi_diffusion_processes_tpu_torch.optim import trainers
+
+    smoke = _chip_smoke()
+
+    def in_step(out, elbo_of, state):
+        return out[1]
+
+    def after_step(out, elbo_of, state):
+        return elbo_of(*state) if isinstance(state, tuple) else elbo_of(state)
 
     if args.vdp:
-        model = _chip_smoke().vdp_model(T, torch.float32, dev)[0]
-        fns, start, rates = (packed_inference_step, packed_vdp_elbo), pack_vdp(model), (1e-6, 0.0)
-    else:
-        model = flagship(dev)
-        fns, start, rates = (packed_natgrad_step, packed_elbo), pack_state(model), (LR,)
+        model = smoke.vdp_model(T, torch.float32, dev)[0]
+        return ((pv.packed_inference_step, pv.packed_vdp_elbo), pv.pack_vdp(model),
+                lambda step, s: step(model, s, 1e-6, 0.0),
+                lambda out, elbo_of, s: elbo_of(model, s))
+    if args.vanderpol:
+        model = smoke.vanderpol_model(T, torch.float32, dev)[0]
+        return ((pch.packed_natgrad_step_ch, pch.packed_elbo_ch), pch.pack_state_ch(model),
+                lambda step, s: step(model, s, smoke.LR_VANDERPOL), in_step)
+    if args.generic:
+        return ((trainers._site_step, trainers._classic_elbo), generic_stepper(dev)[1],
+                lambda step, m: step(m, LR), in_step)
+    if args.vdp_d2:
+        return ((trainers._vdp_step, trainers._vdp_elbo), vdp_d2_model(dev),
+                lambda step, m: step(m, 1e-6, 0.0), after_step)
+    model = flagship(dev)
+    return ((p1.packed_natgrad_step, p1.packed_elbo), p1.pack_state(model),
+            lambda step, s: step(model, s, LR), in_step)
+
+
+def _hand_back_ms(out, reps: int = 20) -> dict:
+    """Host ms of rebuilding a step's output as a replay hands it back, its
+    modules deep-copied (as ``optim/compiled.py`` copies a module the step
+    made) and passed through as the caller's own: medians of ``reps`` calls
+    each."""
+    from vi_diffusion_processes_tpu_torch.optim import compiled
+
+    modules = compiled._flatten_call((out,), {})[2]
+    kept = {id(m): m for m in modules}
+    times = {}
+    for label, keep in (("deepcopy", None), ("kept", kept)):
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            compiled._map(out, lambda t: t, keep)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        times[f"hand_back_{label}_ms"] = statistics.median(runs)
+    return times
+
+
+def captured_profiles(dev, args) -> None:
+    """``--captured``: the flagship's step (``--x64-off``: x64 off;
+    ``--vdp``: VDP's packed step; ``--vanderpol``: the d = 2 packed step;
+    ``--generic``: the generic d = 1 site step; ``--vdp-d2``: VDP's generic
+    step at d = 2) run eagerly and as the trainers run it, replayed from
+    one CUDA graph (``optim/compiled.py``), in turns (eager, captured,
+    eager, captured), each after 3 warm-up calls: the median of 7 runs of
+    32 steps (8 for ``--vanderpol`` and ``--vdp-d2``, 16 for ``--generic``),
+    busy share, launches and device ms from ``torch.profiler`` over 8 steps
+    (4), the median of 7 runs with the ELBO read on the host after every
+    step (as the trainers read it; VDP: its ELBO taken after the step), and
+    the peak device memory allocated and reserved (the graph's private pool
+    is reserved memory); for the generic routes also the host ms of handing
+    a model back with its modules deep-copied and passed through."""
+    from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
+
+    fns, start, call, elbo = _captured_route(dev, args)
     routes = {"eager": fns, "captured": tuple(CapturedStep(fn) for fn in fns)}
+    steps, profiled = ((8, 4) if args.vanderpol or args.vdp_d2
+                       else (16, 4) if args.generic else (32, 8))
 
     def stepper(step, elbo_of, read):
         def advance(state):
-            out = step(model, state, *rates)
+            out = call(step, state)
             state = out[0] if isinstance(out, tuple) else out
             if read:
-                float(out[1] if isinstance(out, tuple) else elbo_of(model, state))
+                float(elbo(out, elbo_of, state))
             return state, None
         return advance
 
     for route in ("eager", "captured", "eager", "captured"):
         step, elbo_of = routes[route]
         state = start
-        for _ in range(5):
+        for _ in range(3):
             state, _ = stepper(step, elbo_of, True)(state)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        record, state, _ = time_and_profile(stepper(step, elbo_of, False), state, 7, 32, 8)
-        read, _, _ = time_and_profile(stepper(step, elbo_of, True), state, 7, 32, 8)
+        record, state, _ = time_and_profile(stepper(step, elbo_of, False), state, 7, steps,
+                                            profiled)
+        read, _, _ = time_and_profile(stepper(step, elbo_of, True), state, 7, steps, profiled)
+        extra = _hand_back_ms(state) if (args.generic or args.vdp_d2) else {}
         print(json.dumps({
             "label": args.label, "root": args.root, "route": route, "x64_off": args.x64_off,
-            "vdp": args.vdp, **record,
+            "vdp": args.vdp, "vanderpol": args.vanderpol, "generic": args.generic,
+            "vdp_d2": args.vdp_d2, **record,
             "with_read": {k: read[k] for k in ("steps_per_s_median", "steps_per_s_runs",
                                                "device_busy_ms_per_step", "device_busy_share",
                                                "launches_per_step")},
             "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20,
             "peak_reserved_mib": torch.cuda.max_memory_reserved() / 2**20,
             "captures": [getattr(f, "captures", None) for f in routes[route]],
-            "replays": [getattr(f, "replays", None) for f in routes[route]],
+            "replays": [getattr(f, "replays", None) for f in routes[route]], **extra,
         }), flush=True)
 
 
@@ -726,6 +793,7 @@ def main() -> None:
     mode.add_argument("--sharded", action="store_true")
     mode.add_argument("--routes", action="store_true")
     mode.add_argument("--generic", action="store_true")
+    mode.add_argument("--vdp-d2", action="store_true")
     ap.add_argument("--k4-windows", type=int, nargs=2, metavar=("NB", "L"))
     ap.add_argument("--captured", action="store_true")
     ap.add_argument("--label", default="")
@@ -738,6 +806,18 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
+    if args.x64_off:
+        from vi_diffusion_processes_tpu_torch import config
+
+        config.set_x64_enabled(False)
+    if args.k4_windows:
+        from vi_diffusion_processes_tpu_torch.ops import cuda_riccati
+
+        rule, windows = cuda_riccati.window_shape, tuple(args.k4_windows)
+        cuda_riccati.window_shape = lambda n: windows if n == T else rule(n)
+    if args.captured:
+        captured_profiles(dev, args)
+        return
     if args.sharded:
         sharded_profile(args.label, args.root)
         return
@@ -762,18 +842,8 @@ def main() -> None:
                   else k4_shapes(dev) if args.k4_shapes else scan_profiles(dev))
         print(json.dumps({"label": args.label, "root": args.root, **result}), flush=True)
         return
-    if args.x64_off:
-        from vi_diffusion_processes_tpu_torch import config
-
-        config.set_x64_enabled(False)
-    if args.k4_windows:
-        from vi_diffusion_processes_tpu_torch.ops import cuda_riccati
-
-        rule, windows = cuda_riccati.window_shape, tuple(args.k4_windows)
-        cuda_riccati.window_shape = lambda n: windows if n == T else rule(n)
-    if args.captured:
-        captured_profiles(dev, args)
-        return
+    if args.vdp_d2:
+        raise SystemExit("--vdp-d2 times VDP's generic step beside its capture: add --captured")
     if args.batched:
         advance, state = batched_stepper(dev)
     elif args.vdp:

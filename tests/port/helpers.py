@@ -2,6 +2,8 @@
 import dataclasses
 
 import numpy as np
+import torch
+from torch.overrides import TorchFunctionMode
 
 
 def to_np(x):
@@ -14,6 +16,30 @@ def to_np(x):
     if x is None or isinstance(x, (bool, int, float, str, tuple)):
         return x
     return np.array(x)  # a writable copy
+
+
+class NoHostSync(TorchFunctionMode):
+    """Fails on every call that reads a value on the host or copies one to
+    the device, and on every checked ``torch.linalg`` factorization and
+    data-dependent shape (boolean masks, ``nonzero``, ``unique``), which wait
+    for the device: what stream capture refuses on the card."""
+
+    BANNED = {torch.Tensor.item, torch.Tensor.__bool__, torch.Tensor.__float__,
+              torch.Tensor.__int__, torch.Tensor.__index__, torch.Tensor.tolist,
+              torch.Tensor.cpu, torch.Tensor.numpy, torch.tensor,
+              torch.linalg.cholesky, torch.linalg.inv, torch.linalg.solve, torch.linalg.eigh,
+              torch.linalg.lu_factor, torch.cholesky, torch.inverse,
+              torch.nonzero, torch.Tensor.nonzero, torch.unique, torch.masked_select}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        host_copy = (func in (torch.as_tensor, torch.asarray)
+                     and not isinstance(args[0], torch.Tensor))
+        masked = (func is torch.Tensor.__getitem__ and any(
+            isinstance(i, torch.Tensor) and i.dtype == torch.bool
+            for i in (args[1] if isinstance(args[1], tuple) else (args[1],))))
+        if func in self.BANNED or host_copy or masked:
+            raise AssertionError(f"host read or copy inside the step: {func.__name__}")
+        return func(*args, **(kwargs or {}))
 
 
 def assert_close_scaled(actual, expected, rtol, err_msg=""):

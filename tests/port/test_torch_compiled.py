@@ -17,7 +17,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.overrides import TorchFunctionMode
 
 from vi_diffusion_processes_tpu.likelihoods.gaussian import Gaussian as JGaussianLik
 from vi_diffusion_processes_tpu.models import cvi_dp_packed as jcp
@@ -38,7 +37,7 @@ from vi_diffusion_processes_tpu_torch.optim.trainers import CVISitesTrainer, VDP
 from vi_diffusion_processes_tpu_torch.sde.utils import Gaussian as TGaussian
 from vi_diffusion_processes_tpu_torch.sde.zoo import DoubleWellSDE
 
-from .helpers import assert_close_scaled, to_np
+from .helpers import NoHostSync, assert_close_scaled, to_np
 
 T = 2000
 #: the CVI-DP model's size in test_torch_cvi_dp_packed.py
@@ -122,21 +121,6 @@ def _route_inputs(route):
     return model, tcp.pack_state(model)
 
 
-class _NoHostSync(TorchFunctionMode):
-    """Fails on every call that reads a value on the host or copies one to
-    the device: what stream capture refuses on the card."""
-
-    BANNED = {torch.Tensor.item, torch.Tensor.__bool__, torch.Tensor.__float__,
-              torch.Tensor.__int__, torch.Tensor.tolist, torch.Tensor.cpu,
-              torch.Tensor.numpy, torch.tensor}
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        if func in self.BANNED or (func in (torch.as_tensor, torch.asarray)
-                                   and not isinstance(args[0], torch.Tensor)):
-            raise AssertionError(f"host read or copy inside the step: {func.__name__}")
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("x64", [True, False], ids=["x64", "x64_off"])
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_warm_step_reads_nothing_on_the_host(route, x64):
@@ -148,7 +132,7 @@ def test_warm_step_reads_nothing_on_the_host(route, x64):
         step = ROUTES[route]
         step(model, state, LR, X0_LR)
         lr, x0_lr = _rate(LR), _rate(X0_LR)
-        with _NoHostSync():
+        with NoHostSync():
             step(model, state, LR, X0_LR)
             out = step(model, state, lr, x0_lr)
     assert all(bool(torch.isfinite(t).all()) for t in _fields(out).values())
@@ -158,7 +142,7 @@ def test_no_host_sync_mode_catches_the_reads_it_names():
     t = torch.ones(3)
     for read in (lambda: float(t.sum()), lambda: t.sum().item(), lambda: bool(t.sum()),
                  lambda: torch.tensor(2.0), lambda: torch.as_tensor(0.5), lambda: t.tolist()):
-        with pytest.raises(AssertionError, match="host read"), _NoHostSync():
+        with pytest.raises(AssertionError, match="host read"), NoHostSync():
             read()
 
 

@@ -131,7 +131,7 @@ def _port(jmodel):
 
 def test_cvi_trainer_routes_by_state_dimension(jax_model):
     tmodel = _port(jax_model)
-    assert CVISitesTrainer(tmodel)._packed[2] is tch.packed_natgrad_step_ch
+    assert CVISitesTrainer(tmodel)._packed[2].fn is tch.packed_natgrad_step_ch
     assert CVISitesTrainer(tmodel, use_packed=False)._packed is None
     # above d = 8 the generic update rules, as in the JAX trainer
     assert CVISitesTrainer(tmodel.replace(observations=torch.zeros(5, 9)))._packed is None

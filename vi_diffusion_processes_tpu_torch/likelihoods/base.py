@@ -9,6 +9,7 @@ per-datum results ``[..., n]``.  A likelihood without a closed form gives
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -20,12 +21,20 @@ __all__ = ["Likelihood", "quad_expectation", "DEFAULT_NUM_GAUSS_HERMITE"]
 DEFAULT_NUM_GAUSS_HERMITE = 20
 
 
+@functools.lru_cache(maxsize=None)
+def _hermite_nodes(n_points: int, dtype: torch.dtype, device):
+    """The nodes ``z`` and weights ``w/√π`` of ``hermgauss(n_points)``, made
+    once per size, dtype and device: a step captured as a CUDA graph
+    (``optim/compiled.py``) copies nothing from the host once warmed up."""
+    z, w = np.polynomial.hermite.hermgauss(n_points)
+    return (torch.as_tensor(z, dtype=dtype, device=device),
+            torch.as_tensor(w / np.sqrt(np.pi), dtype=dtype, device=device))
+
+
 def _hermite_points(f_means, f_vars, n_points: int = DEFAULT_NUM_GAUSS_HERMITE):
     """The Gauss–Hermite points ``f = μ + √(2σ²)·z`` on a new last axis, and
     their weights ``w/√π``."""
-    z, w = np.polynomial.hermite.hermgauss(n_points)
-    z = torch.as_tensor(z, dtype=f_means.dtype, device=f_means.device)
-    w = torch.as_tensor(w / np.sqrt(np.pi), dtype=f_means.dtype, device=f_means.device)
+    z, w = _hermite_nodes(n_points, f_means.dtype, f_means.device)
     return f_means[..., None] + torch.sqrt(2.0 * torch.clamp(f_vars, min=0.0))[..., None] * z, w
 
 

@@ -67,6 +67,17 @@ def _prior_nats_f64(dist_p: StateSpaceModel) -> BTDNaturals:
     return ssm_to_btd_nat(dist_p.astype(dtype))
 
 
+def _rates(lr, dtype) -> Tuple:
+    """``(1 − lr, lr)`` as factors of a ``dtype`` tensor.  A Python float
+    stays as it is.  A 0-d float64 tensor (the learning rate of a captured
+    step, ``optim/compiled.py``) takes ``1 − lr`` in float64 and is then cast
+    to ``dtype``, as the Python scalar is: both give the same bits, and a 0-d
+    state (VDP's q(x₀)) keeps its dtype."""
+    if isinstance(lr, torch.Tensor):
+        return (1.0 - lr).to(dtype), lr.to(dtype)
+    return 1.0 - lr, lr
+
+
 def _param_grads(loss: torch.Tensor, module: nn.Module) -> Dict[str, torch.Tensor]:
     """``{name: ∂loss/∂parameter}`` for every ``nn.Parameter`` of ``module``."""
     names, params = zip(*module.named_parameters())
@@ -261,10 +272,11 @@ class CVISitesSSM:
         data_nat1 = _scatter_rows(self.data_sites.nat1, self.obs_indices, t)
         data_nat2 = _scatter_rows(self.data_sites.nat2, self.obs_indices, t)
         g = self.girsanov_sites
+        _, rate = _rates(lr, g.nat1.dtype)
         return self._with_refreshed_path(girsanov_sites=BTDNaturals(
-            nat1=g.nat1 + lr * (data_nat1 - grad_kl[0]),
-            nat2_diag=g.nat2_diag + lr * (data_nat2 - grad_kl[1]),
-            nat2_sub=g.nat2_sub - lr * grad_kl[2],
+            nat1=g.nat1 + rate * (data_nat1 - grad_kl[0]),
+            nat2_diag=g.nat2_diag + rate * (data_nat2 - grad_kl[1]),
+            nat2_sub=g.nat2_sub - rate * grad_kl[2],
         ))
 
     @torch.no_grad()
@@ -272,9 +284,10 @@ class CVISitesSSM:
         """The CVI rule ``θ ← (1−lr)θ + lr·∇_η VE`` (cvi_dp.py:274-285)."""
         m, s = self._obs_moments(self.fx_mus, self.fx_covs)
         _, (g1, g2) = self.local_objective_and_gradients(m, s)
+        keep, rate = _rates(lr, self.data_sites.nat1.dtype)
         return self._with_refreshed_path(data_sites=DataSites(
-            nat1=(1.0 - lr) * self.data_sites.nat1 + lr * g1,
-            nat2=(1.0 - lr) * self.data_sites.nat2 + lr * g2,
+            nat1=keep * self.data_sites.nat1 + rate * g1,
+            nat2=keep * self.data_sites.nat2 + rate * g2,
         ))
 
 

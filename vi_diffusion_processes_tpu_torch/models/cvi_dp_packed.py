@@ -25,9 +25,9 @@ import torch
 
 from ..config import default_jitter
 from ..ops.btd import dist_q_1d
-from ..ops.quadrature import gauss_hermite_grid
+from ..ops.quadrature import _sqrt2, gauss_hermite_grid
 from ..sde.utils import BTDNaturals
-from .cvi_dp import CVISitesSDE, DataSites, _prior_nats_f64
+from .cvi_dp import CVISitesSDE, DataSites, _prior_nats_f64, _rates
 
 __all__ = [
     "PackedCVIState",
@@ -171,26 +171,6 @@ def _kl_packed(e1, ed, es, drift_fn, p_var, p_mu0, p_var0, quad_z, quad_w, dt):
 def _quad_grid_1d(dtype, device, n_points: int = 20):
     z, w = gauss_hermite_grid(1, n_points, dtype, device)
     return z[:, 0], w
-
-
-@functools.lru_cache(maxsize=None)
-def _sqrt2(dtype, device) -> torch.Tensor:
-    """``√2`` as the device's own ``sqrt`` rounds it, a 0-d tensor made once
-    per dtype and device (in a captured step's warm-up, never inside the
-    capture: ``optim/compiled.py``).  The CPU's float64 ``sqrt(2)`` is one ulp
-    below ``math.sqrt(2)``, so no Python constant gives both devices' bits."""
-    return torch.sqrt(torch.tensor(2.0, dtype=dtype, device=device))
-
-
-def _rates(lr, dtype) -> Tuple:
-    """``(1 − lr, lr)`` as factors of a ``dtype`` tensor.  A Python float
-    stays as it is.  A 0-d float64 tensor (the learning rate of a captured
-    step, ``optim/compiled.py``) takes ``1 − lr`` in float64 and is then cast
-    to ``dtype``, as the Python scalar is: both give the same bits, and a 0-d
-    state (VDP's q(x₀)) keeps its dtype."""
-    if isinstance(lr, torch.Tensor):
-        return (1.0 - lr).to(dtype), lr.to(dtype)
-    return 1.0 - lr, lr
 
 
 def _step_constants(model: CVISitesSDE):

@@ -20,7 +20,6 @@ them in the model's dtype.  The two gradients of the step are
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Tuple
 
 import torch
@@ -39,7 +38,7 @@ from ..utils.linalg import (
     symmetrize,
     transpose_last,
 )
-from .cvi_dp import CVISitesSDE, DataSites, _prior_nats_f64
+from .cvi_dp import CVISitesSDE, DataSites, _prior_nats_f64, _rates
 
 __all__ = [
     "PackedChState",
@@ -192,12 +191,6 @@ def _kl_packed_ch(e1, ed, es, sde, p_var, p_mu0, p_cov0, quad_z, quad_w, dt):
     return kl_path + kl_0
 
 
-@functools.lru_cache(maxsize=None)
-def _quad_grid(d: int, dtype, device):
-    """The 20-point Gauss–Hermite grid over ``d`` dimensions (20ᵈ points)."""
-    return gauss_hermite_grid(d, 20, dtype, device)
-
-
 def _expectations(a, means, covs):
     """``(E[x], E[xxᵀ], E[x_{k+1}x_kᵀ])`` of the marginals and q's transitions."""
     ed = covs + _outer(means, means)
@@ -207,7 +200,8 @@ def _expectations(a, means, covs):
 
 def _step_constants(model: CVISitesSDE):
     dtype = model.time_grid.dtype
-    quad_z, quad_w = _quad_grid(model.state_dim, dtype, model.time_grid.device)
+    # the 20-point grid over d dimensions (20ᵈ points)
+    quad_z, quad_w = gauss_hermite_grid(model.state_dim, 20, dtype, model.time_grid.device)
     q = model.prior_sde.q.detach().to(dtype)
     p0 = model.prior_initial_state
     return dtype, quad_z, quad_w, q, p0.mu.to(dtype), p0.cov.to(dtype)
@@ -259,8 +253,9 @@ def packed_natgrad_step_ch(
         ve = _masked_ve(model, state, eta1, eta2 - _outer(eta1, eta1))
         g1, g2 = torch.autograd.grad(ve, (eta1, eta2))
     # off-observation gradients are zero (mask): dense sites stay zero there
-    d_nat1 = (1.0 - lr) * state.d_nat1 + lr * g1
-    d_nat2 = (1.0 - lr) * state.d_nat2 + lr * g2
+    keep, rate = _rates(lr, state.d_nat1.dtype)
+    d_nat1 = keep * state.d_nat1 + rate * g1
+    d_nat2 = keep * state.d_nat2 + rate * g2
     state = state.replace(d_nat1=d_nat1, d_nat2=d_nat2)
 
     # ---- update_girsanov_sites(lr): ∇_η KL at dist_q(B)
@@ -274,9 +269,9 @@ def packed_natgrad_step_ch(
     # (cvi_dp_packed_ch.py:448-450, sde/utils.py::_sym_exp_grads)
     grad_ed = symmetrize(grad_ed)
     state = state.replace(
-        g_nat1=state.g_nat1 + lr * (d_nat1 - grad_e1),
-        g_nat2d=state.g_nat2d + lr * (d_nat2 - grad_ed),
-        g_nat2s=state.g_nat2s - lr * grad_es,
+        g_nat1=state.g_nat1 + rate * (d_nat1 - grad_e1),
+        g_nat2d=state.g_nat2d + rate * (d_nat2 - grad_ed),
+        g_nat2s=state.g_nat2s - rate * grad_es,
     )
 
     # ---- dist_q(C) + classic ELBO

@@ -29,7 +29,7 @@ from ..sde.drift import LinearDrift, linear_drift_to_ssm
 from ..sde.utils import Gaussian, squared_drift_difference_along_Gaussian_path
 from ..ssm.state_space_model import StateSpaceModel
 from ..utils.linalg import chol_psd, gaussian_kl, inv_small, transpose_last
-from .cvi_dp import _param_grads
+from .cvi_dp import _param_grads, _rates
 
 __all__ = ["VariationalMarkovGP"]
 
@@ -239,9 +239,10 @@ class VariationalMarkovGP:
             + torch.einsum("nij,nj->ni", a_tilde, m_t)
             - torch.einsum("nij,nj->ni", q, lam)
         )
+        keep, rate = _rates(lr, self.A.dtype)
         return self.replace(
-            A=(1.0 - lr) * self.A + lr * a_tilde,
-            b=(1.0 - lr) * self.b + lr * b_tilde,
+            A=keep * self.A + rate * a_tilde,
+            b=keep * self.b + rate * b_tilde,
         )
 
     @torch.no_grad()
@@ -252,9 +253,10 @@ class VariationalMarkovGP:
         p_cov = self.p_initial_cov
         new_mean = self.p_initial_mean - torch.einsum("ij,j->i", p_cov, self.lambda_lagrange[0])
         new_cov = inv_small(inv_small(p_cov) + 2.0 * self.psi_lagrange[0])
+        keep, rate = _rates(lr, self.q_initial_mean.dtype)
         return self.replace(
-            q_initial_mean=(1.0 - lr) * self.q_initial_mean + lr * new_mean,
-            q_initial_cov=(1.0 - lr) * self.q_initial_cov + lr * new_cov,
+            q_initial_mean=keep * self.q_initial_mean + rate * new_mean,
+            q_initial_cov=keep * self.q_initial_cov + rate * new_cov,
         )
 
     # -------------------------------------------------------------- one step

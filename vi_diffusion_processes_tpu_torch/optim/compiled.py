@@ -27,7 +27,17 @@ its arguments into the graph's static inputs and replays the graph.
 * Every tensor handed back is the caller's own (an input that the step
   passes through) or a copy made after the replay, so it stays valid after
   the next replay: a trainer keeps its last accepted state while it tries a
-  candidate.
+  candidate.  A module that the step passes through (a model's SDE or
+  likelihood) is handed back as the caller's own module, not deep-copied.
+* A step may take gradients (``torch.autograd.grad`` on fresh leaves, as
+  the d ≥ 2 packed step, the generic site step and VDP's step do).  The
+  autograd engine runs the backward on its own device thread, on the
+  stream of the forward, so it is captured with it and allocates from the
+  graph's pool, a new segment of which that thread may ``cudaMalloc``.  The
+  default ``capture_error_mode="global"`` refuses such calls from threads
+  other than the capturing one, and did so for VDP's d = 2 step at
+  T = 10,000 on the card: the capture is ``"thread_local"``, which still
+  refuses any host read or copy on the capturing thread.
 * Launch counts (``ops/cuda_scan.py::launch_counts``): the warm-up's
   launches count; the wrappers' increments during capture, which launch
   nothing, are taken back; every replay adds the launches it captured.
@@ -63,13 +73,19 @@ def _module_statics(module: nn.Module) -> tuple:
     )
 
 
-def _flatten(obj, leaves: list, sig: list) -> None:
+def _flatten(obj, leaves: list, sig: list, modules: Optional[list] = None,
+             kept: Optional[dict] = None) -> None:
     """Append ``obj``'s tensor leaves to ``leaves`` and its structure to
-    ``sig``, in the order that :func:`_map` visits them."""
+    ``sig``, in the order that :func:`_map` visits them, and its modules to
+    ``modules``; a module whose ``id`` is in ``kept`` is left out whole."""
+    if kept and id(obj) in kept:
+        return
     if isinstance(obj, torch.Tensor):
         leaves.append(obj)
         sig.append((tuple(obj.shape), obj.dtype, obj.device))
     elif isinstance(obj, nn.Module):
+        if modules is not None:
+            modules.append(obj)
         named = list(obj.named_parameters()) + list(obj.named_buffers())
         sig.append((type(obj), _module_statics(obj), tuple(name for name, _ in named)))
         for _, t in named:
@@ -77,23 +93,26 @@ def _flatten(obj, leaves: list, sig: list) -> None:
     elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         sig.append(type(obj))
         for f in dataclasses.fields(obj):
-            _flatten(getattr(obj, f.name), leaves, sig)
+            _flatten(getattr(obj, f.name), leaves, sig, modules, kept)
     elif isinstance(obj, (tuple, list)):
         sig.append((type(obj), len(obj)))
         for x in obj:
-            _flatten(x, leaves, sig)
+            _flatten(x, leaves, sig, modules, kept)
     elif isinstance(obj, dict):
         sig.append((dict, tuple(sorted(obj))))
         for k in sorted(obj):
-            _flatten(obj[k], leaves, sig)
+            _flatten(obj[k], leaves, sig, modules, kept)
     else:
         sig.append(obj)
 
 
-def _map(obj, fn: Callable):
+def _map(obj, fn: Callable, kept: Optional[dict] = None):
     """``obj`` rebuilt with ``fn`` applied to each tensor leaf in
-    :func:`_flatten`'s order; a module is deep-copied, its parameters and
-    buffers replaced by ``fn`` of the original ones."""
+    :func:`_flatten`'s order; a module whose ``id`` is in ``kept`` is
+    replaced by ``kept``'s value, any other module is deep-copied, its
+    parameters and buffers replaced by ``fn`` of the original ones."""
+    if kept and id(obj) in kept:
+        return kept[id(obj)]
     if isinstance(obj, torch.Tensor):
         return fn(obj)
     if isinstance(obj, nn.Module):
@@ -107,24 +126,24 @@ def _map(obj, fn: Callable):
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         new = copy.copy(obj)
         for f in dataclasses.fields(obj):
-            object.__setattr__(new, f.name, _map(getattr(obj, f.name), fn))
+            object.__setattr__(new, f.name, _map(getattr(obj, f.name), fn, kept))
         return new
     if isinstance(obj, tuple):
-        items = [_map(x, fn) for x in obj]
+        items = [_map(x, fn, kept) for x in obj]
         return type(obj)(*items) if hasattr(obj, "_fields") else type(obj)(items)
     if isinstance(obj, list):
-        return [_map(x, fn) for x in obj]
+        return [_map(x, fn, kept) for x in obj]
     if isinstance(obj, dict):
-        return {k: _map(obj[k], fn) for k in sorted(obj)}
+        return {k: _map(obj[k], fn, kept) for k in sorted(obj)}
     return obj
 
 
 def _flatten_call(args: tuple, kwargs: dict, memo: Optional[dict] = None):
-    """Leaves and key of a call: the tensors of every argument, and each
-    argument that is itself a Python float (traced).  With ``memo``, an
-    argument that is the object it held at the same position is not
-    flattened again."""
-    leaves, sig = [], [len(args), tuple(sorted(kwargs))]
+    """Leaves, key and modules of a call: the tensors of every argument, and
+    each argument that is itself a Python float (traced); the structure; the
+    ``nn.Module``s in :func:`_flatten`'s order.  With ``memo``, an argument
+    that is the object it held at the same position is not flattened again."""
+    leaves, sig, modules = [], [len(args), tuple(sorted(kwargs))], []
     for pos, arg in enumerate((*args, *(kwargs[k] for k in sorted(kwargs)))):
         if isinstance(arg, float):
             leaves.append(arg)
@@ -132,14 +151,15 @@ def _flatten_call(args: tuple, kwargs: dict, memo: Optional[dict] = None):
             continue
         hit = None if memo is None else memo.get(pos)
         if hit is None or hit[0] is not arg:
-            part_leaves, part_sig = [], []
-            _flatten(arg, part_leaves, part_sig)
-            hit = (arg, part_leaves, tuple(part_sig))
+            part_leaves, part_sig, part_modules = [], [], []
+            _flatten(arg, part_leaves, part_sig, part_modules)
+            hit = (arg, part_leaves, tuple(part_sig), part_modules)
             if memo is not None:
                 memo[pos] = hit
         leaves += hit[1]
         sig.append(hit[2])
-    return leaves, (tuple(sig), config.x64_enabled(), config.default_float())
+        modules += hit[3]
+    return leaves, (tuple(sig), config.x64_enabled(), config.default_float()), modules
 
 
 def _map_call(args: tuple, kwargs: dict, fn: Callable):
@@ -167,7 +187,8 @@ class _Graph:
             return leaf.detach().clone().requires_grad_(leaf.requires_grad)
 
         self.args, self.kwargs = _map_call(args, kwargs, static)
-        self.static = _flatten_call(self.args, self.kwargs)[0]
+        self.static, _, static_modules = _flatten_call(self.args, self.kwargs)
+        self._module_index = {id(m): i for i, m in enumerate(static_modules)}
         self._seen = [leaf if isinstance(leaf, float) else (leaf, leaf._version)
                       for leaf in leaves]
         self._index = {id(t): i for i, t in enumerate(self.static)}
@@ -183,18 +204,23 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph()
         before = cuda_scan.launch_counts()
         try:
-            with torch.cuda.graph(self.graph, stream=stream):
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
                 self.out = fn(*self.args, **self.kwargs)
         finally:
             after = cuda_scan.launch_counts()
             self.launches = {k: after[k] - before[k] for k in after}
             cuda_scan.add_launch_counts({k: -n for k, n in self.launches.items()})
         out_leaves = []
-        _flatten(self.out, out_leaves, [])
+        _flatten(self.out, out_leaves, [], kept=self._module_index)
         # an output that is a static input is handed back as the caller's own
         self._out_source = [self._index.get(id(t)) for t in out_leaves]
 
-    def first_result(self, leaves: list):
+    def _kept(self, modules: list) -> dict:
+        """The caller's own module for each static input module: an output
+        module that is one of them is handed back as it, not copied."""
+        return {key: modules[i] for key, i in self._module_index.items()}
+
+    def first_result(self, leaves: list, modules: list):
         """The warm-up's result: its fresh tensors as they are (marked for
         use on the caller's stream), inputs passed through as the caller's
         own, views of the static inputs copied."""
@@ -209,11 +235,11 @@ class _Graph:
             t.record_stream(current)
             return t
 
-        result = _map(self.first, hand_back)
+        result = _map(self.first, hand_back, self._kept(modules))
         del self.first
         return result
 
-    def replay(self, leaves: list):
+    def replay(self, leaves: list, modules: list):
         with torch.no_grad():
             for i, (leaf, dst) in enumerate(zip(leaves, self.static)):
                 seen = self._seen[i]
@@ -235,7 +261,7 @@ class _Graph:
                 return leaves[i]
             return t.clone()
 
-        return _map(self.out, hand_back)
+        return _map(self.out, hand_back, self._kept(modules))
 
 
 class CapturedStep:
@@ -253,7 +279,7 @@ class CapturedStep:
         self._memo = {}
 
     def __call__(self, *args, **kwargs):
-        leaves, key = _flatten_call(args, kwargs, self._memo)
+        leaves, key, modules = _flatten_call(args, kwargs, self._memo)
         devices = {leaf.device for leaf in leaves if isinstance(leaf, torch.Tensor)}
         if all(d.type != "cuda" for d in devices):
             return self.fn(*args, **kwargs)
@@ -265,6 +291,6 @@ class CapturedStep:
             graph = _Graph(self.fn, args, kwargs, leaves, devices.pop())
             self._graphs[key] = graph
             self.captures += 1
-            return graph.first_result(leaves)
+            return graph.first_result(leaves, modules)
         self.replays += 1
-        return graph.replay(leaves)
+        return graph.replay(leaves, modules)

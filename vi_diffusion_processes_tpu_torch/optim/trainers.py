@@ -9,11 +9,15 @@ zigzag detection.  Its inner loop runs the packed step of
 at 2 ≤ d ≤ 8, and the generic update rules otherwise (``use_packed=False``,
 an SSM prior, or d > 8).  :class:`VDPTrainer`: the VDP fixed-point loop with
 warm-up, on the packed state at d = 1 and on the generic ``inference_step``
-above.  The control flow is plain Python, as in the reference.  The packed
-d = 1 steps and ELBOs of both trainers run as :class:`.compiled.CapturedStep`:
-CUDA graphs captured once and replayed on the card, where the reference
-jits them; the other routes run eagerly.  The ELBO is read on the host once
-a step, as ``float(elbo_arr)`` is in the reference.
+above.  The control flow is plain Python, as in the reference.  Every step
+and ELBO that the reference jits runs as a :class:`.compiled.CapturedStep`,
+a CUDA graph captured once per structure and replayed on the card: the
+packed steps at d = 1 and at 2 ≤ d ≤ 8 with their ELBOs, the generic site
+step (both site updates, then ``classic_elbo``) with the first
+``classic_elbo`` of an inner loop, and VDP's packed or generic step and
+ELBO.  A re-linearized or drift-learned model of the same structure is
+copied in, not captured again.  The ELBO is read on the host once a step,
+as ``float(elbo_arr)`` is in the reference.
 """
 from __future__ import annotations
 
@@ -61,6 +65,29 @@ class _PriorSDELearner:
         return new_sde
 
 
+@torch.no_grad()
+def _site_step(model: CVISitesSSM, lr):
+    """The generic inner iteration: both site updates, then the ELBO
+    (trainers.py:49, :52)."""
+    model = model.update_data_sites(lr).update_girsanov_sites(lr)
+    return model, model.classic_elbo()
+
+
+@torch.no_grad()
+def _classic_elbo(model: CVISitesSSM) -> torch.Tensor:
+    return model.classic_elbo()
+
+
+@torch.no_grad()
+def _vdp_step(model: VariationalMarkovGP, lr, x0_lr) -> VariationalMarkovGP:
+    return model.inference_step(lr, x0_lr)
+
+
+@torch.no_grad()
+def _vdp_elbo(model: VariationalMarkovGP) -> torch.Tensor:
+    return model.elbo()
+
+
 @dataclass
 class CVISitesTrainer:
     """Alternating site-update / re-linearization loop (trainers.py:29)."""
@@ -80,22 +107,27 @@ class CVISitesTrainer:
 
     def __post_init__(self):
         # (pack, unpack, step, elbo) of the packed loop, or None for the
-        # generic update rules (trainers.py:53-78)
+        # generic update rules (trainers.py:53-78); every step and ELBO is
+        # captured once as a CUDA graph on the card, as jax.jit'ed there
         self._packed = None
+        d = self.model.state_dim
         if self.use_packed and isinstance(self.model, CVISitesSDE):
-            if self.model.state_dim == 1:
+            if d == 1:
                 from ..models import cvi_dp_packed as p
 
-                # captured once as CUDA graphs on the card, as jax.jit'ed
-                # there (trainers.py:68)
-                self._packed = (p.pack_state, p.unpack_state,
-                                CapturedStep(p.packed_natgrad_step), CapturedStep(p.packed_elbo))
+                fns = (p.pack_state, p.unpack_state, p.packed_natgrad_step, p.packed_elbo)
             else:
                 from ..models import cvi_dp_packed_ch as p
 
-                if self.model.state_dim <= p.MAX_STATE_DIM:
-                    self._packed = (p.pack_state_ch, p.unpack_state_ch,
-                                    p.packed_natgrad_step_ch, p.packed_elbo_ch)
+                fns = None if d > p.MAX_STATE_DIM else (
+                    p.pack_state_ch, p.unpack_state_ch, p.packed_natgrad_step_ch,
+                    p.packed_elbo_ch)
+            if fns is not None:
+                pack, unpack, step, elbo = fns
+                self._packed = (pack, unpack, CapturedStep(step), CapturedStep(elbo))
+        # (step, elbo) of the generic update rules (trainers.py:49, :52)
+        self._generic = (None if self._packed is not None
+                         else (CapturedStep(_site_step), CapturedStep(_classic_elbo)))
         if self.learn_prior_sde:
             self._prior_learner = _PriorSDELearner(self.model.prior_sde, self.prior_sde_lr)
 
@@ -111,14 +143,9 @@ class CVISitesTrainer:
             def step(state, lr):
                 return packed_natgrad_step(self.model, state, lr)
         else:
+            step, elbo_of = self._generic
             carry = self.model
-            with torch.no_grad():
-                prev = float(self.model.classic_elbo())
-
-            @torch.no_grad()
-            def step(model, lr):
-                model = model.update_data_sites(lr).update_girsanov_sites(lr)
-                return model, model.classic_elbo()
+            prev = float(elbo_of(self.model))
 
         lr = self.sites_lr
         for _ in range(self.max_inner_iters):
@@ -193,13 +220,15 @@ class VDPTrainer:
 
     def __post_init__(self):
         self._packed = self.model.state_dim == 1
+        # captured once as CUDA graphs on the card, as jax.jit'ed there
+        # (trainers.py:191-197); the warm-up's x0_lr = 0 is a value
         if self._packed:
             from ..models.vdp_packed import packed_inference_step, packed_vdp_elbo
 
-            # captured once as CUDA graphs on the card, as jax.jit'ed there
-            # (trainers.py:191-194); the warm-up's x0_lr = 0 is a value
             self._step = CapturedStep(packed_inference_step)
             self._elbo = CapturedStep(packed_vdp_elbo)
+        else:
+            self._step, self._elbo = CapturedStep(_vdp_step), CapturedStep(_vdp_elbo)
         if self.learn_prior_sde:
             self._prior_learner = _PriorSDELearner(self.model.prior_sde, self.prior_sde_lr)
 
@@ -220,14 +249,7 @@ class VDPTrainer:
             def elbo_of(carry):
                 return self._elbo(self.model, carry)
         else:
-            state = self.model
-
-            def step(carry, lr, x0_lr):
-                return carry.inference_step(lr, x0_lr)
-
-            @torch.no_grad()
-            def elbo_of(carry):
-                return carry.elbo()
+            state, step, elbo_of = self.model, self._step, self._elbo
 
         for _ in range(self.warmup_steps):
             state = step(state, self.warmup_lr, 0.0)
