@@ -42,6 +42,7 @@ from ..sde.utils import (
 )
 from ..ssm.state_space_model import StateSpaceModel
 from ..ssm.transforms import naturals_to_ssm
+from ..utils import tracing
 from ..utils.linalg import chol_psd, gaussian_kl
 
 __all__ = ["CVISitesSSM", "CVISitesSDE", "DataSites"]
@@ -304,6 +305,7 @@ class CVISitesSDE(CVISitesSSM):
     clip_state_transitions: Tuple[float, float] = (-1.0, 1.0)
 
     @classmethod
+    @tracing.annotated("vidp.cvi_dp.initialize_sde")
     def initialize_sde(
         cls,
         prior_sde: SDE,
@@ -361,6 +363,7 @@ class CVISitesSDE(CVISitesSSM):
             )
         return self.replace(dist_p=lin, prior_nats=_prior_nats_f64(lin))
 
+    @tracing.annotated("vidp.cvi_dp.relinearize")
     @torch.no_grad()
     def relinearize(self) -> "CVISitesSDE":
         """Re-linearize AND re-base the Girsanov sites so that ``dist_q`` is

@@ -43,6 +43,12 @@ its arguments into the graph's static inputs and replays the graph.
   nothing, are taken back; every replay adds the launches it captured.
 * On the CPU the step is called directly.  On CUDA nothing falls back to
   eager execution: a failed warm-up, capture or replay raises.
+* While a profile is active (``utils/tracing.py``), a capture (warm-up,
+  capture and the first hand-back) is the span
+  ``vidp.captured_step.capture`` with the step's name and the port's kernel
+  launches it captured, and a replay (copy-in, ``graph.replay()`` and the
+  hand-back) is ``vidp.captured_step.replay``; flattening the arguments and
+  finding the graph come before either and count to the caller.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from torch import nn
 
 from .. import config
 from ..ops import cuda_scan
+from ..utils import tracing
 
 __all__ = ["CapturedStep"]
 
@@ -288,9 +295,12 @@ class CapturedStep:
             raise ValueError(f"CapturedStep({self.fn.__name__}): arguments on {sorted(map(str, devices))}")
         graph = self._graphs.get(key)
         if graph is None:
-            graph = _Graph(self.fn, args, kwargs, leaves, devices.pop())
-            self._graphs[key] = graph
-            self.captures += 1
-            return graph.first_result(leaves, modules)
+            with tracing.annotate("vidp.captured_step.capture", fn=self.fn.__name__) as span:
+                graph = _Graph(self.fn, args, kwargs, leaves, devices.pop())
+                self._graphs[key] = graph
+                self.captures += 1
+                span.set(launches=dict(graph.launches))
+                return graph.first_result(leaves, modules)
         self.replays += 1
-        return graph.replay(leaves, modules)
+        with tracing.annotate("vidp.captured_step.replay", fn=self.fn.__name__):
+            return graph.replay(leaves, modules)

@@ -17,7 +17,11 @@ step (both site updates, then ``classic_elbo``) with the first
 ``classic_elbo`` of an inner loop, and VDP's packed or generic step and
 ELBO.  A re-linearized or drift-learned model of the same structure is
 copied in, not captured again.  The ELBO is read on the host once a step,
-as ``float(elbo_arr)`` is in the reference.
+as ``float(elbo_arr)`` is in the reference.  While a profile is active
+the loops record the spans ``vidp.trainer.optimize``,
+``vidp.trainer.optimize_sites`` and ``vidp.trainer.read_elbo`` and count
+``trainer.steps_tried`` and ``trainer.steps_accepted``
+(:mod:`..utils.tracing`).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 
 from ..models.cvi_dp import CVISitesSDE, CVISitesSSM
 from ..models.vdp import VariationalMarkovGP
+from ..utils import tracing
 from .compiled import CapturedStep
 
 __all__ = ["CVISitesTrainer", "VDPTrainer"]
@@ -63,6 +68,12 @@ class _PriorSDELearner:
             for name, p in new_sde.named_parameters():
                 p.copy_(self._params[name])
         return new_sde
+
+
+def _read_elbo(elbo: torch.Tensor) -> float:
+    """The ELBO on the host, where the trainer waits for the card."""
+    with tracing.annotate("vidp.trainer.read_elbo"):
+        return float(elbo)
 
 
 @torch.no_grad()
@@ -131,6 +142,7 @@ class CVISitesTrainer:
         if self.learn_prior_sde:
             self._prior_learner = _PriorSDELearner(self.model.prior_sde, self.prior_sde_lr)
 
+    @tracing.annotated("vidp.trainer.optimize_sites")
     def optimize_sites(self) -> float:
         """Inner loop with lr decay on an ELBO decrease (trainers.py:84-124),
         on the packed state or on the generic update rules: the same updates."""
@@ -138,19 +150,20 @@ class CVISitesTrainer:
         if self._packed is not None:
             pack_state, unpack_state, packed_natgrad_step, packed_elbo = self._packed
             carry = pack_state(self.model)
-            prev = float(packed_elbo(self.model, carry))
+            prev = _read_elbo(packed_elbo(self.model, carry))
 
             def step(state, lr):
                 return packed_natgrad_step(self.model, state, lr)
         else:
             step, elbo_of = self._generic
             carry = self.model
-            prev = float(elbo_of(self.model))
+            prev = _read_elbo(elbo_of(self.model))
 
         lr = self.sites_lr
         for _ in range(self.max_inner_iters):
             cand, elbo_t = step(carry, lr)
-            elbo = float(elbo_t)
+            tracing.count("trainer.steps_tried")
+            elbo = _read_elbo(elbo_t)
             if math.isnan(elbo) or elbo < prev - abs(prev) * 1e-6:
                 lr *= self.lr_decay
                 if lr < 1e-4:
@@ -158,6 +171,7 @@ class CVISitesTrainer:
                 continue
             carry = cand
             self.elbo_trace.append(elbo)
+            tracing.count("trainer.steps_accepted")
             if abs(elbo - prev) < self.elbo_tol:
                 prev = elbo
                 break
@@ -184,6 +198,7 @@ class CVISitesTrainer:
         )
         self.model = self.model.replace(prior_sde=new_sde).set_linearized_prior()
 
+    @tracing.annotated("vidp.trainer.optimize")
     def optimize(self) -> List[float]:
         """Alternate inference and, with ``learn_prior_sde``, drift learning,
         with zigzag detection (trainers.py:148-162)."""
@@ -232,6 +247,7 @@ class VDPTrainer:
         if self.learn_prior_sde:
             self._prior_learner = _PriorSDELearner(self.model.prior_sde, self.prior_sde_lr)
 
+    @tracing.annotated("vidp.trainer.optimize_sites")
     def perform_inference(self) -> float:
         """Warm-up at a tiny rate, then fixed-point steps: a NaN ELBO reverts
         the step and shrinks the rate; a step whose ELBO fell is accepted and
@@ -254,10 +270,11 @@ class VDPTrainer:
         for _ in range(self.warmup_steps):
             state = step(state, self.warmup_lr, 0.0)
         lr = self.lr
-        prev = float(elbo_of(state))
+        prev = _read_elbo(elbo_of(state))
         for _ in range(self.max_iters):
             candidate = step(state, lr, self.x0_lr)
-            elbo = float(elbo_of(candidate))
+            tracing.count("trainer.steps_tried")
+            elbo = _read_elbo(elbo_of(candidate))
             if math.isnan(elbo):
                 lr *= self.lr_decay
                 if lr < 1e-7:
@@ -267,6 +284,7 @@ class VDPTrainer:
                 lr = max(lr * self.lr_decay, 1e-4)
             state = candidate
             self.elbo_trace.append(elbo)
+            tracing.count("trainer.steps_accepted")
             if abs(elbo - prev) < self.elbo_tol:
                 prev = elbo
                 break
@@ -282,6 +300,7 @@ class VDPTrainer:
         )
         self.model = self.model.replace(prior_sde=new_sde)
 
+    @tracing.annotated("vidp.trainer.optimize")
     def optimize(self, n_rounds: int = 5) -> List[float]:
         elbos = []
         for _ in range(n_rounds):
