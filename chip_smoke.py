@@ -24,6 +24,11 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
    ``torch.profiler`` (which must count one launch per call); the grid,
    blocks per sequence and threads per block that each kernel takes at
    T = 100,000, where every one must spread the sequence over several blocks;
+3b. quad kl: the d = 2 KL's quadrature kernel and its adjoint
+   (``ops/quad_kl.py``) at T = 100,000 on the inputs the third float64 Van
+   der Pol step hands them, in float64 and float32, against the plain
+   version evaluated in float64 (1e-10; float32 1e-5), with host and device
+   time, bound, the plain version's time and the launch shape;
 4. adjoints: the backward passes of K1, K2, K3 and K4 at T = 100,000 against
    autograd through the plain versions on the card; each must launch K2;
    the device time of one forward-plus-backward call (every kernel of it);
@@ -57,7 +62,8 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     ``run_cvi_dp`` with ``use_packed=False`` captured against eager in the
     same way; then 32 eager steps against 32 replays at T = 100,000, bit for
     bit, with the same figures: the Van der Pol d = 2 packed step (R1, no
-    K1-K4), the generic site step on the flagship under its SDE prior and
+    K1-K4; the quadrature KL's forward 2 and adjoint 1 a step), the
+    generic site step on the flagship under its SDE prior and
     under an SSM prior (R2, K1 5 and K2 20 a step) and VDP's generic step at
     d = 2 on the Van der Pol prior and data (R3, no K1-K4); each
     ``run_cvi_dp`` prints its steps taken, accepted and lr decays;
@@ -83,7 +89,8 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
     (Van der Pol prior, T = 100,000, float32 model, float64 naturals, lr
     0.2), ``pack_state_ch`` and 32 ``packed_natgrad_step_ch``: a finite ELBO
     that rises from its first value, steps/s (cold), launches and device time
-    per step (``torch.profiler``) and peak memory; K1-K4 must launch 0 times;
+    per step (``torch.profiler``) and peak memory; K1-K4 must launch 0 times,
+    the quadrature KL's forward exactly twice a step and its adjoint once;
 17. vanderpol reference: the same model at T = 2,000 in float64, three packed
     steps on the card against the CPU (ELBOs, sites, marginals, 1e-9), and the
     Schur-segment UDU' on the card against the sequential ``btd_udu`` (1e-10);
@@ -1241,7 +1248,8 @@ def phase_compiled_generic(dev, card: str, dataset) -> dict:
     phase 6's data, captured against eager (``_run_cvi_dp_captured_and_eager``);
     then, at T = 100,000, STEPS eager steps against STEPS replays, bit for
     bit, each with its steps/s, device ms, launches, busy share and memory:
-    R1, the d = 2 packed step on the Van der Pol configuration (no K1-K4);
+    R1, the d = 2 packed step on the Van der Pol configuration (no K1-K4;
+    the quadrature KL's forward twice a step and its adjoint once);
     R2, the trainer's generic site step on the flagship under its SDE prior
     and under the linearized prior as an SSM (K1 5 and K2 20 a step); R3,
     VDP's generic step at d = 2 on the Van der Pol prior and data (no
@@ -1263,7 +1271,8 @@ def phase_compiled_generic(dev, card: str, dataset) -> dict:
     captured = CapturedStep(packed_natgrad_step_ch)
     state = captured(vanderpol, pack_state_ch(vanderpol), LR_VANDERPOL)[0]
     records["vanderpol"] = _compiled_route("vanderpol", card, captured, (vanderpol, state),
-                                           [(LR_VANDERPOL,)] * STEPS, {})
+                                           [(LR_VANDERPOL,)] * STEPS,
+                                           {"quad_kl": 2, "quad_kl_adjoint": 1})
 
     def next_model(args, out):
         return (out[0] if isinstance(out, tuple) else out,)
@@ -1696,6 +1705,109 @@ def phase_vanderpol_trainer(dev, card: str) -> None:
     covs = out["posterior_covs"]
     if not (bool(torch.isfinite(covs).all()) and covs.shape[-1] == 2):
         raise AssertionError("vanderpol trainer: the posterior is not a finite d = 2 path")
+
+
+#: operations of one quadrature point of the KL's path term, forward
+#: (``portbench/counts.py::quad_point_flops(2, 9)``); the adjoint counts twice
+QUAD_POINT_FLOPS = 47
+#: K1-K4: the d = 2 path launches none of them
+K1_TO_K4 = ("riccati_d_sweep", "linear_recurrence", "dist_q_1d_planes", "riccati_d_sweep_f32")
+
+
+def _quad_kl_inputs(model, state):
+    """The arguments that one packed step hands ``quad_kl`` for its Girsanov
+    gradient, detached: ``([μ, L, A, b, P], (z, w, Δt), (a, τ))``."""
+    from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed_ch as tch
+
+    calls, real = [], tch.quad_kl
+    tch.quad_kl = lambda *args: calls.append(args) or real(*args)
+    try:
+        tch.packed_natgrad_step_ch(model, state, LR_VANDERPOL)
+    finally:
+        tch.quad_kl = real
+    *tensors, z, w, dt, _, params = calls[0]
+    return [x.detach() for x in tensors], (z, w, dt), params
+
+
+def phase_quad_kl(dev) -> dict:
+    """The d = 2 KL's quadrature kernels (``ops/quad_kl.py``) at T = 100,000
+    on the inputs that the third float64 packed step of the Van der Pol
+    configuration hands them: the forward's ``s`` and the adjoint's five
+    cotangents (of the KL's own ``g_s = 1/2``) against the plain version
+    evaluated in float64 on the same inputs (1e-10 of ``s`` and of each
+    cotangent's scale; float32 on the same inputs rounded, 1e-5: the
+    kernel's ``(I − A) x − b + Δt f`` cancels nothing, the plain
+    expression ``|x|/|diff|`` ≈ 1e4 ulps), each kernel's host-clock median,
+    device time per launch and bound, the plain forward's time and that of
+    the plain forward with autograd's backward, and the launch, which must
+    take many blocks.  Returns ``{name: record}`` for the kernel table."""
+    from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed_ch as tch
+    from vi_diffusion_processes_tpu_torch.ops import quad_kl as qk
+
+    model = vanderpol_model(T_FLAGSHIP, torch.float64, dev)[0]
+    state = tch.pack_state_ch(model)
+    for _ in range(2):
+        state, _ = tch.packed_natgrad_step_ch(model, state, LR_VANDERPOL)
+    f64_inputs = _quad_kl_inputs(model, state)
+    n, n_points = f64_inputs[0][0].shape[0], f64_inputs[1][0].shape[0]
+    records, limits = {}, {torch.float64: 1e-10, torch.float32: 1e-5}
+    for dtype in (torch.float64, torch.float32):
+        tensors, grid, params = ([x.to(dtype) for x in group] for group in f64_inputs)
+        g_s = torch.full((n,), 0.5, dtype=dtype, device=dev)
+        ref_params = [p.double() for p in params]
+
+        def forward():
+            return qk.quad_kl(*tensors, *grid, "vanderpol", params)
+
+        def adjoint():
+            return qk.quad_kl_adjoint(g_s, *tensors, *grid, "vanderpol", params)
+
+        def plain(xs=tensors, g=grid, ps=params):
+            return qk.quad_kl_plain(*xs, *g, lambda x: qk.vanderpol_drift(x, *ps)[0])
+
+        def plain_both(xs=tensors, g=grid, ps=params, gs=g_s):
+            leaves = [x.clone().requires_grad_() for x in xs]
+            return torch.autograd.grad(plain(leaves, g, ps), leaves, gs)
+
+        ref_inputs = [x.double() for x in tensors], [x.double() for x in grid]
+        ref = plain(*ref_inputs, ref_params)
+        err_s = float(((forward().double() - ref) / ref.abs()).abs().max())
+        ref_g = plain_both(*ref_inputs, ref_params, g_s.double())
+        err_g = max(_scaled_err(g, r) for g, r in zip(adjoint(), ref_g))
+        label = str(dtype)[6:]
+        log(f"[quad-kl] T={T_FLAGSHIP} {label}: s against the float64 plain version rel "
+            f"{err_s:.3e}, cotangents scaled {err_g:.3e} (limit {limits[dtype]:.0e})")
+        if not (err_s <= limits[dtype] and err_g <= limits[dtype]):
+            raise AssertionError(f"quad_kl ({label}) disagrees with its plain version")
+        point_flops = n * n_points * QUAD_POINT_FLOPS
+        size = torch.finfo(dtype).bits // 8
+        # bytes: 16 inputs a transition (μ, L, A, b, P) and s; the adjoint
+        # also g_s and 16 cotangents
+        fwd = {"err": err_s, "bound": bound_ms(17 * size * n, point_flops, dtype),
+               "ms": median_ms(forward), "device_ms": device_ms(forward, "quad_kl_fwd_kernel",
+                                                                "quad_kl"),
+               "plain_ms": median_ms(plain)}
+        bwd = {"err": err_g, "bound": bound_ms(33 * size * n, 2 * point_flops, dtype),
+               "ms": median_ms(adjoint), "device_ms": device_ms(adjoint, "quad_kl_bwd_kernel",
+                                                                "quad_kl_adjoint"),
+               "plain_ms": median_ms(plain_both)}
+        for name, rec in (("quad_kl", fwd), ("quad_kl_adjoint", bwd)):
+            log(f"[kernels] {name} ({label}) T={T_FLAGSHIP}: kernel {rec['ms']:.4f} ms host "
+                f"clock, {rec['device_ms']:.5f} ms device per launch, bound "
+                f"{rec['bound'][0]:.6f} ms ({rec['bound'][1]}): share "
+                f"{100 * rec['bound'][0] / rec['device_ms']:.1f}%; plain "
+                f"{'forward' if name == 'quad_kl' else 'forward and backward'} "
+                f"{rec['plain_ms']:.4f} ms (median of {REPS})")
+        if dtype == torch.float64:
+            records = {"quad_kl": fwd, "quad_kl_adjoint": bwd}
+    shape = qk.launch_shape(n, n_points)
+    log(f"[launch] quad_kl and quad_kl_adjoint T={T_FLAGSHIP}: {n} transitions of {n_points} "
+        f"points, grid {shape['grid']}, {shape['threads_per_block']} threads per block, "
+        f"{shape['lanes_per_transition']} lanes a transition, {shape['shared_memory_bytes']} "
+        f"bytes of dynamic shared memory (float64)")
+    if not shape["grid"] > 1:
+        raise AssertionError("quad_kl runs on one block")
+    return records
 
 
 def cvi_poisson_data(n: int = None, t1: float = 100.0):
@@ -2792,7 +2904,8 @@ def phase_sharded(dev, card: str) -> dict:
 
     total = {}
     expected = {"riccati_d_sweep": 2, "linear_recurrence": 2 * K2_LAUNCHES_PER_DIST_Q,
-                "dist_q_1d_planes": 0, "riccati_d_sweep_f32": 0}
+                "dist_q_1d_planes": 0, "riccati_d_sweep_f32": 0, "quad_kl": 0,
+                "quad_kl_adjoint": 0}
 
     def count(rank, step):
         if step["launches"] != expected:
@@ -2843,6 +2956,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     kernels = phase_kernels(dev)
+    kernels.update(phase_quad_kl(dev))
     phase_adjoints(dev)
 
     (model, obs_idx, obs_y, elbo64), main_counts = _counted(phase_main_path, dev, card)
@@ -2887,11 +3001,21 @@ def main() -> None:
     vanderpol_record, vanderpol_counts = _counted(phase_vanderpol, dev, card)
     _, vanderpol_reference_counts = _counted(phase_vanderpol_reference, dev)
     _, vanderpol_trainer_counts = _counted(phase_vanderpol_trainer, dev, card)
-    # the d = 2 path computes its UDU', solves and marginals on the generic scan
+    # the d = 2 path computes its UDU', solves and marginals on the generic
+    # scan, and its KL's quadrature on the card as one kernel and its adjoint
     for label, counts in (("vanderpol", vanderpol_counts),
                           ("vanderpol trainer", vanderpol_trainer_counts)):
-        if any(counts.values()):
+        if any(counts[k] for k in K1_TO_K4):
             raise AssertionError(f"{label}: K1-K4 launched on the d = 2 path: {counts}")
+        if not (counts["quad_kl"] and counts["quad_kl_adjoint"]):
+            raise AssertionError(f"{label}: the quadrature KL's kernels were not launched: "
+                                 f"{counts}")
+    # 32 steps and 2 profiled: the forward twice a step, the adjoint once
+    if (vanderpol_counts["quad_kl"], vanderpol_counts["quad_kl_adjoint"]) != (
+            2 * (STEPS + 2), STEPS + 2):
+        raise AssertionError(f"vanderpol: quad_kl launched {vanderpol_counts['quad_kl']} and "
+                             f"its adjoint {vanderpol_counts['quad_kl_adjoint']} times in "
+                             f"{STEPS + 2} steps")
     log("[vanderpol] " + json.dumps(vanderpol_record))
     cvi_record, cvi_counts = _counted(phase_cvi_poisson, dev, card)
     if any(cvi_counts.values()):
@@ -2948,12 +3072,15 @@ def main() -> None:
 
     csrc = "vi_diffusion_processes_tpu_torch/csrc/"
     pallas = "vi_diffusion_processes_tpu/ops/"
-    source = {"riccati_d_sweep_f32": csrc + "cuda_riccati.cu"}
+    source = {"riccati_d_sweep_f32": csrc + "cuda_riccati.cu", "quad_kl": csrc + "quad_kl.cu",
+              "quad_kl_adjoint": csrc + "quad_kl.cu"}
     replaces = {
         "riccati_d_sweep": pallas + "pallas_scan.py:257",
         "linear_recurrence": pallas + "pallas_scan.py:394",
         "dist_q_1d_planes": pallas + "pallas_scan.py:551",
         "riccati_d_sweep_f32": pallas + "pallas_riccati.py:42 and :69",
+        "quad_kl": "none (XLA: vi_diffusion_processes_tpu/models/cvi_dp_packed_ch.py:256-323)",
+        "quad_kl_adjoint": "none (its autograd)",
     }
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source.get(name, csrc + "cuda_scan.cu"),

@@ -59,7 +59,7 @@ REPO = Path(__file__).resolve().parents[2]
 T = 100_000
 STEPS = 8
 LR = 0.3
-#: K1-K4 launches of one step by route: float64 naturals take K3 twice, x64
+#: kernel launches of one step by route: float64 naturals take K3 twice, x64
 #: off K4 twice and K2 eight times; VDP's step K2 four times and its ELBO twice
 LAUNCHES = {"x64": {"dist_q_1d_planes": 2}, "x64_off": {"riccati_d_sweep_f32": 2,
                                                         "linear_recurrence": 8}}
@@ -280,15 +280,20 @@ def _next_state(args, out):
 
 
 def test_vanderpol_packed_step_replays_equal_eager_steps(cuda_device):
-    """R1: the d = 2 packed step at T = 100,000 (the quadrature KL and its
-    gradient captured with the step, no kernel of K1-K4) and its ELBO."""
+    """R1: the d = 2 packed step at T = 100,000 (no kernel of K1-K4; the
+    quadrature KL's forward twice and its adjoint once a step, captured
+    with the step) and its ELBO (the forward once)."""
     model = _vanderpol(T, cuda_device)
     step = CapturedStep(tch.packed_natgrad_step_ch)
     model, state = _replays_equal_eager(step, (model, tch.pack_state_ch(model)),
-                                        [(0.2,), (0.1,), (0.2,), (0.2,)], _next_state, {})
+                                        [(0.2,), (0.1,), (0.2,), (0.2,)], _next_state,
+                                        {"quad_kl": 2, "quad_kl_adjoint": 1})
     elbo_of = CapturedStep(tch.packed_elbo_ch)
     for what in ("elbo", "elbo replay"):
+        before = cs.launch_counts()
         _assert_bits_equal(elbo_of(model, state), tch.packed_elbo_ch(model, state), what)
+        made = {k: v - before[k] for k, v in cs.launch_counts().items()}
+        assert made == {k: {"quad_kl": 2}.get(k, 0) for k in made}, made
 
 
 @pytest.mark.parametrize("prior", ["sde", "ssm"])

@@ -6,10 +6,14 @@ The file imports no JAX, so it also runs on a machine without it:
     python -m pytest tests/port/test_torch_cvi_dp_ch_cuda.py --confcutdir=tests/port -m cuda
 
 The path is plain PyTorch on both devices (the Schur-segment UDU', the
-matrix ``affine_scan``, the marginals scan, the quadrature KL) and reaches
-none of the port's kernels, so float64 results differ by the rounding of the
-device's elementwise kernels, reductions and GEMMs: 1e-9 of each output's
-scale.
+matrix ``affine_scan``, the marginals scan) and reaches none of K1-K4; on
+the card the quadrature KL is one kernel forward and one for its adjoint
+(``ops/quad_kl.py``), which take the drift difference without the plain
+expression's cancellation and sum the 400 points in another order.  So
+float64 results differ by the rounding of the device's elementwise kernels,
+reductions and GEMMs and by the plain path's cancellation (an emulation of
+the kernel's arithmetic on the CPU moved the sites by 4e-11 of their scale
+at this T): 1e-9 of each output's scale.
 """
 import numpy as np
 import pytest
@@ -33,6 +37,14 @@ def _close(got, ref, rtol, err_msg=""):
                         rtol, err_msg=err_msg)
 
 
+def _kernel_launches(device, steps):
+    """K1-K4 never; on the card the quadrature KL's forward twice a step
+    and its adjoint once."""
+    on_card = torch.device(device).type == "cuda"
+    return {k: {"quad_kl": 2 * steps, "quad_kl_adjoint": steps}.get(k, 0) if on_card else 0
+            for k in cs.launch_counts()}
+
+
 def _steps(model, n=3):
     state, elbos = tch.pack_state_ch(model), []
     for _ in range(n):
@@ -45,7 +57,7 @@ def _steps(model, n=3):
 def test_packed_ch_step_on_the_card_matches_the_cpu(cuda_device, dtype):
     cs.reset_launch_counts()
     s_gpu, e_gpu = _steps(vanderpol_model_port(T, dtype, cuda_device))
-    assert not any(cs.launch_counts().values())
+    assert cs.launch_counts() == _kernel_launches(cuda_device, 3)
     s_cpu, e_cpu = _steps(vanderpol_model_port(T, dtype, "cpu"))
     tol = 1e-9 if dtype == "float64" else 1e-4
     _close(e_gpu, e_cpu, tol, "ELBO")
@@ -74,7 +86,12 @@ def test_d2_trainer_on_the_card_matches_the_cpu(cuda_device):
                                   max_inner_iters=3, max_outer_iters=2)
         cs.reset_launch_counts()
         results.append((trainer.optimize(), trainer.elbo_trace, trainer.model))
-        assert not any(cs.launch_counts().values())
+        counts = cs.launch_counts()
+        assert not any(v for k, v in counts.items() if not k.startswith("quad_kl"))
+        if device == "cpu":
+            assert not any(counts.values())
+        else:  # every step and ELBO of the trainer took the kernels
+            assert counts["quad_kl"] > 0 and counts["quad_kl_adjoint"] > 0
     (elbos, trace, model), (elbos_cpu, trace_cpu, model_cpu) = results
     np.testing.assert_allclose(elbos, elbos_cpu, rtol=1e-9)
     np.testing.assert_allclose(trace, trace_cpu, rtol=1e-9)

@@ -244,7 +244,13 @@ def test_captured_step_spans_on_the_card(cuda_device):
     replays = [s for s in spans if s.name == REPLAY]
     assert len(captures) == 2 and {s.attrs["fn"] for s in captures} == {
         step.fn.__name__, elbo_of.fn.__name__}
-    assert all(sum(s.attrs["launches"].values()) == 0 for s in captures)  # no K1-K4 at d = 2
+    # no K1-K4 at d = 2; the quadrature KL's forward twice and its adjoint
+    # once in the step, the forward once in the ELBO
+    quad = {step.fn.__name__: {"quad_kl": 2, "quad_kl_adjoint": 1},
+            elbo_of.fn.__name__: {"quad_kl": 1}}
+    for s in captures:
+        expected = quad[s.attrs["fn"]]
+        assert s.attrs["launches"] == {k: expected.get(k, 0) for k in s.attrs["launches"]}
     assert len(replays) == calls - 2
     by_id = {s.id: s for s in spans}
     assert all(by_id[s.parent].name == SITES for s in captures + replays)

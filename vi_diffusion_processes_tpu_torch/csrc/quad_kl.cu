@@ -1,0 +1,293 @@
+// Hand-written Hopper kernels for the path term of the d = 2 CVI-DP step's KL
+// (models/cvi_dp_packed_ch.py::_kl_packed_ch), forward and adjoint.
+//
+// They replace no TPU kernel: the JAX package computes this term with XLA
+// (vi_diffusion_processes_tpu/models/cvi_dp_packed_ch.py:256-323), and the
+// port's plain version is ops/quad_kl.py::quad_kl_plain.  For each transition
+// n < N of the grid and each of the P points (z_p, w_p) of the Gauss-Hermite
+// grid (P = 20^2 = 400):
+//
+//   x_p    = mu_n + sqrt(2) L_n z_p
+//   diff_p = x_p + dt f(x_p) - (A_n x_p + b_n)      f: the Van der Pol drift
+//   s_n    = sum_p w_p diff_p^T P_n diff_p
+//
+// and the adjoint takes g_s [N] to the cotangents of mu, L, A, b and P.  Plain
+// PyTorch builds [N, P, 2] tensors for x, f(x), diff and their products, and
+// autograd as many again: at N = 99,999 each is 640 MB of float64.  Here every
+// point lives in registers only: 16 numbers a transition come in (17 for the
+// adjoint) and 1 goes out (16), so the kernels are bound by operations, 47 a
+// point forward (portbench/counts.py::quad_point_flops), not by bytes.
+//
+// Design:
+//   * a group of kGroup = 8 lanes shares one transition: lane r takes the
+//     points r, r + 8, r + 16, ... (50 of the 400), and the group adds its
+//     partial sums with __shfl_xor_sync; a block of 256 threads takes 32
+//     transitions;
+//   * the grid (sqrt(2) z and w) is staged in shared memory once a block, as
+//     three arrays: at each step the 8 lanes of a group read 8 neighbouring
+//     words, and the 4 groups of a warp the same 8 (a broadcast);
+//   * each transition's inputs are read once into registers, with what the
+//     points share computed once: I - A, P + P^T, tau*a, tau/a, dt*tau*a,
+//     1/3;
+//   * every product is taken in the inputs' type (float64 or float32), and
+//     nothing is clamped: a NaN in L gives a NaN s_n, as the plain path
+//     does, so the trainer's NaN rejection sees it.
+// The difference x + dt f(x) - (A x + b) is taken as (I - A) x - b + dt f(x):
+// the same function, whose terms are all of the size of diff, where the plain
+// expression subtracts two sums of the size of x.  dt, a and tau are read from
+// device memory (0-d tensors), so a CUDA graph captures no value of them.
+//
+// Interface: plain C launchers that return a cudaError_t as an int; they
+// launch on the given stream, never synchronise and allocate nothing.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kGroup = 8;
+constexpr int kPerBlock = kThreads / kGroup;
+constexpr unsigned kFull = 0xffffffffu;
+// the grid's three arrays stay within the 48 KB of shared memory a block may
+// take without opting in
+constexpr int kMaxPoints = 2048;
+
+template <typename T>
+__device__ __forceinline__ T group_sum(T v) {
+#pragma unroll
+  for (int off = kGroup / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// One transition's inputs and what its points share.
+template <typename T>
+struct Transition {
+  T mu0, mu1, l00, l01, l10, l11;
+  T m00, m01, m10, m11;  // I - A
+  T b0, b1;
+  T p00, p01, p10, p11;
+  T s00, s01, s11;  // P + P^T
+};
+
+template <typename T>
+__device__ __forceinline__ Transition<T> load_transition(const T* __restrict__ mu,
+                                                        const T* __restrict__ chol,
+                                                        const T* __restrict__ a,
+                                                        const T* __restrict__ b,
+                                                        const T* __restrict__ p, int k) {
+  Transition<T> t;
+  t.mu0 = mu[2 * k], t.mu1 = mu[2 * k + 1];
+  t.l00 = chol[4 * k], t.l01 = chol[4 * k + 1], t.l10 = chol[4 * k + 2], t.l11 = chol[4 * k + 3];
+  t.m00 = T(1) - a[4 * k], t.m01 = -a[4 * k + 1];
+  t.m10 = -a[4 * k + 2], t.m11 = T(1) - a[4 * k + 3];
+  t.b0 = b[2 * k], t.b1 = b[2 * k + 1];
+  t.p00 = p[4 * k], t.p01 = p[4 * k + 1], t.p10 = p[4 * k + 2], t.p11 = p[4 * k + 3];
+  t.s00 = t.p00 + t.p00, t.s01 = t.p01 + t.p10, t.s11 = t.p11 + t.p11;
+  return t;
+}
+
+// The grid in shared memory: sqrt(2) z_p in z0, z1 and w_p in w.
+template <typename T>
+__device__ __forceinline__ void stage_grid(const T* __restrict__ z, const T* __restrict__ w,
+                                           int np, T* z0, T* z1, T* ws) {
+  const T sqrt2 = T(1.4142135623730951);
+  for (int p = threadIdx.x; p < np; p += kThreads) {
+    z0[p] = sqrt2 * z[2 * p];
+    z1[p] = sqrt2 * z[2 * p + 1];
+    ws[p] = w[p];
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    quad_kl_fwd_kernel(const T* __restrict__ mu, const T* __restrict__ chol,
+                       const T* __restrict__ a, const T* __restrict__ b,
+                       const T* __restrict__ p, const T* __restrict__ z,
+                       const T* __restrict__ w, const T* __restrict__ dt_ptr,
+                       const T* __restrict__ a_ptr, const T* __restrict__ tau_ptr,
+                       T* __restrict__ s, int n, int np) {
+  extern __shared__ unsigned char smem[];
+  T* z0 = reinterpret_cast<T*>(smem);
+  T* z1 = z0 + np;
+  T* ws = z1 + np;
+  stage_grid(z, w, np, z0, z1, ws);
+
+  const int lane = threadIdx.x % kGroup;
+  const int k = blockIdx.x * kPerBlock + threadIdx.x / kGroup;
+  // a group past the end computes the last transition again, so that every
+  // lane of the warp takes part in the shuffles, and writes nothing
+  const Transition<T> t = load_transition(mu, chol, a, b, p, k < n ? k : n - 1);
+  const T dt = *dt_ptr, ta = *tau_ptr * *a_ptr, tia = *tau_ptr * (T(1) / *a_ptr);
+  const T third = T(1) / T(3);
+
+  T acc = T(0);
+#pragma unroll 2
+  for (int i = lane; i < np; i += kGroup) {
+    const T zz0 = z0[i], zz1 = z1[i];
+    const T x0 = t.mu0 + (t.l00 * zz0 + t.l01 * zz1);
+    const T x1 = t.mu1 + (t.l10 * zz0 + t.l11 * zz1);
+    const T f0 = ta * (x0 - x0 * x0 * x0 * third - x1);
+    const T f1 = tia * x0;
+    const T d0 = (t.m00 * x0 + t.m01 * x1 - t.b0) + dt * f0;
+    const T d1 = (t.m10 * x0 + t.m11 * x1 - t.b1) + dt * f1;
+    const T q = d0 * (t.p00 * d0 + t.p01 * d1) + d1 * (t.p10 * d0 + t.p11 * d1);
+    acc += ws[i] * q;
+  }
+  acc = group_sum(acc);
+  if (k < n && lane == 0) s[k] = acc;
+}
+
+// g: [n, 16] per transition, in this order: mu (2), L (4), A (4), b (2),
+// P (4), the matrices row-major.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    quad_kl_bwd_kernel(const T* __restrict__ g_s, const T* __restrict__ mu,
+                       const T* __restrict__ chol, const T* __restrict__ a,
+                       const T* __restrict__ b, const T* __restrict__ p,
+                       const T* __restrict__ z, const T* __restrict__ w,
+                       const T* __restrict__ dt_ptr, const T* __restrict__ a_ptr,
+                       const T* __restrict__ tau_ptr, T* __restrict__ g, int n, int np) {
+  extern __shared__ unsigned char smem[];
+  T* z0 = reinterpret_cast<T*>(smem);
+  T* z1 = z0 + np;
+  T* ws = z1 + np;
+  stage_grid(z, w, np, z0, z1, ws);
+
+  const int lane = threadIdx.x % kGroup;
+  const int k = blockIdx.x * kPerBlock + threadIdx.x / kGroup;
+  const int kk = k < n ? k : n - 1;
+  const Transition<T> t = load_transition(mu, chol, a, b, p, kk);
+  const T dt = *dt_ptr, ta = *tau_ptr * *a_ptr, tia = *tau_ptr * (T(1) / *a_ptr);
+  const T third = T(1) / T(3);
+  // (I + dt J_f - A)^T with J_f = [[ta (1 - x0^2), -ta], [tia, 0]]: only
+  // its (0, 0) entry changes from point to point
+  const T dtta = dt * ta;
+  const T k00_at0 = t.m00 + dtta, k01 = t.m01 - dtta, k10 = t.m10 + dt * tia, k11 = t.m11;
+
+  // the sums over the lane's points, each without the factor g_s
+  T gmu0 = 0, gmu1 = 0;                    // sum gx
+  T gl00 = 0, gl01 = 0, gl10 = 0, gl11 = 0;  // sum gx (sqrt2 z)^T
+  T ga00 = 0, ga01 = 0, ga10 = 0, ga11 = 0;  // sum u x^T
+  T gb0 = 0, gb1 = 0;                      // sum u
+  T gp00 = 0, gp01 = 0, gp11 = 0;          // sum w diff diff^T
+#pragma unroll 2
+  for (int i = lane; i < np; i += kGroup) {
+    const T zz0 = z0[i], zz1 = z1[i], wi = ws[i];
+    const T x0 = t.mu0 + (t.l00 * zz0 + t.l01 * zz1);
+    const T x1 = t.mu1 + (t.l10 * zz0 + t.l11 * zz1);
+    const T xx = x0 * x0;
+    const T f0 = ta * (x0 - xx * x0 * third - x1);
+    const T f1 = tia * x0;
+    const T d0 = (t.m00 * x0 + t.m01 * x1 - t.b0) + dt * f0;
+    const T d1 = (t.m10 * x0 + t.m11 * x1 - t.b1) + dt * f1;
+    // u = w (P + P^T) diff: the cotangent of diff over g_s
+    const T u0 = wi * (t.s00 * d0 + t.s01 * d1);
+    const T u1 = wi * (t.s01 * d0 + t.s11 * d1);
+    // gx = (I + dt J_f - A)^T u
+    const T k00 = k00_at0 - dtta * xx;
+    const T gx0 = k00 * u0 + k10 * u1;
+    const T gx1 = k01 * u0 + k11 * u1;
+    gmu0 += gx0, gmu1 += gx1;
+    gl00 += gx0 * zz0, gl01 += gx0 * zz1, gl10 += gx1 * zz0, gl11 += gx1 * zz1;
+    ga00 += u0 * x0, ga01 += u0 * x1, ga10 += u1 * x0, ga11 += u1 * x1;
+    gb0 += u0, gb1 += u1;
+    const T wd0 = wi * d0;
+    gp00 += wd0 * d0, gp01 += wd0 * d1, gp11 += wi * d1 * d1;
+  }
+  gmu0 = group_sum(gmu0), gmu1 = group_sum(gmu1);
+  gl00 = group_sum(gl00), gl01 = group_sum(gl01), gl10 = group_sum(gl10);
+  gl11 = group_sum(gl11);
+  ga00 = group_sum(ga00), ga01 = group_sum(ga01), ga10 = group_sum(ga10);
+  ga11 = group_sum(ga11);
+  gb0 = group_sum(gb0), gb1 = group_sum(gb1);
+  gp00 = group_sum(gp00), gp01 = group_sum(gp01), gp11 = group_sum(gp11);
+  if (k < n && lane == 0) {
+    const T gs = g_s[k];
+    T* out = g + 16 * static_cast<long long>(k);
+    out[0] = gs * gmu0, out[1] = gs * gmu1;
+    out[2] = gs * gl00, out[3] = gs * gl01, out[4] = gs * gl10, out[5] = gs * gl11;
+    out[6] = -gs * ga00, out[7] = -gs * ga01, out[8] = -gs * ga10, out[9] = -gs * ga11;
+    out[10] = -gs * gb0, out[11] = -gs * gb1;
+    out[12] = gs * gp00, out[13] = gs * gp01, out[14] = gs * gp01, out[15] = gs * gp11;
+  }
+}
+
+inline int blocks(int n) { return (n + kPerBlock - 1) / kPerBlock; }
+
+template <typename T>
+inline size_t smem_bytes(int np) { return 3 * static_cast<size_t>(np) * sizeof(T); }
+
+inline bool valid(int n, int np) { return n >= 1 && np >= 1 && np <= kMaxPoints; }
+
+template <typename T>
+int launch_fwd(const T* mu, const T* chol, const T* a, const T* b, const T* p, const T* z,
+               const T* w, const T* dt, const T* da, const T* tau, T* s, int n, int np,
+               void* stream) {
+  if (!valid(n, np)) return static_cast<int>(cudaErrorInvalidValue);
+  quad_kl_fwd_kernel<T><<<blocks(n), kThreads, smem_bytes<T>(np),
+                          static_cast<cudaStream_t>(stream)>>>(mu, chol, a, b, p, z, w, dt, da,
+                                                               tau, s, n, np);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const T* g_s, const T* mu, const T* chol, const T* a, const T* b, const T* p,
+               const T* z, const T* w, const T* dt, const T* da, const T* tau, T* g, int n,
+               int np, void* stream) {
+  if (!valid(n, np)) return static_cast<int>(cudaErrorInvalidValue);
+  quad_kl_bwd_kernel<T><<<blocks(n), kThreads, smem_bytes<T>(np),
+                          static_cast<cudaStream_t>(stream)>>>(g_s, mu, chol, a, b, p, z, w, dt,
+                                                               da, tau, g, n, np);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// The launch of either kernel for n transitions and np points: out[0] the
+// grid, out[1] threads per block, out[2] lanes per transition, out[3] bytes
+// of dynamic shared memory in float64, out[4] the most points it takes.
+int vidp_quad_kl_shape(int n, int np, int* out) {
+  if (!valid(n, np)) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = blocks(n);
+  out[1] = kThreads;
+  out[2] = kGroup;
+  out[3] = static_cast<int>(smem_bytes<double>(np));
+  out[4] = kMaxPoints;
+  return 0;
+}
+
+// s [n] from mu [n, 2], L, A [n, 2, 2], b [n, 2], P [n, 2, 2], the grid
+// z [np, 2], w [np], and dt, a, tau as 0-d device tensors.
+int vidp_quad_kl_fwd_f64(const double* mu, const double* chol, const double* a,
+                         const double* b, const double* p, const double* z, const double* w,
+                         const double* dt, const double* da, const double* tau, double* s,
+                         int n, int np, void* stream) {
+  return launch_fwd<double>(mu, chol, a, b, p, z, w, dt, da, tau, s, n, np, stream);
+}
+
+int vidp_quad_kl_fwd_f32(const float* mu, const float* chol, const float* a, const float* b,
+                         const float* p, const float* z, const float* w, const float* dt,
+                         const float* da, const float* tau, float* s, int n, int np,
+                         void* stream) {
+  return launch_fwd<float>(mu, chol, a, b, p, z, w, dt, da, tau, s, n, np, stream);
+}
+
+// g [n, 16] (see quad_kl_bwd_kernel) from g_s [n] and the forward's inputs.
+int vidp_quad_kl_bwd_f64(const double* g_s, const double* mu, const double* chol,
+                         const double* a, const double* b, const double* p, const double* z,
+                         const double* w, const double* dt, const double* da, const double* tau,
+                         double* g, int n, int np, void* stream) {
+  return launch_bwd<double>(g_s, mu, chol, a, b, p, z, w, dt, da, tau, g, n, np, stream);
+}
+
+int vidp_quad_kl_bwd_f32(const float* g_s, const float* mu, const float* chol, const float* a,
+                         const float* b, const float* p, const float* z, const float* w,
+                         const float* dt, const float* da, const float* tau, float* g, int n,
+                         int np, void* stream) {
+  return launch_bwd<float>(g_s, mu, chol, a, b, p, z, w, dt, da, tau, g, n, np, stream);
+}
+
+}  // extern "C"

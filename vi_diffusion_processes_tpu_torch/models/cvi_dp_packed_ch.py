@@ -9,7 +9,10 @@ tiny blocks out of the TPU's padded layout; here the state is batched
 tensors ``[T, d]`` and ``[T, d, d]``.  The naturals → SSM → marginals chain
 (:func:`naturals_to_marginals_ch`) is the Schur-segment UDU', the matrix
 ``affine_scan`` and the ``(A, b, Q)`` marginals scan, all on the generic
-associative scan: no kernel of the port lies on this path.
+associative scan; K1–K4 do not lie on this path.  The KL's Gauss–Hermite
+path term at d = 2 under the Van der Pol drift runs, on the card, as one
+kernel forward and one for its adjoint (``ops/quad_kl.py``), counted by
+``kl_quad.fused`` and ``kl_quad.plain`` (``utils/tracing.py``).
 
 Dtype boundaries follow the reference (cvi_dp_packed_ch.py:238-253):
 naturals in float64 under the x64 policy, marginals and everything after
@@ -26,9 +29,11 @@ import torch
 
 from ..config import default_jitter
 from ..ops.btd import BTD, affine_scan, btd_udu_parallel
+from ..ops.quad_kl import quad_kl, quad_kl_plain
 from ..ops.quadrature import gauss_hermite_grid
 from ..sde.utils import BTDNaturals
 from ..ssm.state_space_model import chain_marginals
+from ..utils import tracing
 from ..utils.linalg import (
     chol_psd,
     inv_pd,
@@ -171,12 +176,23 @@ def _kl_packed_ch(e1, ed, es, sde, p_var, p_mu0, p_cov0, quad_z, quad_w, dt):
     trace = torch.sum(p_inv * transpose_last(qv), dim=(-1, -2))
     c_term = -(logdet_pos(qv) - logdet_pos(p_var)) - d + trace
 
-    # Gauss–Hermite over q's marginals: x = μ + √2 L z, [T-1, P, d]
+    # Gauss–Hermite over q's marginals, x = μ + √2 L z: at d = 2 under a
+    # drift that a kernel knows, on the card, one kernel (and its adjoint)
+    # keeps the points in registers; else the plain [T-1, P, d] expression
     chol = chol_psd(var_k + default_jitter() * torch.eye(d, dtype=var.dtype, device=var.device))
-    x = mu_k[:, None, :] + torch.einsum("nij,pj->npi", chol, 2.0**0.5 * quad_z)
-    diff = x + dt * sde.drift(x) - (torch.einsum("nij,npj->npi", a, x) + b[:, None, :])
-    weighted = torch.sum(torch.einsum("npi,nij->npj", diff, p_inv) * diff, dim=-1)
-    kl_path = 0.5 * torch.sum(torch.sum(weighted * quad_w, dim=-1) + c_term)
+    drift = sde.device_drift()
+    if d == 2 and drift is not None and e1.is_cuda:
+        tracing.count("kl_quad.fused")
+        kind, params = drift
+        # the step differentiates only its fresh leaves, never the SDE's
+        # parameters: those go in detached
+        dtype = mu_k.dtype
+        s = quad_kl(*(x.contiguous() for x in (mu_k, chol, a, b, p_inv)), quad_z, quad_w,
+                    dt.to(dtype), kind, tuple(p.detach().to(dtype) for p in params))
+    else:
+        tracing.count("kl_quad.plain")
+        s = quad_kl_plain(mu_k, chol, a, b, p_inv, quad_z, quad_w, dt, sde.drift)
+    kl_path = 0.5 * torch.sum(s + c_term)
 
     # KL₀ against the prior's initial state, in closed form
     p0_inv = inv_pd(p_cov0)

@@ -42,6 +42,11 @@ _SIGNATURES = {
     "vidp_linrec_f32": [_vp] * 5 + [_int, _int, _int, _vp],
     "vidp_dist_q_1d_f32": [_vp] * 9 + [_int, _int, _int, _int, _vp],
     "vidp_dist_q_1d_f64": [_vp] * 9 + [_int, _int, _int, _int, _vp],
+    "vidp_quad_kl_shape": [_int, _int, _vp],
+    "vidp_quad_kl_fwd_f64": [_vp] * 11 + [_int, _int, _vp],
+    "vidp_quad_kl_fwd_f32": [_vp] * 11 + [_int, _int, _vp],
+    "vidp_quad_kl_bwd_f64": [_vp] * 12 + [_int, _int, _vp],
+    "vidp_quad_kl_bwd_f32": [_vp] * 12 + [_int, _int, _vp],
 }
 
 #: wall seconds of the last compile in this process (0.0 when cached)

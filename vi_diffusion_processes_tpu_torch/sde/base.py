@@ -35,6 +35,13 @@ class SDE(nn.Module):
         f = self.drift(torch.stack(xs, dim=-1), t)
         return tuple(f[..., i] for i in range(len(xs)))
 
+    def device_drift(self):
+        """``(kind, params)`` where a kernel of the port computes this drift
+        on the card (``ops/quad_kl.py``: ``"vanderpol"``, ``(a, τ)`` as 0-d
+        tensors), else ``None``: an SDE that no kernel knows, one a user
+        defines among them, takes the plain path."""
+        return None
+
     def diffusion(self, x: torch.Tensor, t=None) -> torch.Tensor:
         """``L(x, t)``: ``[..., d] → [..., d, d]``."""
         raise NotImplementedError

@@ -156,3 +156,9 @@ class VanderPolOscillatorSDE(_ConstantDiffusionSDE):
     def drift_ch(self, xs, t=None):
         x1, x2 = xs
         return self.tau * self.a * (x1 - x1**3 / 3.0 - x2), self.tau * x1 / self.a
+
+    def device_drift(self):
+        # a subclass with a drift of its own is not the kernel's
+        if type(self).drift is not VanderPolOscillatorSDE.drift:
+            return None
+        return "vanderpol", (self.a, self.tau)

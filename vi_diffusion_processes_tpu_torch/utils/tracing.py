@@ -27,7 +27,12 @@ The program's spans: ``vidp.trainer.optimize`` and
 ``vidp.trainer.read_elbo`` (each ELBO read on the host),
 ``vidp.captured_step.capture`` and ``vidp.captured_step.replay``,
 ``vidp.cvi_dp.relinearize`` and ``vidp.cvi_dp.initialize_sde``; its
-counters: ``trainer.steps_tried`` and ``trainer.steps_accepted``.
+counters: ``trainer.steps_tried`` and ``trainer.steps_accepted``, and
+``kl_quad.fused`` and ``kl_quad.plain``, the route of the d ≥ 2 KL's
+quadrature (``models/cvi_dp_packed_ch.py``).  Those two sit inside the
+captured steps on purpose: they count each time the route is decided in
+Python (eagerly, at a warm-up or at a capture), and a replay runs the route
+its capture took.
 
 The reference gates TensorFlow name scopes behind the ``AUTO_NAMESCOPE``
 environment variable (markovflow/base.py:51-61, utils.py:31-73);
