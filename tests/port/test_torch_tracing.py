@@ -7,7 +7,8 @@ trainers call each other, each is also an event of the profiler, the
 counters agree with the ELBO trace, and the fit is bit for bit the fit
 with tracing off.  The CPU fits are the double well (d = 1) and the Van
 der Pol oscillator (d = 2) at T = 201 under ``initialize_sde`` and
-``CVISitesTrainer``, and VDP at d = 1 under ``VDPTrainer``.  The test
+``CVISitesTrainer``, and VDP under ``VDPTrainer`` at d = 1 and at d = 2
+(the Van der Pol oscillator, the CLI's 20 warm-up steps a round).  The test
 marked ``cuda`` counts the captured steps' spans on the card:
 
     python -m pytest tests/port/test_torch_tracing.py --confcutdir=tests/port -m cuda
@@ -37,9 +38,13 @@ OPTIMIZE, SITES, READ = "vidp.trainer.optimize", "vidp.trainer.optimize_sites", 
     "vidp.trainer.read_elbo"
 CAPTURE, REPLAY = "vidp.captured_step.capture", "vidp.captured_step.replay"
 RELIN, INIT = "vidp.cvi_dp.relinearize", "vidp.cvi_dp.initialize_sde"
+VDP_INIT = "vidp.vdp.initialize"
 #: each span's parent in a fit (None: a root)
-PARENT = {INIT: None, OPTIMIZE: None, SITES: OPTIMIZE, RELIN: OPTIMIZE, READ: SITES,
-          CAPTURE: SITES, REPLAY: SITES}
+PARENT = {INIT: None, VDP_INIT: None, OPTIMIZE: None, SITES: OPTIMIZE, RELIN: OPTIMIZE,
+          READ: SITES, CAPTURE: SITES, REPLAY: SITES}
+#: VDP's warm-up steps a round in the d = 2 fit (the CLI's) and the d = 1 one
+VDP_WARMUP = {"vdp_d1": 2, "vdp_d2": 20}
+VDP_ROUNDS = 2
 
 
 def _data(d: int, device):
@@ -74,8 +79,26 @@ def _vdp_fit(device=torch.device("cpu")):
     sde = OrnsteinUhlenbeckSDE(1.0, [[0.8]], dtype=torch.float64).to(device)
     model = VariationalMarkovGP.initialize((obs_t, obs_y), sde, grid,
                                            Gaussian(0.1, dtype=torch.float64).to(device))
-    trainer = VDPTrainer(model, lr=0.01, x0_lr=0.01, warmup_steps=2, max_iters=4)
-    trainer.optimize(n_rounds=2)
+    trainer = VDPTrainer(model, lr=0.01, x0_lr=0.01, warmup_steps=VDP_WARMUP["vdp_d1"],
+                         max_iters=4)
+    trainer.optimize(n_rounds=VDP_ROUNDS)
+    return trainer
+
+
+def _vdp_d2_fit(device=torch.device("cpu")):
+    """VDP at d = 2 on the Van der Pol prior (a = τ = 1, q = I₂) as the
+    CLI's ``run_vdp`` trains it (rate 0.05 after 20 warm-up steps at 1e-6),
+    four iterations a round, on 201 points of [0, 2]: Δt = 0.01, the CLI
+    grid's step (at Δt = 0.05 the Lagrange recursion diverges)."""
+    grid, obs_t, obs_y = _data(2, device)
+    scale = 0.2
+    sde = VanderPolOscillatorSDE(a=1.0, tau=1.0, q=torch.eye(2, dtype=torch.float64),
+                                 dtype=torch.float64).to(device)
+    model = VariationalMarkovGP.initialize((scale * obs_t, obs_y), sde, scale * grid,
+                                           Gaussian(0.1, dtype=torch.float64).to(device))
+    trainer = VDPTrainer(model, lr=0.05, x0_lr=0.05, warmup_steps=VDP_WARMUP["vdp_d2"],
+                         max_iters=4)
+    trainer.optimize(n_rounds=VDP_ROUNDS)
     return trainer
 
 
@@ -101,10 +124,10 @@ def _run(fit, monkeypatch_ctx):
             "counters": counters, "events": {e.name for e in prof.events()}}
 
 
-@pytest.fixture(scope="module", params=["cvi_d1", "cvi_d2", "vdp_d1"])
+@pytest.fixture(scope="module", params=["cvi_d1", "cvi_d2", "vdp_d1", "vdp_d2"])
 def fits(request):
     fit = {"cvi_d1": lambda: _cvi_fit(1), "cvi_d2": lambda: _cvi_fit(2),
-           "vdp_d1": _vdp_fit}[request.param]
+           "vdp_d1": _vdp_fit, "vdp_d2": _vdp_d2_fit}[request.param]
     return request.param, _run(fit, pytest.MonkeyPatch.context)
 
 
@@ -118,13 +141,13 @@ def test_off_records_nothing(fits):
 
 def test_spans_nest(fits):
     """Each span opens inside the span the trainers' calls put it in, and
-    shares the root of its ``optimize`` (or is ``initialize_sde``, a root of
-    its own)."""
+    shares the root of its ``optimize`` (or is ``initialize_sde`` or VDP's
+    ``initialize``, a root of its own)."""
     kind, run = fits
     spans = run["spans"]
     by_id = {s.id: s for s in spans}
     names = {s.name for s in spans}
-    expected = {OPTIMIZE, SITES, READ} | ({INIT, RELIN} if kind.startswith("cvi") else set())
+    expected = {OPTIMIZE, SITES, READ} | ({INIT, RELIN} if kind.startswith("cvi") else {VDP_INIT})
     assert names == expected  # no capture or replay: on the CPU the steps run directly
     for s in spans:
         parent = by_id[s.parent].name if s.parent is not None else None
@@ -134,7 +157,7 @@ def test_spans_nest(fits):
         assert root.parent is None and root.start_ns <= s.start_ns and s.end_ns <= root.end_ns
     optimize = [s for s in spans if s.name == OPTIMIZE]
     assert len(optimize) == 1
-    assert all(s.root == optimize[0].id for s in spans if s.name != INIT)
+    assert all(s.root == optimize[0].id for s in spans if s.name not in (INIT, VDP_INIT))
 
 
 def test_counters_agree_with_the_trace(fits):
@@ -146,6 +169,23 @@ def test_counters_agree_with_the_trace(fits):
     reads = sum(s.name == READ for s in run["spans"])
     loops = sum(s.name == SITES for s in run["spans"])
     assert reads == run["counters"]["trainer.steps_tried"] + loops
+
+
+def test_vdp_counters_agree_with_the_trace(fits):
+    """VDP's counters: the warm-up steps of every round; each candidate is
+    accepted or, its ELBO NaN, thrown away; a damped rate follows an
+    accepted step; one ``initialize`` span.  CVI's fits move none of them."""
+    kind, run = fits
+    counters = run["counters"]
+    if kind.startswith("cvi"):  # CVI's trainer counts none of them
+        assert not {"trainer.warmup_steps", "trainer.nan_reverts",
+                    "trainer.rate_damped"} & set(counters)
+        return
+    assert counters["trainer.warmup_steps"] == VDP_WARMUP[kind] * VDP_ROUNDS
+    assert counters["trainer.steps_tried"] == (counters["trainer.steps_accepted"]
+                                               + counters.get("trainer.nan_reverts", 0))
+    assert counters.get("trainer.rate_damped", 0) <= counters["trainer.steps_accepted"]
+    assert sum(s.name == VDP_INIT for s in run["spans"]) == 1
 
 
 def test_spans_are_profiler_events(fits):

@@ -28,6 +28,7 @@ from ..sde.base import SDE
 from ..sde.drift import LinearDrift, linear_drift_to_ssm
 from ..sde.utils import Gaussian, squared_drift_difference_along_Gaussian_path
 from ..ssm.state_space_model import StateSpaceModel
+from ..utils import tracing
 from ..utils.linalg import chol_psd, gaussian_kl, inv_small, transpose_last
 from .cvi_dp import _param_grads, _rates
 
@@ -70,6 +71,7 @@ class VariationalMarkovGP:
 
     # ------------------------------------------------------------ construction
     @classmethod
+    @tracing.annotated("vidp.vdp.initialize")
     def initialize(
         cls,
         input_data: Tuple[torch.Tensor, torch.Tensor],
@@ -79,7 +81,8 @@ class VariationalMarkovGP:
         prior_initial_state: Optional[Gaussian] = None,
         stabilize: bool = False,
     ) -> "VariationalMarkovGP":
-        """vdp.py:66-101, on the observations' device."""
+        """vdp.py:66-101, on the observations' device; the span
+        ``vidp.vdp.initialize`` while a profile is active."""
         obs_times, observations = input_data
         d = prior_sde.state_dim
         dtype, device = observations.dtype, observations.device

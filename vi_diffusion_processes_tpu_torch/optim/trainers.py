@@ -20,8 +20,10 @@ copied in, not captured again.  The ELBO is read on the host once a step,
 as ``float(elbo_arr)`` is in the reference.  While a profile is active
 the loops record the spans ``vidp.trainer.optimize``,
 ``vidp.trainer.optimize_sites`` and ``vidp.trainer.read_elbo`` and count
-``trainer.steps_tried`` and ``trainer.steps_accepted``
-(:mod:`..utils.tracing`).
+``trainer.steps_tried`` and ``trainer.steps_accepted``, and in VDP's loop
+``trainer.warmup_steps``, ``trainer.nan_reverts`` (a NaN ELBO: the step
+thrown away) and ``trainer.rate_damped`` (an accepted step whose ELBO
+fell) (:mod:`..utils.tracing`).
 """
 from __future__ import annotations
 
@@ -269,6 +271,7 @@ class VDPTrainer:
 
         for _ in range(self.warmup_steps):
             state = step(state, self.warmup_lr, 0.0)
+            tracing.count("trainer.warmup_steps")
         lr = self.lr
         prev = _read_elbo(elbo_of(state))
         for _ in range(self.max_iters):
@@ -276,11 +279,13 @@ class VDPTrainer:
             tracing.count("trainer.steps_tried")
             elbo = _read_elbo(elbo_of(candidate))
             if math.isnan(elbo):
+                tracing.count("trainer.nan_reverts")
                 lr *= self.lr_decay
                 if lr < 1e-7:
                     break
                 continue
             if elbo < prev - abs(prev) * 1e-6:
+                tracing.count("trainer.rate_damped")
                 lr = max(lr * self.lr_decay, 1e-4)
             state = candidate
             self.elbo_trace.append(elbo)

@@ -26,8 +26,10 @@ The program's spans: ``vidp.trainer.optimize`` and
 ``vidp.trainer.optimize_sites`` (the trainers' outer and inner loops),
 ``vidp.trainer.read_elbo`` (each ELBO read on the host),
 ``vidp.captured_step.capture`` and ``vidp.captured_step.replay``,
-``vidp.cvi_dp.relinearize`` and ``vidp.cvi_dp.initialize_sde``; its
-counters: ``trainer.steps_tried`` and ``trainer.steps_accepted``, and
+``vidp.cvi_dp.relinearize``, ``vidp.cvi_dp.initialize_sde`` and
+``vidp.vdp.initialize``; its counters: ``trainer.steps_tried`` and
+``trainer.steps_accepted``, VDP's ``trainer.warmup_steps``,
+``trainer.nan_reverts`` and ``trainer.rate_damped``, and
 ``kl_quad.fused`` and ``kl_quad.plain``, the route of the d ≥ 2 KL's
 quadrature (``models/cvi_dp_packed_ch.py``).  Those two sit inside the
 captured steps on purpose: they count each time the route is decided in
