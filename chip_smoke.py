@@ -29,6 +29,12 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
    der Pol step hands them, in float64 and float32, against the plain
    version evaluated in float64 (1e-10; float32 1e-5), with host and device
    time, bound, the plain version's time and the launch shape;
+3c. vdp energy: VDP's drift energy kernel and its adjoint
+   (``ops/vdp_energy.py``) at T = 10,000 and T = 100,000 on the inputs a
+   float64 VDP step on the Van der Pol prior hands them, in float64 and
+   float32, against the plain version evaluated in float64 (1e-12; float32
+   1e-5), with host and device time, bound, the plain version's time and
+   the launch shape;
 4. adjoints: the backward passes of K1, K2, K3 and K4 at T = 100,000 against
    autograd through the plain versions on the card; each must launch K2;
    the device time of one forward-plus-backward call (every kernel of it);
@@ -1253,7 +1259,8 @@ def phase_compiled_generic(dev, card: str, dataset) -> dict:
     R2, the trainer's generic site step on the flagship under its SDE prior
     and under the linearized prior as an SSM (K1 5 and K2 20 a step); R3,
     VDP's generic step at d = 2 on the Van der Pol prior and data (no
-    K1-K4).  A failed capture fails the run.  Returns the records."""
+    K1-K4; the drift energy's kernel and its adjoint once a step).  A
+    failed capture fails the run.  Returns the records."""
     from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig
     from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSSM
     from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed_ch import (
@@ -1293,7 +1300,8 @@ def phase_compiled_generic(dev, card: str, dataset) -> dict:
     captured = CapturedStep(trainers._vdp_step)
     vdp = captured(vdp, 1e-6, 0.0)  # warm-up and capture
     records["vdp_d2"] = _compiled_route(
-        "vdp_d2", card, captured, (vdp,), [(1e-6, 1e-6)] * STEPS, {}, carry=next_model,
+        "vdp_d2", card, captured, (vdp,), [(1e-6, 1e-6)] * STEPS,
+        {"vdp_energy": 1, "vdp_energy_adjoint": 1}, carry=next_model,
         read=lambda out: out.q_initial_mean[0])
     return records
 
@@ -1807,6 +1815,120 @@ def phase_quad_kl(dev) -> dict:
         f"bytes of dynamic shared memory (float64)")
     if not shape["grid"] > 1:
         raise AssertionError("quad_kl runs on one block")
+    return records
+
+
+#: operations of one quadrature point of VDP's drift energy, forward, counted
+#: as a point of the KL's path term (as ``portbench/jobs/vdp_fit.py::step_flops``
+#: counts it); the adjoint counts twice
+VDP_ENERGY_POINT_FLOPS = QUAD_POINT_FLOPS
+#: (relative limit of e, limit of each cotangent over its largest magnitude)
+#: of V and V' against the plain version in float64 on the same inputs
+VDP_ENERGY_LIMITS = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5)}
+
+
+def _vdp_energy_inputs(model):
+    """The arguments that one VDP step hands ``vdp_energy``, detached:
+    ``([μ, L, A, b, Σ⁻¹], (z, w), (a, τ))``."""
+    from vi_diffusion_processes_tpu_torch.models import vdp as vdp_mod
+
+    calls, real = [], vdp_mod.vdp_energy
+    vdp_mod.vdp_energy = lambda *args: calls.append(args) or real(*args)
+    try:
+        model.inference_step(1e-6, 0.0)
+    finally:
+        vdp_mod.vdp_energy = real
+    *tensors, z, w, _, params = calls[0]
+    return [x.detach() for x in tensors], (z, w), params
+
+
+def phase_vdp_energy(dev) -> dict:
+    """VDP's drift energy kernels V and V' (``ops/vdp_energy.py``) at
+    T = 10,000 and T = 100,000 on the inputs that a float64 VDP step on the
+    Van der Pol prior and data hands them after four steps (two at 1e-6,
+    two at 0.05): the forward's ``e`` and the adjoint's four cotangents (of
+    ``g_e = Δt/2``, as ``e_sde`` takes them) against the plain version
+    evaluated in float64 on the same inputs (``VDP_ENERGY_LIMITS``; float32
+    on the same inputs rounded), each kernel's host-clock median, device
+    time per launch and bound, the plain forward's time and that of the
+    plain forward with autograd's backward, and the launch, which must take
+    many blocks.  Returns ``{name: record}`` at T = 100,000 for the kernel
+    table."""
+    from vi_diffusion_processes_tpu_torch.models.vdp import VariationalMarkovGP
+    from vi_diffusion_processes_tpu_torch.ops import quad_kl as qk
+    from vi_diffusion_processes_tpu_torch.ops import vdp_energy as ve
+
+    records = {}
+    for t_size in (10_000, T_FLAGSHIP):
+        cvi = vanderpol_model(t_size, torch.float64, dev)[0]
+        model = VariationalMarkovGP.initialize(
+            (cvi.time_grid[cvi.obs_indices], cvi.observations), cvi.prior_sde, cvi.time_grid,
+            cvi.likelihood)
+        for lr, x0_lr in ((1e-6, 0.0), (1e-6, 0.0), (0.05, 0.05), (0.05, 0.05)):
+            model = model.inference_step(lr, x0_lr)
+        f64_inputs = _vdp_energy_inputs(model)
+        n, n_points = f64_inputs[0][0].shape[0], f64_inputs[1][0].shape[0]
+        half_dt = 0.5 * float(model.dt)
+        for dtype in (torch.float64, torch.float32):
+            tensors, grid, params = ([x.to(dtype) for x in group] for group in f64_inputs)
+            g_e = torch.full((n,), half_dt, dtype=dtype, device=dev)
+
+            def forward():
+                return ve.vdp_energy(*tensors, *grid, "vanderpol", params)
+
+            def adjoint():
+                return ve.vdp_energy_adjoint(g_e, *tensors, *grid, "vanderpol", params)
+
+            def plain(xs=tensors, g=grid, ps=params):
+                return ve.vdp_energy_plain(*xs, *g, lambda x: qk.vanderpol_drift(x, *ps)[0])
+
+            def plain_both(xs=tensors, g=grid, ps=params, ge=g_e):
+                leaves = [x.clone().requires_grad_() for x in xs[:4]]
+                return torch.autograd.grad(plain([*leaves, xs[4]], g, ps), leaves, ge)
+
+            ref_inputs = [x.double() for x in tensors], [x.double() for x in grid]
+            ref_params = [p.double() for p in params]
+            ref = plain(*ref_inputs, ref_params)
+            err_e = float(((forward().double() - ref) / ref.abs()).abs().max())
+            ref_g = plain_both(*ref_inputs, ref_params, g_e.double())
+            err_g = max(_scaled_err(g, r) for g, r in zip(adjoint(), ref_g))
+            label = str(dtype)[6:]
+            e_limit, g_limit = VDP_ENERGY_LIMITS[dtype]
+            log(f"[vdp-energy] T={t_size} {label}: e against the float64 plain version rel "
+                f"{err_e:.3e} (limit {e_limit:.0e}), cotangents scaled {err_g:.3e} (limit "
+                f"{g_limit:.0e})")
+            if not (err_e <= e_limit and err_g <= g_limit):
+                raise AssertionError(f"vdp_energy ({label}, T={t_size}) disagrees with its "
+                                     "plain version")
+            point_flops = n * n_points * VDP_ENERGY_POINT_FLOPS
+            size = torch.finfo(dtype).bits // 8
+            # bytes: 12 inputs a transition (μ, L, A, b) and e; the adjoint
+            # also g_e and 12 cotangents
+            fwd = {"err": err_e, "bound": bound_ms(13 * size * n, point_flops, dtype),
+                   "ms": median_ms(forward),
+                   "device_ms": device_ms(forward, "vdp_energy_fwd_kernel", "vdp_energy"),
+                   "plain_ms": median_ms(plain)}
+            bwd = {"err": err_g, "bound": bound_ms(25 * size * n, 2 * point_flops, dtype),
+                   "ms": median_ms(adjoint),
+                   "device_ms": device_ms(adjoint, "vdp_energy_bwd_kernel",
+                                          "vdp_energy_adjoint"),
+                   "plain_ms": median_ms(plain_both)}
+            for name, rec in (("vdp_energy", fwd), ("vdp_energy_adjoint", bwd)):
+                log(f"[kernels] {name} ({label}) T={t_size}: kernel {rec['ms']:.4f} ms host "
+                    f"clock, {rec['device_ms']:.5f} ms device per launch, bound "
+                    f"{rec['bound'][0]:.6f} ms ({rec['bound'][1]}): share "
+                    f"{100 * rec['bound'][0] / rec['device_ms']:.1f}%; plain "
+                    f"{'forward' if name == 'vdp_energy' else 'forward and backward'} "
+                    f"{rec['plain_ms']:.4f} ms (median of {REPS})")
+            if dtype == torch.float64 and t_size == T_FLAGSHIP:
+                records = {"vdp_energy": fwd, "vdp_energy_adjoint": bwd}
+        shape = ve.launch_shape(n, n_points)
+        log(f"[launch] vdp_energy and vdp_energy_adjoint T={t_size}: {n} transitions of "
+            f"{n_points} points, grid {shape['grid']}, {shape['threads_per_block']} threads per "
+            f"block, {shape['lanes_per_transition']} lanes a transition, "
+            f"{shape['shared_memory_bytes']} bytes of dynamic shared memory (float64)")
+        if not shape["grid"] > 1:
+            raise AssertionError("vdp_energy runs on one block")
     return records
 
 
@@ -2905,7 +3027,7 @@ def phase_sharded(dev, card: str) -> dict:
     total = {}
     expected = {"riccati_d_sweep": 2, "linear_recurrence": 2 * K2_LAUNCHES_PER_DIST_Q,
                 "dist_q_1d_planes": 0, "riccati_d_sweep_f32": 0, "quad_kl": 0,
-                "quad_kl_adjoint": 0}
+                "quad_kl_adjoint": 0, "vdp_energy": 0, "vdp_energy_adjoint": 0}
 
     def count(rank, step):
         if step["launches"] != expected:
@@ -2957,6 +3079,7 @@ def main() -> None:
     phase_build()
     kernels = phase_kernels(dev)
     kernels.update(phase_quad_kl(dev))
+    kernels.update(phase_vdp_energy(dev))
     phase_adjoints(dev)
 
     (model, obs_idx, obs_y, elbo64), main_counts = _counted(phase_main_path, dev, card)
@@ -3073,7 +3196,8 @@ def main() -> None:
     csrc = "vi_diffusion_processes_tpu_torch/csrc/"
     pallas = "vi_diffusion_processes_tpu/ops/"
     source = {"riccati_d_sweep_f32": csrc + "cuda_riccati.cu", "quad_kl": csrc + "quad_kl.cu",
-              "quad_kl_adjoint": csrc + "quad_kl.cu"}
+              "quad_kl_adjoint": csrc + "quad_kl.cu", "vdp_energy": csrc + "quad_kl.cu",
+              "vdp_energy_adjoint": csrc + "quad_kl.cu"}
     replaces = {
         "riccati_d_sweep": pallas + "pallas_scan.py:257",
         "linear_recurrence": pallas + "pallas_scan.py:394",
@@ -3081,6 +3205,8 @@ def main() -> None:
         "riccati_d_sweep_f32": pallas + "pallas_riccati.py:42 and :69",
         "quad_kl": "none (XLA: vi_diffusion_processes_tpu/models/cvi_dp_packed_ch.py:256-323)",
         "quad_kl_adjoint": "none (its autograd)",
+        "vdp_energy": "none (XLA: vi_diffusion_processes_tpu/sde/utils.py:111-131)",
+        "vdp_energy_adjoint": "none (its autograd)",
     }
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source.get(name, csrc + "cuda_scan.cu"),

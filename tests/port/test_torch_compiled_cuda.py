@@ -63,6 +63,9 @@ LR = 0.3
 #: off K4 twice and K2 eight times; VDP's step K2 four times and its ELBO twice
 LAUNCHES = {"x64": {"dist_q_1d_planes": 2}, "x64_off": {"riccati_d_sweep_f32": 2,
                                                         "linear_recurrence": 8}}
+#: VDP's generic step at d = 2 on the card: its drift energy's kernel once
+#: and its adjoint once (``ops/vdp_energy.py``), no K1-K4
+VDP_D2_LAUNCHES = {"vdp_energy": 1, "vdp_energy_adjoint": 1}
 
 
 def _tensors(out):
@@ -327,12 +330,13 @@ def test_generic_d2_step_with_x64_off_replays_at_a_small_grid(cuda_device):
 
 
 def test_vdp_generic_step_replays_equal_eager_steps(cuda_device):
-    """R3: VDP's generic step at d = 2 (the matrix ``affine_scan``) at
-    T = 100,000, warm-up steps at ``x0_lr = 0`` and steps that move q(x₀)
-    through one graph, and its ELBO."""
+    """R3: VDP's generic step at d = 2 (the matrix ``affine_scan``, the drift
+    energy's kernel and its adjoint) at T = 100,000, warm-up steps at
+    ``x0_lr = 0`` and steps that move q(x₀) through one graph, and its
+    ELBO."""
     rates = [(1e-6, 0.0), (1e-6, 0.0), (0.05, 0.05), (0.05, 0.05)]
     (model,) = _replays_equal_eager(CapturedStep(trainers._vdp_step), (_vdp_d2(cuda_device),),
-                                    rates, _next_model, {})
+                                    rates, _next_model, VDP_D2_LAUNCHES)
     elbo_of = CapturedStep(trainers._vdp_elbo)
     for what in ("elbo", "elbo replay"):
         _assert_bits_equal(elbo_of(model), trainers._vdp_elbo(model), what)

@@ -191,7 +191,8 @@ def test_cpu_tensors_never_count_a_launch(rng):
     riccati_d_sweep_f32(kd.float(), b2.float())
     assert cs.launch_counts() == {
         "riccati_d_sweep": 0, "linear_recurrence": 0, "dist_q_1d_planes": 0,
-        "riccati_d_sweep_f32": 0, "quad_kl": 0, "quad_kl_adjoint": 0,
+        "riccati_d_sweep_f32": 0, "quad_kl": 0, "quad_kl_adjoint": 0, "vdp_energy": 0,
+        "vdp_energy_adjoint": 0,
     }
 
 

@@ -43,7 +43,8 @@ def test_the_four_ops_against_their_plain_versions(cuda_device):
     torch.cuda.synchronize()
     assert cs.launch_counts() == {"riccati_d_sweep": 1, "linear_recurrence": 2,
                                   "dist_q_1d_planes": 1, "riccati_d_sweep_f32": 1,
-                                  "quad_kl": 0, "quad_kl_adjoint": 0}
+                                  "quad_kl": 0, "quad_kl_adjoint": 0, "vdp_energy": 0,
+                                  "vdp_energy_adjoint": 0}
     torch.testing.assert_close(d, cs.riccati_d_sweep_plain(kd, b2), rtol=1e-12, atol=0)
     torch.testing.assert_close(x, cs.linear_recurrence_plain(t, c, 0.0, True), rtol=1e-12,
                                atol=1e-12)

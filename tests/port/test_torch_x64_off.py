@@ -99,5 +99,6 @@ def test_x64_off_packed_steps_match_jax():
     assert config.x64_enabled() and config.default_jitter() == 1e-10
     assert cs.launch_counts() == {  # CPU tensors: the plain versions ran
         "riccati_d_sweep": 0, "linear_recurrence": 0, "dist_q_1d_planes": 0,
-        "riccati_d_sweep_f32": 0, "quad_kl": 0, "quad_kl_adjoint": 0,
+        "riccati_d_sweep_f32": 0, "quad_kl": 0, "quad_kl_adjoint": 0, "vdp_energy": 0,
+        "vdp_energy_adjoint": 0,
     }

@@ -1,24 +1,34 @@
-// Hand-written Hopper kernels for the path term of the d = 2 CVI-DP step's KL
-// (models/cvi_dp_packed_ch.py::_kl_packed_ch), forward and adjoint.
+// Hand-written Hopper kernels for two Gauss-Hermite sums at d = 2 under the
+// Van der Pol drift, forward and adjoint: Q and Q', the path term of the
+// d = 2 CVI-DP step's KL (models/cvi_dp_packed_ch.py::_kl_packed_ch), and V
+// and V', VDP's drift energy (models/vdp.py::VariationalMarkovGP.e_sde).
 //
-// They replace no TPU kernel: the JAX package computes this term with XLA
-// (vi_diffusion_processes_tpu/models/cvi_dp_packed_ch.py:256-323), and the
-// port's plain version is ops/quad_kl.py::quad_kl_plain.  For each transition
-// n < N of the grid and each of the P points (z_p, w_p) of the Gauss-Hermite
-// grid (P = 20^2 = 400):
+// They replace no TPU kernel: the JAX package computes both sums with XLA
+// (vi_diffusion_processes_tpu/models/cvi_dp_packed_ch.py:256-323 and
+// vi_diffusion_processes_tpu/sde/utils.py:111-131), and the port's plain
+// versions are ops/quad_kl.py::quad_kl_plain and
+// ops/vdp_energy.py::vdp_energy_plain.  For each transition n < N of the grid
+// and each of the P points (z_p, w_p) of the Gauss-Hermite grid
+// (P = 20^2 = 400), x_p = mu_n + sqrt(2) L_n z_p and f the Van der Pol drift:
 //
-//   x_p    = mu_n + sqrt(2) L_n z_p
-//   diff_p = x_p + dt f(x_p) - (A_n x_p + b_n)      f: the Van der Pol drift
-//   s_n    = sum_p w_p diff_p^T P_n diff_p
+//   Q:  diff_p = x_p + dt f(x_p) - (A_n x_p + b_n)
+//       s_n    = sum_p w_p diff_p^T P_n diff_p
+//   V:  diff_p = b_n - A_n x_p - f(x_p)
+//       e_n    = sum_p w_p diff_p^T S diff_p          S = Sigma^-1, shared
 //
-// and the adjoint takes g_s [N] to the cotangents of mu, L, A, b and P.  Plain
-// PyTorch builds [N, P, 2] tensors for x, f(x), diff and their products, and
-// autograd as many again: at N = 99,999 each is 640 MB of float64.  Here every
-// point lives in registers only: 16 numbers a transition come in (17 for the
-// adjoint) and 1 goes out (16), so the kernels are bound by operations, 47 a
-// point forward (portbench/counts.py::quad_point_flops), not by bytes.
+// and the adjoints take g [N] to the cotangents of mu, L, A, b (and P for
+// Q').  Plain PyTorch builds [N, P, 2] tensors for x, f(x), diff and their
+// products, and autograd as many again: at N = 99,999 each is 640 MB of
+// float64.  Here every point lives in registers only: 16 numbers a
+// transition come in (17 for the adjoint) and 1 goes out (16), so the
+// kernels are bound by operations, 47 a point forward
+// (portbench/counts.py::quad_point_flops), not by bytes.
 //
 // Design:
+//   * one point loop for both sums, quad_fwd and quad_bwd; the template
+//     parameter Form selects the integrand: which matrix multiplies x, the
+//     factor of f, and whether the weight matrix is each transition's P_n
+//     or one shared S;
 //   * a group of kGroup = 8 lanes shares one transition: lane r takes the
 //     points r, r + 8, r + 16, ... (50 of the 400), and the group adds its
 //     partial sums with __shfl_xor_sync; a block of 256 threads takes 32
@@ -30,12 +40,14 @@
 //     points share computed once: I - A, P + P^T, tau*a, tau/a, dt*tau*a,
 //     1/3;
 //   * every product is taken in the inputs' type (float64 or float32), and
-//     nothing is clamped: a NaN in L gives a NaN s_n, as the plain path
-//     does, so the trainer's NaN rejection sees it.
-// The difference x + dt f(x) - (A x + b) is taken as (I - A) x - b + dt f(x):
-// the same function, whose terms are all of the size of diff, where the plain
-// expression subtracts two sums of the size of x.  dt, a and tau are read from
-// device memory (0-d tensors), so a CUDA graph captures no value of them.
+//     nothing is clamped: a NaN in L gives a NaN s_n or e_n, as the plain
+//     path does, so the trainers' NaN rejection sees it.
+// Q takes x + dt f(x) - (A x + b) as (I - A) x - b + dt f(x): the same
+// function, whose terms are all of the size of diff, where the plain
+// expression subtracts two sums of the size of x.  V takes the negated
+// difference A x - b + f(x), which gives the same quadratic form: with
+// M = A and a factor 1 for f, it is Q's expression.  dt, a, tau and S are
+// read from device memory, so a CUDA graph captures no value of them.
 //
 // Interface: plain C launchers that return a cudaError_t as an int; they
 // launch on the given stream, never synchronise and allocate nothing.
@@ -52,6 +64,10 @@ constexpr unsigned kFull = 0xffffffffu;
 // take without opting in
 constexpr int kMaxPoints = 2048;
 
+// The integrand: kKl is Q's (M = I - A_n, f times dt, weight P_n), kEnergy
+// V's (M = A_n, f times 1, weight S shared by every transition).
+enum class Form { kKl, kEnergy };
+
 template <typename T>
 __device__ __forceinline__ T group_sum(T v) {
 #pragma unroll
@@ -63,13 +79,13 @@ __device__ __forceinline__ T group_sum(T v) {
 template <typename T>
 struct Transition {
   T mu0, mu1, l00, l01, l10, l11;
-  T m00, m01, m10, m11;  // I - A
+  T m00, m01, m10, m11;  // M: I - A (kKl), A (kEnergy)
   T b0, b1;
-  T p00, p01, p10, p11;
+  T p00, p01, p10, p11;  // the weight matrix: P_n (kKl), S (kEnergy)
   T s00, s01, s11;  // P + P^T
 };
 
-template <typename T>
+template <typename T, Form F>
 __device__ __forceinline__ Transition<T> load_transition(const T* __restrict__ mu,
                                                         const T* __restrict__ chol,
                                                         const T* __restrict__ a,
@@ -78,12 +94,28 @@ __device__ __forceinline__ Transition<T> load_transition(const T* __restrict__ m
   Transition<T> t;
   t.mu0 = mu[2 * k], t.mu1 = mu[2 * k + 1];
   t.l00 = chol[4 * k], t.l01 = chol[4 * k + 1], t.l10 = chol[4 * k + 2], t.l11 = chol[4 * k + 3];
-  t.m00 = T(1) - a[4 * k], t.m01 = -a[4 * k + 1];
-  t.m10 = -a[4 * k + 2], t.m11 = T(1) - a[4 * k + 3];
+  if constexpr (F == Form::kKl) {
+    t.m00 = T(1) - a[4 * k], t.m01 = -a[4 * k + 1];
+    t.m10 = -a[4 * k + 2], t.m11 = T(1) - a[4 * k + 3];
+  } else {
+    t.m00 = a[4 * k], t.m01 = a[4 * k + 1];
+    t.m10 = a[4 * k + 2], t.m11 = a[4 * k + 3];
+  }
   t.b0 = b[2 * k], t.b1 = b[2 * k + 1];
-  t.p00 = p[4 * k], t.p01 = p[4 * k + 1], t.p10 = p[4 * k + 2], t.p11 = p[4 * k + 3];
+  const int q = F == Form::kKl ? 4 * k : 0;
+  t.p00 = p[q], t.p01 = p[q + 1], t.p10 = p[q + 2], t.p11 = p[q + 3];
   t.s00 = t.p00 + t.p00, t.s01 = t.p01 + t.p10, t.s11 = t.p11 + t.p11;
   return t;
+}
+
+// The factor of f in the difference: dt (kKl, from device memory), 1 (kEnergy).
+template <typename T, Form F>
+__device__ __forceinline__ T drift_factor(const T* __restrict__ dt_ptr) {
+  if constexpr (F == Form::kKl) {
+    return *dt_ptr;
+  } else {
+    return T(1);
+  }
 }
 
 // The grid in shared memory: sqrt(2) z_p in z0, z1 and w_p in w.
@@ -99,14 +131,15 @@ __device__ __forceinline__ void stage_grid(const T* __restrict__ z, const T* __r
   __syncthreads();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    quad_kl_fwd_kernel(const T* __restrict__ mu, const T* __restrict__ chol,
-                       const T* __restrict__ a, const T* __restrict__ b,
-                       const T* __restrict__ p, const T* __restrict__ z,
-                       const T* __restrict__ w, const T* __restrict__ dt_ptr,
-                       const T* __restrict__ a_ptr, const T* __restrict__ tau_ptr,
-                       T* __restrict__ s, int n, int np) {
+// s[k] = sum_p w_p diff_p^T P diff_p with diff_p = M x_p - b + dt f(x_p).
+template <typename T, Form F>
+__device__ __forceinline__ void quad_fwd(const T* __restrict__ mu, const T* __restrict__ chol,
+                                         const T* __restrict__ a, const T* __restrict__ b,
+                                         const T* __restrict__ p, const T* __restrict__ z,
+                                         const T* __restrict__ w, const T* __restrict__ dt_ptr,
+                                         const T* __restrict__ a_ptr,
+                                         const T* __restrict__ tau_ptr, T* __restrict__ s, int n,
+                                         int np) {
   extern __shared__ unsigned char smem[];
   T* z0 = reinterpret_cast<T*>(smem);
   T* z1 = z0 + np;
@@ -117,8 +150,9 @@ __global__ void __launch_bounds__(kThreads)
   const int k = blockIdx.x * kPerBlock + threadIdx.x / kGroup;
   // a group past the end computes the last transition again, so that every
   // lane of the warp takes part in the shuffles, and writes nothing
-  const Transition<T> t = load_transition(mu, chol, a, b, p, k < n ? k : n - 1);
-  const T dt = *dt_ptr, ta = *tau_ptr * *a_ptr, tia = *tau_ptr * (T(1) / *a_ptr);
+  const Transition<T> t = load_transition<T, F>(mu, chol, a, b, p, k < n ? k : n - 1);
+  const T dt = drift_factor<T, F>(dt_ptr), ta = *tau_ptr * *a_ptr,
+          tia = *tau_ptr * (T(1) / *a_ptr);
   const T third = T(1) / T(3);
 
   T acc = T(0);
@@ -138,16 +172,18 @@ __global__ void __launch_bounds__(kThreads)
   if (k < n && lane == 0) s[k] = acc;
 }
 
-// g: [n, 16] per transition, in this order: mu (2), L (4), A (4), b (2),
-// P (4), the matrices row-major.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    quad_kl_bwd_kernel(const T* __restrict__ g_s, const T* __restrict__ mu,
-                       const T* __restrict__ chol, const T* __restrict__ a,
-                       const T* __restrict__ b, const T* __restrict__ p,
-                       const T* __restrict__ z, const T* __restrict__ w,
-                       const T* __restrict__ dt_ptr, const T* __restrict__ a_ptr,
-                       const T* __restrict__ tau_ptr, T* __restrict__ g, int n, int np) {
+// The cotangents of quad_fwd's s for g_s.  g per transition, the matrices
+// row-major: kKl [n, 16], mu (2), L (4), A (4), b (2), P (4); kEnergy
+// [n, 12], mu (2), L (4), A (4), b (2).
+template <typename T, Form F>
+__device__ __forceinline__ void quad_bwd(const T* __restrict__ g_s, const T* __restrict__ mu,
+                                         const T* __restrict__ chol, const T* __restrict__ a,
+                                         const T* __restrict__ b, const T* __restrict__ p,
+                                         const T* __restrict__ z, const T* __restrict__ w,
+                                         const T* __restrict__ dt_ptr,
+                                         const T* __restrict__ a_ptr,
+                                         const T* __restrict__ tau_ptr, T* __restrict__ g, int n,
+                                         int np) {
   extern __shared__ unsigned char smem[];
   T* z0 = reinterpret_cast<T*>(smem);
   T* z1 = z0 + np;
@@ -157,11 +193,12 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x % kGroup;
   const int k = blockIdx.x * kPerBlock + threadIdx.x / kGroup;
   const int kk = k < n ? k : n - 1;
-  const Transition<T> t = load_transition(mu, chol, a, b, p, kk);
-  const T dt = *dt_ptr, ta = *tau_ptr * *a_ptr, tia = *tau_ptr * (T(1) / *a_ptr);
+  const Transition<T> t = load_transition<T, F>(mu, chol, a, b, p, kk);
+  const T dt = drift_factor<T, F>(dt_ptr), ta = *tau_ptr * *a_ptr,
+          tia = *tau_ptr * (T(1) / *a_ptr);
   const T third = T(1) / T(3);
-  // (I + dt J_f - A)^T with J_f = [[ta (1 - x0^2), -ta], [tia, 0]]: only
-  // its (0, 0) entry changes from point to point
+  // (M + dt J_f)^T with J_f = [[ta (1 - x0^2), -ta], [tia, 0]]: only its
+  // (0, 0) entry changes from point to point
   const T dtta = dt * ta;
   const T k00_at0 = t.m00 + dtta, k01 = t.m01 - dtta, k10 = t.m10 + dt * tia, k11 = t.m11;
 
@@ -170,7 +207,7 @@ __global__ void __launch_bounds__(kThreads)
   T gl00 = 0, gl01 = 0, gl10 = 0, gl11 = 0;  // sum gx (sqrt2 z)^T
   T ga00 = 0, ga01 = 0, ga10 = 0, ga11 = 0;  // sum u x^T
   T gb0 = 0, gb1 = 0;                      // sum u
-  T gp00 = 0, gp01 = 0, gp11 = 0;          // sum w diff diff^T
+  T gp00 = 0, gp01 = 0, gp11 = 0;          // sum w diff diff^T (kKl)
 #pragma unroll 2
   for (int i = lane; i < np; i += kGroup) {
     const T zz0 = z0[i], zz1 = z1[i], wi = ws[i];
@@ -184,7 +221,7 @@ __global__ void __launch_bounds__(kThreads)
     // u = w (P + P^T) diff: the cotangent of diff over g_s
     const T u0 = wi * (t.s00 * d0 + t.s01 * d1);
     const T u1 = wi * (t.s01 * d0 + t.s11 * d1);
-    // gx = (I + dt J_f - A)^T u
+    // gx = (M + dt J_f)^T u
     const T k00 = k00_at0 - dtta * xx;
     const T gx0 = k00 * u0 + k10 * u1;
     const T gx1 = k01 * u0 + k11 * u1;
@@ -192,8 +229,10 @@ __global__ void __launch_bounds__(kThreads)
     gl00 += gx0 * zz0, gl01 += gx0 * zz1, gl10 += gx1 * zz0, gl11 += gx1 * zz1;
     ga00 += u0 * x0, ga01 += u0 * x1, ga10 += u1 * x0, ga11 += u1 * x1;
     gb0 += u0, gb1 += u1;
-    const T wd0 = wi * d0;
-    gp00 += wd0 * d0, gp01 += wd0 * d1, gp11 += wi * d1 * d1;
+    if constexpr (F == Form::kKl) {
+      const T wd0 = wi * d0;
+      gp00 += wd0 * d0, gp01 += wd0 * d1, gp11 += wi * d1 * d1;
+    }
   }
   gmu0 = group_sum(gmu0), gmu1 = group_sum(gmu1);
   gl00 = group_sum(gl00), gl01 = group_sum(gl01), gl10 = group_sum(gl10);
@@ -201,16 +240,71 @@ __global__ void __launch_bounds__(kThreads)
   ga00 = group_sum(ga00), ga01 = group_sum(ga01), ga10 = group_sum(ga10);
   ga11 = group_sum(ga11);
   gb0 = group_sum(gb0), gb1 = group_sum(gb1);
-  gp00 = group_sum(gp00), gp01 = group_sum(gp01), gp11 = group_sum(gp11);
-  if (k < n && lane == 0) {
+  if constexpr (F == Form::kKl) {
+    gp00 = group_sum(gp00), gp01 = group_sum(gp01), gp11 = group_sum(gp11);
+    if (k < n && lane == 0) {
+      const T gs = g_s[k];
+      T* out = g + 16 * static_cast<long long>(k);
+      out[0] = gs * gmu0, out[1] = gs * gmu1;
+      out[2] = gs * gl00, out[3] = gs * gl01, out[4] = gs * gl10, out[5] = gs * gl11;
+      out[6] = -gs * ga00, out[7] = -gs * ga01, out[8] = -gs * ga10, out[9] = -gs * ga11;
+      out[10] = -gs * gb0, out[11] = -gs * gb1;
+      out[12] = gs * gp00, out[13] = gs * gp01, out[14] = gs * gp01, out[15] = gs * gp11;
+    }
+  } else if (k < n && lane == 0) {
+    // M = A here, where Q's M = I - A: the cotangent of A changes sign
     const T gs = g_s[k];
-    T* out = g + 16 * static_cast<long long>(k);
+    T* out = g + 12 * static_cast<long long>(k);
     out[0] = gs * gmu0, out[1] = gs * gmu1;
     out[2] = gs * gl00, out[3] = gs * gl01, out[4] = gs * gl10, out[5] = gs * gl11;
-    out[6] = -gs * ga00, out[7] = -gs * ga01, out[8] = -gs * ga10, out[9] = -gs * ga11;
+    out[6] = gs * ga00, out[7] = gs * ga01, out[8] = gs * ga10, out[9] = gs * ga11;
     out[10] = -gs * gb0, out[11] = -gs * gb1;
-    out[12] = gs * gp00, out[13] = gs * gp01, out[14] = gs * gp01, out[15] = gs * gp11;
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    quad_kl_fwd_kernel(const T* __restrict__ mu, const T* __restrict__ chol,
+                       const T* __restrict__ a, const T* __restrict__ b,
+                       const T* __restrict__ p, const T* __restrict__ z,
+                       const T* __restrict__ w, const T* __restrict__ dt_ptr,
+                       const T* __restrict__ a_ptr, const T* __restrict__ tau_ptr,
+                       T* __restrict__ s, int n, int np) {
+  quad_fwd<T, Form::kKl>(mu, chol, a, b, p, z, w, dt_ptr, a_ptr, tau_ptr, s, n, np);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    quad_kl_bwd_kernel(const T* __restrict__ g_s, const T* __restrict__ mu,
+                       const T* __restrict__ chol, const T* __restrict__ a,
+                       const T* __restrict__ b, const T* __restrict__ p,
+                       const T* __restrict__ z, const T* __restrict__ w,
+                       const T* __restrict__ dt_ptr, const T* __restrict__ a_ptr,
+                       const T* __restrict__ tau_ptr, T* __restrict__ g, int n, int np) {
+  quad_bwd<T, Form::kKl>(g_s, mu, chol, a, b, p, z, w, dt_ptr, a_ptr, tau_ptr, g, n, np);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    vdp_energy_fwd_kernel(const T* __restrict__ mu, const T* __restrict__ chol,
+                          const T* __restrict__ a, const T* __restrict__ b,
+                          const T* __restrict__ sigma_inv, const T* __restrict__ z,
+                          const T* __restrict__ w, const T* __restrict__ a_ptr,
+                          const T* __restrict__ tau_ptr, T* __restrict__ e, int n, int np) {
+  quad_fwd<T, Form::kEnergy>(mu, chol, a, b, sigma_inv, z, w, nullptr, a_ptr, tau_ptr, e, n,
+                             np);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    vdp_energy_bwd_kernel(const T* __restrict__ g_e, const T* __restrict__ mu,
+                          const T* __restrict__ chol, const T* __restrict__ a,
+                          const T* __restrict__ b, const T* __restrict__ sigma_inv,
+                          const T* __restrict__ z, const T* __restrict__ w,
+                          const T* __restrict__ a_ptr, const T* __restrict__ tau_ptr,
+                          T* __restrict__ g, int n, int np) {
+  quad_bwd<T, Form::kEnergy>(g_e, mu, chol, a, b, sigma_inv, z, w, nullptr, a_ptr, tau_ptr, g,
+                             n, np);
 }
 
 inline int blocks(int n) { return (n + kPerBlock - 1) / kPerBlock; }
@@ -242,13 +336,36 @@ int launch_bwd(const T* g_s, const T* mu, const T* chol, const T* a, const T* b,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_energy_fwd(const T* mu, const T* chol, const T* a, const T* b, const T* sigma_inv,
+                      const T* z, const T* w, const T* da, const T* tau, T* e, int n, int np,
+                      void* stream) {
+  if (!valid(n, np)) return static_cast<int>(cudaErrorInvalidValue);
+  vdp_energy_fwd_kernel<T><<<blocks(n), kThreads, smem_bytes<T>(np),
+                             static_cast<cudaStream_t>(stream)>>>(mu, chol, a, b, sigma_inv, z,
+                                                                  w, da, tau, e, n, np);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_energy_bwd(const T* g_e, const T* mu, const T* chol, const T* a, const T* b,
+                      const T* sigma_inv, const T* z, const T* w, const T* da, const T* tau,
+                      T* g, int n, int np, void* stream) {
+  if (!valid(n, np)) return static_cast<int>(cudaErrorInvalidValue);
+  vdp_energy_bwd_kernel<T><<<blocks(n), kThreads, smem_bytes<T>(np),
+                             static_cast<cudaStream_t>(stream)>>>(g_e, mu, chol, a, b, sigma_inv,
+                                                                  z, w, da, tau, g, n, np);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// The launch of either kernel for n transitions and np points: out[0] the
-// grid, out[1] threads per block, out[2] lanes per transition, out[3] bytes
-// of dynamic shared memory in float64, out[4] the most points it takes.
+// The launch of any of the four kernels for n transitions and np points:
+// out[0] the grid, out[1] threads per block, out[2] lanes per transition,
+// out[3] bytes of dynamic shared memory in float64, out[4] the most points
+// it takes.
 int vidp_quad_kl_shape(int n, int np, int* out) {
   if (!valid(n, np)) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = blocks(n);
@@ -275,7 +392,7 @@ int vidp_quad_kl_fwd_f32(const float* mu, const float* chol, const float* a, con
   return launch_fwd<float>(mu, chol, a, b, p, z, w, dt, da, tau, s, n, np, stream);
 }
 
-// g [n, 16] (see quad_kl_bwd_kernel) from g_s [n] and the forward's inputs.
+// g [n, 16] (see quad_bwd) from g_s [n] and the forward's inputs.
 int vidp_quad_kl_bwd_f64(const double* g_s, const double* mu, const double* chol,
                          const double* a, const double* b, const double* p, const double* z,
                          const double* w, const double* dt, const double* da, const double* tau,
@@ -288,6 +405,39 @@ int vidp_quad_kl_bwd_f32(const float* g_s, const float* mu, const float* chol, c
                          const float* dt, const float* da, const float* tau, float* g, int n,
                          int np, void* stream) {
   return launch_bwd<float>(g_s, mu, chol, a, b, p, z, w, dt, da, tau, g, n, np, stream);
+}
+
+// e [n] from mu [n, 2], L, A [n, 2, 2], b [n, 2], S = Sigma^-1 [2, 2], the
+// grid z [np, 2], w [np], and a, tau as 0-d device tensors.
+int vidp_vdp_energy_fwd_f64(const double* mu, const double* chol, const double* a,
+                            const double* b, const double* sigma_inv, const double* z,
+                            const double* w, const double* da, const double* tau, double* e,
+                            int n, int np, void* stream) {
+  return launch_energy_fwd<double>(mu, chol, a, b, sigma_inv, z, w, da, tau, e, n, np, stream);
+}
+
+int vidp_vdp_energy_fwd_f32(const float* mu, const float* chol, const float* a, const float* b,
+                            const float* sigma_inv, const float* z, const float* w,
+                            const float* da, const float* tau, float* e, int n, int np,
+                            void* stream) {
+  return launch_energy_fwd<float>(mu, chol, a, b, sigma_inv, z, w, da, tau, e, n, np, stream);
+}
+
+// g [n, 12] (see quad_bwd) from g_e [n] and the forward's inputs.
+int vidp_vdp_energy_bwd_f64(const double* g_e, const double* mu, const double* chol,
+                            const double* a, const double* b, const double* sigma_inv,
+                            const double* z, const double* w, const double* da,
+                            const double* tau, double* g, int n, int np, void* stream) {
+  return launch_energy_bwd<double>(g_e, mu, chol, a, b, sigma_inv, z, w, da, tau, g, n, np,
+                                   stream);
+}
+
+int vidp_vdp_energy_bwd_f32(const float* g_e, const float* mu, const float* chol,
+                            const float* a, const float* b, const float* sigma_inv,
+                            const float* z, const float* w, const float* da, const float* tau,
+                            float* g, int n, int np, void* stream) {
+  return launch_energy_bwd<float>(g_e, mu, chol, a, b, sigma_inv, z, w, da, tau, g, n, np,
+                                  stream);
 }
 
 }  // extern "C"

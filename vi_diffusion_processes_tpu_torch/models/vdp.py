@@ -10,7 +10,9 @@ integration and the smoothed ``(A, b)`` update.  Both Euler-discretized
 Lagrange recursions are affine in the multiplier, so they and the marginals
 run as the scalar recurrences of :mod:`..ops.btd` at d = 1 (kernel K2 on
 CUDA) and as the matrix ``affine_scan`` on the generic associative scan at
-d ≥ 2.  Everything is in the observations' dtype.
+d ≥ 2.  At d = 2 on the card, under a drift that a kernel knows, E_sde's
+quadrature and its gradient are one kernel each (``ops/vdp_energy.py``).
+Everything is in the observations' dtype.
 
 The model is a frozen dataclass of tensors; every update returns a new
 model through :meth:`replace`.  The model carries precomputed
@@ -24,18 +26,28 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.btd import affine_scan
+from ..ops.quadrature import gauss_hermite_grid
+from ..ops.vdp_energy import vdp_energy
 from ..sde.base import SDE
 from ..sde.drift import LinearDrift, linear_drift_to_ssm
 from ..sde.utils import Gaussian, squared_drift_difference_along_Gaussian_path
 from ..ssm.state_space_model import StateSpaceModel
 from ..utils import tracing
-from ..utils.linalg import chol_psd, gaussian_kl, inv_small, transpose_last
+from ..utils.linalg import (
+    chol_psd,
+    cholesky_with_jitter,
+    gaussian_kl,
+    inv_small,
+    transpose_last,
+)
 from .cvi_dp import _param_grads, _rates
 
 __all__ = ["VariationalMarkovGP"]
 
 #: the stabilization's clip range
 CLIP_MIN, CLIP_MAX = -1e3, 1e3
+#: Gauss–Hermite points per dimension of ``E_sde``
+SDE_QUAD_POINTS = 20
 
 
 def _nan_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -148,9 +160,29 @@ class VariationalMarkovGP:
     # --------------------------------------------------------------- energies
     def e_sde(self, m: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
         """``E_sde = ½E_q ∫‖f_L − f_p‖²_{Σ⁻¹} dt`` (vdp.py:136-143); ``m, S``
-        are the marginals at the transitions' left points."""
+        are the marginals at the transitions' left points.  At d = 2 under a
+        drift that a kernel knows, on the card, one kernel and its adjoint
+        (``ops/vdp_energy.py``) keep the Gauss–Hermite points in registers;
+        else the plain ``[T-1, P, d]`` expression.  Differentiable in
+        ``(m, S)``, ``A`` and ``b``; each route decided counts
+        ``vdp_energy.<route>``."""
+        drift = self.prior_sde.device_drift()
+        if self.state_dim == 2 and drift is not None and m.is_cuda:
+            tracing.count("vdp_energy.fused")
+            kind, params = drift
+            dtype = m.dtype
+            quad_z, quad_w = gauss_hermite_grid(2, SDE_QUAD_POINTS, dtype, m.device)
+            # the step differentiates only (m, S), never the SDE's
+            # parameters: those go in detached
+            sigma_inv = inv_small(torch.broadcast_to(self.prior_sde.q.detach(), (2, 2)).to(dtype))
+            e = vdp_energy(*(x.contiguous() for x in (m, cholesky_with_jitter(S), self.A, self.b,
+                                                      sigma_inv)),
+                           quad_z, quad_w, kind, tuple(p.detach().to(dtype) for p in params))
+            return 0.5 * torch.sum(e) * self.dt
+        tracing.count("vdp_energy.plain")
         return squared_drift_difference_along_Gaussian_path(
-            self.prior_sde, LinearDrift(A=-self.A, b=self.b), Gaussian(m, S), self.dt
+            self.prior_sde, LinearDrift(A=-self.A, b=self.b), Gaussian(m, S), self.dt,
+            SDE_QUAD_POINTS,
         )
 
     def kl_initial_state(self) -> torch.Tensor:

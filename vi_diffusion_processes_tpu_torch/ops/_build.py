@@ -47,6 +47,10 @@ _SIGNATURES = {
     "vidp_quad_kl_fwd_f32": [_vp] * 11 + [_int, _int, _vp],
     "vidp_quad_kl_bwd_f64": [_vp] * 12 + [_int, _int, _vp],
     "vidp_quad_kl_bwd_f32": [_vp] * 12 + [_int, _int, _vp],
+    "vidp_vdp_energy_fwd_f64": [_vp] * 10 + [_int, _int, _vp],
+    "vidp_vdp_energy_fwd_f32": [_vp] * 10 + [_int, _int, _vp],
+    "vidp_vdp_energy_bwd_f64": [_vp] * 11 + [_int, _int, _vp],
+    "vidp_vdp_energy_bwd_f32": [_vp] * 11 + [_int, _int, _vp],
 }
 
 #: wall seconds of the last compile in this process (0.0 when cached)

@@ -730,24 +730,26 @@ _dist_q_op.register_autograd(_dist_q_op_backward, setup_context=_dist_q_op_setup
 
 
 def _kernels():
-    # K4 and the quadrature KL build on this module
+    # K4, the quadrature KL and VDP's drift energy build on this module
     from .cuda_riccati import riccati_d_sweep_f32
     from .quad_kl import quad_kl, quad_kl_adjoint
+    from .vdp_energy import vdp_energy, vdp_energy_adjoint
 
     return (riccati_d_sweep, linear_recurrence, dist_q_1d_planes, riccati_d_sweep_f32, quad_kl,
-            quad_kl_adjoint)
+            quad_kl_adjoint, vdp_energy, vdp_energy_adjoint)
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0 (K1–K4 and the quadrature KL's
-    two, ``ops/quad_kl.py``)."""
+    """Set every kernel's launch count to 0 (K1–K4, the quadrature KL's
+    two, ``ops/quad_kl.py``, and VDP's drift energy's two,
+    ``ops/vdp_energy.py``)."""
     for fn in _kernels():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    """``{wrapper name: launches}`` of K1–K4 and the quadrature KL's forward
-    and adjoint since the last reset."""
+    """``{wrapper name: launches}`` of K1–K4 and the forward and adjoint of
+    the quadrature KL and of VDP's drift energy since the last reset."""
     return {fn.__name__: fn.launches for fn in _kernels()}
 
 

@@ -99,17 +99,18 @@ _INPUTS = (("mu", ("N", 2)), ("chol", ("N", 2, 2)), ("a", ("N", 2, 2)), ("b", ("
            ("drift_a", ()), ("drift_tau", ()))
 
 
-def _check(name: str, tensors) -> None:
-    """Device, dtype, shape and contiguity of the inputs (read from their
+def _check(name: str, tensors, inputs=_INPUTS) -> None:
+    """Device, dtype, shape and contiguity of the inputs, named and shaped
+    by ``inputs``, whose sixth is the grid ``quad_z`` (read from their
     metadata alone: nothing waits for the device)."""
-    for (arg, _), x in zip(_INPUTS, tensors):
+    for (arg, _), x in zip(inputs, tensors):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name}: {arg} must be a tensor, got {type(x).__name__}")
     first = tensors[0]
     n = first.shape[0] if first.dim() else -1
-    np_ = tensors[5].shape[0] if tensors[5].dim() else -1
+    np_ = tensors[5].shape[0] if tensors[5].dim() else -1  # quad_z
     sizes = {"N": n, "P": np_}
-    for (arg, shape), x in zip(_INPUTS, tensors):
+    for (arg, shape), x in zip(inputs, tensors):
         if x.device != first.device:
             raise ValueError(f"{name}: inputs on {first.device} and {x.device}")
         if x.dtype != first.dtype or x.dtype not in (torch.float32, torch.float64):
