@@ -30,7 +30,7 @@ Phases, one line or a few each; any failure raises and the exit code is not 0:
    version evaluated in float64 (1e-10; float32 1e-5), with host and device
    time, bound, the plain version's time and the launch shape;
 3c. vdp energy: VDP's drift energy kernel and its adjoint
-   (``ops/vdp_energy.py``) at T = 10,000 and T = 100,000 on the inputs a
+   (``ops/quad_kl.py``) at T = 10,000 and T = 100,000 on the inputs a
    float64 VDP step on the Van der Pol prior hands them, in float64 and
    float32, against the plain version evaluated in float64 (1e-12; float32
    1e-5), with host and device time, bound, the plain version's time and
@@ -210,6 +210,8 @@ import time
 import numpy as np
 import torch
 
+from vi_diffusion_processes_tpu_torch.ops._build import KERNELS, launch_counts, reset_launch_counts
+
 T_FLAGSHIP = 100_000
 #: the batched configuration (benchmarks/secondary.py:246-286): trajectories, grid points each
 BATCH, T_BATCHED = 8, 10_000
@@ -305,13 +307,12 @@ def device_ms(fn, kernel, wrapper: str, calls: int = REPS, tries: int = 3) -> fl
     ``torch.profiler``.  ``kernel`` names one kernel (see
     :func:`_kernel_matches`) or is a list of such names, whose times add up.
 
-    Fails unless the launch count of ``wrapper`` (``cuda_scan.launch_counts``)
+    Fails unless the launch count of ``wrapper`` (``_build.launch_counts``)
     rises by exactly ``calls``, one launch a call, or if the profiler records
     more launches of the kernels than were made. The profiler's CUPTI records
     may lose launches: the time is then taken from the launches recorded,
     from the best of ``tries`` profiles, and if none records any, the device
     time of a whole call between CUDA events."""
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
     specs = kernel if isinstance(kernel, list) else [kernel]
     expected = calls * len(specs)
@@ -320,12 +321,12 @@ def device_ms(fn, kernel, wrapper: str, calls: int = REPS, tries: int = 3) -> fl
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     recorded, total_us = 0, 0.0
     for _ in range(tries):
-        before = cs.launch_counts()[wrapper]
+        before = launch_counts()[wrapper]
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        made = cs.launch_counts()[wrapper] - before
+        made = launch_counts()[wrapper] - before
         if made != calls:
             raise AssertionError(f"{wrapper}: {made} launches in {calls} calls, expected one each")
         events = [e for e in prof.key_averages()
@@ -693,13 +694,12 @@ def _interior_zeros(dev, result) -> None:
 def _vjp(fn, inputs, cotangent):
     """The gradients of ``fn`` at ``inputs`` against ``cotangent``, and the
     K2 launches of the backward pass alone."""
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
     leaves = [x.detach().clone().requires_grad_() for x in inputs]
     out = fn(*leaves)
-    before = cs.linear_recurrence.launches
+    before = launch_counts()["linear_recurrence"]
     grads = torch.autograd.grad(out, leaves, cotangent)
-    return grads, cs.linear_recurrence.launches - before
+    return grads, launch_counts()["linear_recurrence"] - before
 
 
 def phase_adjoints(dev) -> None:
@@ -811,14 +811,13 @@ def _packed_steps(model, label: str, card: str):
 def _counted(phase, *args):
     """Run a path phase with every launch count set to 0 just before it;
     returns (its result, the counts just after)."""
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
     torch.cuda.synchronize()
-    cs.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     out = phase(*args)
     torch.cuda.synchronize()
-    counts = cs.launch_counts()
+    counts = launch_counts()
     log(f"[launches] {phase.__name__} ({time.perf_counter() - t0:.1f} s): {json.dumps(counts)}")
     return out, counts
 
@@ -868,7 +867,6 @@ def phase_prior_learning(dataset) -> list:
     the milliseconds of each call."""
     from vi_diffusion_processes_tpu_torch import interop
     from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_cvi_dp
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
     from vi_diffusion_processes_tpu_torch.optim.trainers import CVISitesTrainer
 
     calls = []
@@ -876,10 +874,10 @@ def phase_prior_learning(dataset) -> list:
 
     def timed(self):
         torch.cuda.synchronize()
-        before, t0 = cs.launch_counts(), time.perf_counter()
+        before, t0 = launch_counts(), time.perf_counter()
         original(self)
         torch.cuda.synchronize()
-        after = cs.launch_counts()
+        after = launch_counts()
         calls.append(((time.perf_counter() - t0) * 1e3, {k: after[k] - before[k] for k in after}))
 
     CVISitesTrainer.optimize_prior_sde = timed
@@ -914,13 +912,12 @@ def phase_batched(dev, card: str):
         packed_natgrad_step_batched,
         unpack_state_batched,
     )
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
     models = [flagship_model(T_BATCHED, torch.float32, dev, seed=j)[0] for j in range(BATCH)]
     state = pack_state_batched(models)
     if state.p_nat1.dtype != torch.float64 or state.fx_mu.dtype != torch.float32:
         raise AssertionError("batched: expected a float32 model with float64 naturals")
-    before = cs.launch_counts()
+    before = launch_counts()
     trace = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -929,7 +926,7 @@ def phase_batched(dev, card: str):
         trace.append(elbos)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    after = cs.launch_counts()
+    after = launch_counts()
     k3 = after["dist_q_1d_planes"] - before["dist_q_1d_planes"]
     k4 = after["riccati_d_sweep_f32"] - before["riccati_d_sweep_f32"]
     trace = torch.stack(trace).cpu()
@@ -1000,32 +997,31 @@ def phase_vdp(dev, card: str) -> None:
         packed_inference_step,
         packed_vdp_elbo,
     )
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
     model, obs_idx, obs_y = vdp_model(T_FLAGSHIP, torch.float32, dev)
     state = pack_vdp(model)
-    before = cs.linear_recurrence.launches
+    before = launch_counts()["linear_recurrence"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(STEPS):
         state = packed_inference_step(model, state, 1e-6)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    k2 = cs.linear_recurrence.launches - before
+    k2 = launch_counts()["linear_recurrence"] - before
     elbo = float(packed_vdp_elbo(model, state))
     log(f"[vdp] T={T_FLAGSHIP} f32, {STEPS} packed_inference_step(lr=1e-6): ELBO {elbo!r}, "
         f"{STEPS / seconds:.1f} steps/s on {card} (cold, information only); K2 launched {k2} "
         f"times at N = {T_FLAGSHIP - 1} (forward) and {T_FLAGSHIP - 2} (reverse)")
     if k2 != 4 * STEPS:
         raise AssertionError(f"vdp: K2 launched {k2} times in {STEPS} steps, expected {4 * STEPS}")
-    if cs.linear_recurrence.launches - before != 4 * STEPS + 2:
+    if launch_counts()["linear_recurrence"] - before != 4 * STEPS + 2:
         raise AssertionError("vdp: packed_vdp_elbo did not launch K2 twice")
     if not (np.isfinite(elbo) and all(bool(torch.isfinite(getattr(state, k)).all())
                                      for k in ("a", "b", "lam", "psi"))):
         raise AssertionError("vdp: the packed state or its ELBO is not finite")
 
     dataset = flagship_dataset(model.grid, obs_idx, obs_y, dev)
-    before = cs.linear_recurrence.launches
+    before = launch_counts()["linear_recurrence"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # an OU prior at rate 0.01: from A = b = 0 on these 160 observations the
@@ -1039,12 +1035,12 @@ def phase_vdp(dev, card: str) -> None:
     moved_a, moved_b = float(trained.A.abs().max()), float(trained.b.abs().max())
     log(f"[vdp] run_vdp(OU prior, vdp_lr=0.01, 5 warm-up steps): ELBO {out['elbos']!r} nlpd {out['nlpd']!r} "
         f"rmse {out['rmse']!r}, {seconds:.2f} s, K2 launches "
-        f"{cs.linear_recurrence.launches - before}, max|A| {moved_a:.4g}, max|b| {moved_b:.4g}")
+        f"{launch_counts()['linear_recurrence'] - before}, max|A| {moved_a:.4g}, max|b| {moved_b:.4g}")
     if not (np.all(np.isfinite(out["elbos"])) and np.isfinite(out["nlpd"])):
         raise AssertionError("run_vdp: ELBO or metrics not finite")
     if not (moved_a > 0 and moved_b > 0 and bool(torch.isfinite(out["posterior_means"]).all())):
         raise AssertionError("run_vdp: A and b did not move, or the posterior is not finite")
-    if cs.linear_recurrence.launches == before:
+    if launch_counts()["linear_recurrence"] == before:
         raise AssertionError("run_vdp did not launch K2")
 
 
@@ -1108,11 +1104,10 @@ def _compiled_route(label: str, card: str, captured, args: tuple, rates, expect:
     step on each; logs and returns the rates, device ms, launches and busy
     share per step and the peak memory allocated and reserved of both (the
     captured run's reserved memory holds the graph's private pool)."""
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
     def run(fn):
         outs, a = [], args
-        before = cs.launch_counts()
+        before = launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1123,7 +1118,7 @@ def _compiled_route(label: str, card: str, captured, args: tuple, rates, expect:
             outs.append(out)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        made = {k: v - before[k] for k, v in cs.launch_counts().items()}
+        made = {k: v - before[k] for k, v in launch_counts().items()}
         if made != {k: expect.get(k, 0) * len(rates) for k in made}:
             raise AssertionError(f"{label}: launches {made} in {len(rates)} steps, expected "
                                  f"{expect} a step")
@@ -1843,7 +1838,7 @@ def _vdp_energy_inputs(model):
 
 
 def phase_vdp_energy(dev) -> dict:
-    """VDP's drift energy kernels V and V' (``ops/vdp_energy.py``) at
+    """VDP's drift energy kernels V and V' (``ops/quad_kl.py``) at
     T = 10,000 and T = 100,000 on the inputs that a float64 VDP step on the
     Van der Pol prior and data hands them after four steps (two at 1e-6,
     two at 0.05): the forward's ``e`` and the adjoint's four cotangents (of
@@ -1856,7 +1851,6 @@ def phase_vdp_energy(dev) -> dict:
     table."""
     from vi_diffusion_processes_tpu_torch.models.vdp import VariationalMarkovGP
     from vi_diffusion_processes_tpu_torch.ops import quad_kl as qk
-    from vi_diffusion_processes_tpu_torch.ops import vdp_energy as ve
 
     records = {}
     for t_size in (10_000, T_FLAGSHIP):
@@ -1874,13 +1868,13 @@ def phase_vdp_energy(dev) -> dict:
             g_e = torch.full((n,), half_dt, dtype=dtype, device=dev)
 
             def forward():
-                return ve.vdp_energy(*tensors, *grid, "vanderpol", params)
+                return qk.vdp_energy(*tensors, *grid, "vanderpol", params)
 
             def adjoint():
-                return ve.vdp_energy_adjoint(g_e, *tensors, *grid, "vanderpol", params)
+                return qk.vdp_energy_adjoint(g_e, *tensors, *grid, "vanderpol", params)
 
             def plain(xs=tensors, g=grid, ps=params):
-                return ve.vdp_energy_plain(*xs, *g, lambda x: qk.vanderpol_drift(x, *ps)[0])
+                return qk.vdp_energy_plain(*xs, *g, lambda x: qk.vanderpol_drift(x, *ps)[0])
 
             def plain_both(xs=tensors, g=grid, ps=params, ge=g_e):
                 leaves = [x.clone().requires_grad_() for x in xs[:4]]
@@ -1922,7 +1916,7 @@ def phase_vdp_energy(dev) -> dict:
                     f"{rec['plain_ms']:.4f} ms (median of {REPS})")
             if dtype == torch.float64 and t_size == T_FLAGSHIP:
                 records = {"vdp_energy": fwd, "vdp_energy_adjoint": bwd}
-        shape = ve.launch_shape(n, n_points)
+        shape = qk.launch_shape(n, n_points)
         log(f"[launch] vdp_energy and vdp_energy_adjoint T={t_size}: {n} transitions of "
             f"{n_points} points, grid {shape['grid']}, {shape['threads_per_block']} threads per "
             f"block, {shape['lanes_per_transition']} lanes a transition, "
@@ -1983,11 +1977,10 @@ def _cvi_routes(kernel: str, dev, card: str, label: str) -> dict:
     profiler; the packed f-marginals against the generic ones (2e-3); the
     classic ELBO before and after, in float32 and of a float64 copy."""
     from vi_diffusion_processes_tpu_torch.models.cvi_packed import pack_cvi, packed_site_step
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
     t, y = cvi_poisson_data()
     model, build_s = _timed(lambda: cvi_model(kernel, "Poisson", t, y, torch.float32, dev))
-    counts = [cs.launch_counts()]
+    counts = [launch_counts()]
 
     def generic_steps():
         m = model
@@ -1996,11 +1989,11 @@ def _cvi_routes(kernel: str, dev, card: str, label: str) -> dict:
         return m
 
     _timed(model.update_sites)  # warm-up
-    counts.append(cs.launch_counts())
+    counts.append(launch_counts())
     torch.cuda.reset_peak_memory_stats()
     generic, generic_s = _timed(generic_steps)
     generic_peak = torch.cuda.max_memory_allocated() / 2**20
-    counts.append(cs.launch_counts())
+    counts.append(launch_counts())
 
     def packed_steps():
         state = pack_cvi(model)
@@ -2011,7 +2004,7 @@ def _cvi_routes(kernel: str, dev, card: str, label: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     state, packed_s = _timed(packed_steps)
     packed_peak = torch.cuda.max_memory_allocated() / 2**20
-    counts.append(cs.launch_counts())
+    counts.append(launch_counts())
     with torch.no_grad():
         f_mu, f_var = (x[:, 0] for x in generic.posterior_marginals_f())
     err_mu = float((state.fx_mu - f_mu).abs().max() / f_mu.abs().max())
@@ -2026,11 +2019,11 @@ def _cvi_routes(kernel: str, dev, card: str, label: str) -> dict:
         holder[1] = packed_site_step(model, holder[1])
 
     prof_generic, prof_packed = profile_calls(generic_step, 2), profile_calls(packed_step, 2)
-    counts.append(cs.launch_counts())
+    counts.append(launch_counts())
     with torch.no_grad():
         elbo32 = [float(m.classic_elbo()) for m in (model, generic)]
         torch.cuda.synchronize()
-        counts.append(cs.launch_counts())
+        counts.append(launch_counts())
         elbo64 = [float(_as_float64(m).classic_elbo()) for m in (model, generic)]
     deltas = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
     rec = {
@@ -2123,16 +2116,15 @@ def phase_sparse_cvi(dev, card: str) -> dict:
     import os
 
     from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12, Matern32
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
     f64 = torch.float64
     t, y = sparse_golden_data()
     data = (torch.tensor(t, device=dev), torch.tensor(y, device=dev))
     z = torch.linspace(-0.5, 100.5, 150, dtype=f64, device=dev)
-    before = cs.launch_counts()
+    before = launch_counts()
     (_, trace), golden_s = _timed(lambda: _sparse_run(
         Matern32(lengthscale=2.0, variance=1.0).to(dev), z, data, SPARSE_STEPS, LR_SPARSE))
-    if any(cs.launch_counts()[k] - v for k, v in before.items()):
+    if any(launch_counts()[k] - v for k, v in before.items()):
         raise AssertionError("sparse golden (d = 2): a kernel of the port was launched")
     golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "tests", "golden", "traces.npz"))["sparse_poisson_elbos"]
@@ -2146,13 +2138,13 @@ def phase_sparse_cvi(dev, card: str) -> dict:
     t32, y32 = cvi_poisson_data()
     data = (torch.tensor(t32, dtype=f64, device=dev), torch.tensor(y32, dtype=f64, device=dev))
     z = torch.linspace(-0.005, 100.005, M_SPARSE, dtype=f64, device=dev)
-    before = cs.launch_counts()
+    before = launch_counts()
     torch.cuda.reset_peak_memory_stats()
     (model, trace), full_s = _timed(lambda: _sparse_run(
         Matern12(lengthscale=1.0, variance=1.0, dtype=f64).to(dev), z, data, SPARSE_STEPS,
         LR_SPARSE))
     peak = torch.cuda.max_memory_allocated() / 2**20
-    delta = {k: v - before[k] for k, v in cs.launch_counts().items()}
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
     # per step: update_sites takes dist_q (K1 once, K2 twice) and its
     # marginals (K2 twice); classic_elbo that twice, and the KL's marginals
     want = {k: 0 for k in delta}
@@ -2644,7 +2636,6 @@ def phase_models_h(dev, examples: dict) -> dict:
     launch K1; the launches of K1 and K2 of each on the card."""
     from vi_diffusion_processes_tpu_torch.examples import sparse_pep_classification as sparse_pep
     from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
     def kernel_launches(counts):
         return {k: counts[k] for k in ("riccati_d_sweep", "linear_recurrence")}
@@ -2652,9 +2643,9 @@ def phase_models_h(dev, examples: dict) -> dict:
     runs = {name: (examples[ex]["card"], examples[ex]["cpu"], keys,
                    kernel_launches(examples[ex]["launches"]))
             for name, (ex, keys) in MODELS_H.items()}
-    before = cs.launch_counts()
+    before = launch_counts()
     card = sparse_pep.fit(Matern12(0.15, 1.0), dev)
-    after = cs.launch_counts()
+    after = launch_counts()
     with _one_thread():
         cpu = sparse_pep.fit(Matern12(0.15, 1.0), torch.device("cpu"))
     runs["sparse_pep_d1"] = (card, cpu, MODELS_H["sparse_pep"][1],
@@ -2704,18 +2695,17 @@ def phase_examples(dev, card: str) -> dict:
 
     from vi_diffusion_processes_tpu_torch.examples import EXAMPLES
     from vi_diffusion_processes_tpu_torch.examples._common import errors
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
     out, failed = {}, []
     for name in EXAMPLES:
         mod = importlib.import_module(f"vi_diffusion_processes_tpu_torch.examples.{name}")
         torch.cuda.synchronize()
-        before = cs.launch_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         on_card = mod.run(dev, {"normal_seed": 0} if "normal_seed" in mod.DATA else None)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        after = cs.launch_counts()
+        after = launch_counts()
         launches = {k: after[k] - before[k] for k in after}
         mod.check(on_card)
         inputs = {k: on_card[k].cpu() if torch.is_tensor(on_card[k]) else on_card[k]
@@ -2809,15 +2799,14 @@ def phase_harness(dev, card: str):
     trainers.CapturedStep = CountedStep
     cli._RUNNERS["run_cvi_dp"] = capturing_run
     try:
-        from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 
-        before = cs.launch_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         summary = _cli(["run_cvi_dp", *data, f"output_dir={work}/run", "--out",
                         f"{work}/run/metrics.jsonl"])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        counts = {k: v - before[k] for k, v in cs.launch_counts().items()}
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
     finally:
         trainers.CapturedStep = captured_step
         cli._RUNNERS["run_cvi_dp"] = run
@@ -2940,7 +2929,6 @@ def phase_serving(dev, card: str) -> dict:
     K2 launches inside the loaded program (twice a call), its outputs equal
     the eager call to 1e-12; the host ms of both."""
     from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12
-    from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
     from vi_diffusion_processes_tpu_torch.utils import serving
 
     model, _ = gpr_model("gpr_loglik_grad_100k", N_GPR, torch.float64, dev)
@@ -2951,10 +2939,10 @@ def phase_serving(dev, card: str) -> dict:
     artifact = serving.export_jittable(lambda x: model.posterior.predict_f(x), t_new)
     predict = serving.load_artifact(artifact)
     export_s = time.perf_counter() - t0
-    before = cs.launch_counts()["linear_recurrence"]
+    before = launch_counts()["linear_recurrence"]
     got = predict(t_new)
     torch.cuda.synchronize()
-    in_program = cs.launch_counts()["linear_recurrence"] - before
+    in_program = launch_counts()["linear_recurrence"] - before
     with torch.no_grad():
         ref = model.posterior.predict_f(t_new)
     err = max(_scaled_err(a, b) for a, b in zip(got, ref))
@@ -3025,9 +3013,8 @@ def phase_sharded(dev, card: str) -> dict:
     )
 
     total = {}
-    expected = {"riccati_d_sweep": 2, "linear_recurrence": 2 * K2_LAUNCHES_PER_DIST_Q,
-                "dist_q_1d_planes": 0, "riccati_d_sweep_f32": 0, "quad_kl": 0,
-                "quad_kl_adjoint": 0, "vdp_energy": 0, "vdp_energy_adjoint": 0}
+    nonzero = {"riccati_d_sweep": 2, "linear_recurrence": 2 * K2_LAUNCHES_PER_DIST_Q}
+    expected = {name: nonzero.get(name, 0) for name in KERNELS}
 
     def count(rank, step):
         if step["launches"] != expected:

@@ -5,6 +5,8 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
+from vi_diffusion_processes_tpu_torch.ops._build import KERNELS
+
 
 def to_np(x):
     """A JAX dataclass / named tuple / array tree as nested dicts of numpy
@@ -40,6 +42,15 @@ class NoHostSync(TorchFunctionMode):
         if func in self.BANNED or host_copy or masked:
             raise AssertionError(f"host read or copy inside the step: {func.__name__}")
         return func(*args, **(kwargs or {}))
+
+
+def all_launches(**nonzero):
+    """The whole ``launch_counts()`` dict: every kernel of ``KERNELS`` at 0
+    but those named in ``nonzero``; raises on a name that is no kernel."""
+    unknown = sorted(set(nonzero) - set(KERNELS))
+    if unknown:
+        raise KeyError(f"not a kernel: {unknown}")
+    return {name: nonzero.get(name, 0) for name in KERNELS}
 
 
 def assert_close_scaled(actual, expected, rtol, err_msg=""):

@@ -44,7 +44,7 @@ from vi_diffusion_processes_tpu_torch.models.vdp_packed import (
     packed_inference_step,
     packed_vdp_elbo,
 )
-from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+from vi_diffusion_processes_tpu_torch.ops._build import launch_counts, reset_launch_counts
 from vi_diffusion_processes_tpu_torch.optim import trainers
 from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep, _flatten
 from vi_diffusion_processes_tpu_torch.optim.trainers import CVISitesTrainer, VDPTrainer
@@ -64,7 +64,7 @@ LR = 0.3
 LAUNCHES = {"x64": {"dist_q_1d_planes": 2}, "x64_off": {"riccati_d_sweep_f32": 2,
                                                         "linear_recurrence": 8}}
 #: VDP's generic step at d = 2 on the card: its drift energy's kernel once
-#: and its adjoint once (``ops/vdp_energy.py``), no K1-K4
+#: and its adjoint once (``ops/quad_kl.py``), no K1-K4
 VDP_D2_LAUNCHES = {"vdp_energy": 1, "vdp_energy_adjoint": 1}
 
 
@@ -85,7 +85,7 @@ def _assert_bits_equal(got, ref, what):
 
 
 def _expected(route: str, n: int) -> dict:
-    return {k: LAUNCHES[route].get(k, 0) * n for k in cs.launch_counts()}
+    return {k: LAUNCHES[route].get(k, 0) * n for k in launch_counts()}
 
 
 def _vdp(dev, prior="dw"):
@@ -113,13 +113,13 @@ def test_flagship_replays_equal_eager_steps(cuda_device, route):
         first = step(model, start, LR)  # warm-up and capture
         _assert_bits_equal(first, packed_natgrad_step(model, start, LR), "first call")
         eager, captured, held = first[0], first[0], []
-        cs.reset_launch_counts()
+        reset_launch_counts()
         for i in range(STEPS):
             lr = LR if i % 3 else 0.5 * LR
             captured = step(model, captured, lr)
             held.append(captured)
             captured = captured[0]
-        replayed = cs.launch_counts()
+        replayed = launch_counts()
         for i, out in enumerate(held):
             ref = packed_natgrad_step(model, eager, LR if i % 3 else 0.5 * LR)
             _assert_bits_equal(out, ref, f"replay {i}")
@@ -141,10 +141,10 @@ def test_vdp_replays_equal_eager_steps_warmup_included(cuda_device):
     rates = [(1e-6, 0.0)] * 3 + [(1e-6, 1e-6)] * (STEPS - 3)
     eager = captured = pack_vdp(model)
     for i, (lr, x0_lr) in enumerate(rates):
-        before = cs.launch_counts()
+        before = launch_counts()
         captured = step(model, captured, lr, x0_lr)
         e_capt = elbo_of(model, captured)
-        made = {k: v - before[k] for k, v in cs.launch_counts().items()}
+        made = {k: v - before[k] for k, v in launch_counts().items()}
         eager = packed_inference_step(model, eager, lr, x0_lr)
         _assert_bits_equal(captured, eager, f"step {i}")
         _assert_bits_equal(e_capt, packed_vdp_elbo(model, eager), f"elbo {i}")
@@ -256,12 +256,12 @@ def _replays_equal_eager(step, start, rates, carry, launches=None):
     _assert_bits_equal(captured, step.fn(*start, *rates[0]), "first call")
     eager_args = captured_args = carry(start, captured)
     held = []
-    before = cs.launch_counts()
+    before = launch_counts()
     for rate in rates:
         out = step(*captured_args, *rate)
         held.append(out)
         captured_args = carry(captured_args, out)
-    made = {k: v - before[k] for k, v in cs.launch_counts().items()}
+    made = {k: v - before[k] for k, v in launch_counts().items()}
     for i, (rate, out) in enumerate(zip(rates, held)):
         ref = step.fn(*eager_args, *rate)
         _assert_bits_equal(out, ref, f"replay {i}")
@@ -293,9 +293,9 @@ def test_vanderpol_packed_step_replays_equal_eager_steps(cuda_device):
                                         {"quad_kl": 2, "quad_kl_adjoint": 1})
     elbo_of = CapturedStep(tch.packed_elbo_ch)
     for what in ("elbo", "elbo replay"):
-        before = cs.launch_counts()
+        before = launch_counts()
         _assert_bits_equal(elbo_of(model, state), tch.packed_elbo_ch(model, state), what)
-        made = {k: v - before[k] for k, v in cs.launch_counts().items()}
+        made = {k: v - before[k] for k, v in launch_counts().items()}
         assert made == {k: {"quad_kl": 2}.get(k, 0) for k in made}, made
 
 
@@ -314,9 +314,9 @@ def test_generic_step_replays_equal_eager_steps_with_k1_and_k2(cuda_device, prio
     assert graph.launches == {k: GENERIC_LAUNCHES.get(k, 0) for k in graph.launches}
     elbo_of = CapturedStep(trainers._classic_elbo)
     elbo_of(model)
-    before = cs.launch_counts()
+    before = launch_counts()
     _assert_bits_equal(elbo_of(model), trainers._classic_elbo(model), "elbo replay")
-    made = {k: v - before[k] for k, v in cs.launch_counts().items()}
+    made = {k: v - before[k] for k, v in launch_counts().items()}
     assert made == {k: 2 * GENERIC_ELBO_LAUNCHES.get(k, 0) for k in made}
 
 

@@ -27,7 +27,7 @@ from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12, Matern32
 from vi_diffusion_processes_tpu_torch.likelihoods.discrete import Poisson
 from vi_diffusion_processes_tpu_torch.models.cvi_packed import pack_cvi, packed_site_step
 from vi_diffusion_processes_tpu_torch.models.sparse_cvi import SparseCVIGaussianProcess
-from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+from vi_diffusion_processes_tpu_torch.ops._build import launch_counts, reset_launch_counts
 
 from .helpers import assert_close_scaled, cvi_model_port
 
@@ -57,9 +57,9 @@ def _generic(kernel, likelihood, device):
 
 @pytest.mark.parametrize("kernel,likelihood", CASES, ids=IDS)
 def test_generic_cvi_on_the_card_matches_the_cpu(cuda_device, kernel, likelihood):
-    cs.reset_launch_counts()
+    reset_launch_counts()
     m_gpu, (mu_gpu, var_gpu), e_gpu, c_gpu = _generic(kernel, likelihood, cuda_device)
-    counts = cs.launch_counts()
+    counts = launch_counts()
     # update_sites and elbo launch no kernel; classic_elbo's KL takes q's
     # marginals, two K2 launches at d = 1
     assert counts == {**{k: 0 for k in counts},
@@ -82,9 +82,9 @@ def _packed(kernel, likelihood, device):
 
 @pytest.mark.parametrize("kernel,likelihood", CASES, ids=IDS)
 def test_packed_cvi_on_the_card_matches_the_cpu(cuda_device, kernel, likelihood):
-    cs.reset_launch_counts()
+    reset_launch_counts()
     s_gpu = _packed(kernel, likelihood, cuda_device)
-    counts = cs.launch_counts()
+    counts = launch_counts()
     # d = 1: one K3 in pack_cvi and one a step; d = 2: the Schur chain, no kernel
     k3 = STEPS + 1 if kernel == "Matern12" else 0
     assert counts == {**{k: 0 for k in counts}, "dist_q_1d_planes": k3}, counts
@@ -112,9 +112,9 @@ def _sparse(kernel_cls, device):
 
 @pytest.mark.parametrize("kernel_cls", [Matern12, Matern32], ids=["Matern12", "Matern32"])
 def test_sparse_cvi_on_the_card_matches_the_cpu(cuda_device, kernel_cls):
-    cs.reset_launch_counts()
+    reset_launch_counts()
     m_gpu, e_gpu, p_gpu = _sparse(kernel_cls, cuda_device)
-    counts = cs.launch_counts()
+    counts = launch_counts()
     if kernel_cls is Matern12:
         # update_sites: dist_q (K1 and two K2) and the marginals (two K2);
         # classic_elbo: that twice more, and the KL's marginals (two K2);
@@ -138,9 +138,9 @@ def test_sample_on_the_card_has_the_marginals(cuda_device, kernel_cls):
     t = torch.linspace(0.0, 5.0, 200, dtype=torch.float64, device=cuda_device)
     ssm = kernel_cls(lengthscale=0.7, variance=1.3).to(cuda_device).state_space_model(t)
     with torch.no_grad():
-        cs.reset_launch_counts()
+        reset_launch_counts()
         samples = ssm.sample(torch.Generator(device=cuda_device).manual_seed(0), (s,))
-        launches = cs.launch_counts()["linear_recurrence"]
+        launches = launch_counts()["linear_recurrence"]
         means, covs = ssm.marginals()
     assert launches == (1 if kernel_cls is Matern12 else 0)
     samples, means = samples.cpu().numpy(), means.cpu().numpy()

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed_ch as tch
-from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+from vi_diffusion_processes_tpu_torch.ops._build import launch_counts, reset_launch_counts
 from vi_diffusion_processes_tpu_torch.ops.btd import BTD, btd_udu, btd_udu_parallel
 from vi_diffusion_processes_tpu_torch.optim.trainers import CVISitesTrainer
 
@@ -42,7 +42,7 @@ def _kernel_launches(device, steps):
     and its adjoint once."""
     on_card = torch.device(device).type == "cuda"
     return {k: {"quad_kl": 2 * steps, "quad_kl_adjoint": steps}.get(k, 0) if on_card else 0
-            for k in cs.launch_counts()}
+            for k in launch_counts()}
 
 
 def _steps(model, n=3):
@@ -55,9 +55,9 @@ def _steps(model, n=3):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_packed_ch_step_on_the_card_matches_the_cpu(cuda_device, dtype):
-    cs.reset_launch_counts()
+    reset_launch_counts()
     s_gpu, e_gpu = _steps(vanderpol_model_port(T, dtype, cuda_device))
-    assert cs.launch_counts() == _kernel_launches(cuda_device, 3)
+    assert launch_counts() == _kernel_launches(cuda_device, 3)
     s_cpu, e_cpu = _steps(vanderpol_model_port(T, dtype, "cpu"))
     tol = 1e-9 if dtype == "float64" else 1e-4
     _close(e_gpu, e_cpu, tol, "ELBO")
@@ -84,9 +84,9 @@ def test_d2_trainer_on_the_card_matches_the_cpu(cuda_device):
     for device in (cuda_device, "cpu"):
         trainer = CVISitesTrainer(vanderpol_model_port(T, "float64", device), sites_lr=0.2,
                                   max_inner_iters=3, max_outer_iters=2)
-        cs.reset_launch_counts()
+        reset_launch_counts()
         results.append((trainer.optimize(), trainer.elbo_trace, trainer.model))
-        counts = cs.launch_counts()
+        counts = launch_counts()
         assert not any(v for k, v in counts.items() if not k.startswith("quad_kl"))
         if device == "cpu":
             assert not any(counts.values())

@@ -19,7 +19,7 @@ from vi_diffusion_processes_tpu_torch.exp.data import DPDataset
 from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig, run_gpr
 from vi_diffusion_processes_tpu_torch.kernels.matern import Matern12, Matern32, Matern52
 from vi_diffusion_processes_tpu_torch.models.gpr import GaussianProcessRegression
-from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+from vi_diffusion_processes_tpu_torch.ops._build import launch_counts
 from vi_diffusion_processes_tpu_torch.ops.blocked_scan import assoc_scan
 from vi_diffusion_processes_tpu_torch.ops.btd import affine_scan
 from vi_diffusion_processes_tpu_torch.parallel.pskf import filter_smoother_with_sites
@@ -129,9 +129,9 @@ def test_run_gpr_on_the_card_launches_k2(cuda_device):
         latent_path=torch.zeros_like(grid)[:, None], time_grid=grid,
         obs_times=grid[idx[~test]], obs_values=y[~test], test_times=grid[idx[test]],
         test_values=y[test], noise_stddev=0.2, x0=torch.zeros(1, device=cuda_device))
-    before = cs.linear_recurrence.launches
+    before = launch_counts()["linear_recurrence"]
     out = run_gpr(ExperimentConfig(q=0.8), dataset)
-    assert cs.linear_recurrence.launches > before
+    assert launch_counts()["linear_recurrence"] > before
     assert len(out["losses"]) == 60 and out["losses"][-1] < out["losses"][0]
     assert np.isfinite(out["nlpd"]) and np.isfinite(out["rmse"])
     assert next(out["kernel"].parameters()).device.type == "cuda"

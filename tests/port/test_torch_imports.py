@@ -41,7 +41,7 @@ examples.vdp_inference examples.natgrad_vgp examples.gpr_regression
 examples.sparse_classification examples.kernels_tour examples.spatio_temporal_cvi
 examples.time_sharded_smoothing examples.factor_analysis examples.stacked_kernels
 examples.multistage_demand examples.pep_classification examples.sparse_pep_classification
-examples.iwvi_importance_weighted ops.quad_kl ops.vdp_energy
+examples.iwvi_importance_weighted ops.quad_kl
 """.split()
 SCRIPTS = ["chip_smoke.py", "profile_step.py"]
 

@@ -23,6 +23,7 @@ import torch
 
 from vi_diffusion_processes_tpu_torch.ops import cuda_riccati
 from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+from vi_diffusion_processes_tpu_torch.ops._build import launch_counts
 from vi_diffusion_processes_tpu_torch.ops.cuda_riccati import (
     riccati_d_sweep_f32,
     riccati_d_sweep_f32_plain,
@@ -50,9 +51,9 @@ BATCHES = [1, 2, 8]
 def test_riccati_kernel_matches_plain(cuda_device, n):
     kd, b2 = (torch.tensor(v, device=cuda_device)
               for v in riccati_inputs(np.random.default_rng(n), n, (2,)))
-    before = cs.riccati_d_sweep.launches
+    before = launch_counts()["riccati_d_sweep"]
     got = cs.riccati_d_sweep(kd, b2)
-    assert cs.riccati_d_sweep.launches == before + 1
+    assert launch_counts()["riccati_d_sweep"] == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), cs.riccati_d_sweep_plain(kd, b2).cpu().numpy(),
                                rtol=1e-10)
 
@@ -61,9 +62,9 @@ def test_riccati_kernel_matches_plain(cuda_device, n):
 def test_riccati_f32_kernel_matches_plain(cuda_device, n):
     kd, b2 = (torch.tensor(v, device=cuda_device, dtype=torch.float32)
               for v in riccati_inputs(np.random.default_rng(n), n, (2,)))
-    before = riccati_d_sweep_f32.launches
+    before = launch_counts()["riccati_d_sweep_f32"]
     got = riccati_d_sweep_f32(kd, b2)
-    assert riccati_d_sweep_f32.launches == before + 1
+    assert launch_counts()["riccati_d_sweep_f32"] == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), riccati_d_sweep_f32_plain(kd, b2).cpu().numpy(),
                                rtol=1e-4)
 
@@ -73,9 +74,9 @@ def test_riccati_f32_kernel_matches_plain(cuda_device, n):
 def test_riccati_kernel_edge_sizes(cuda_device, n, batch):
     kd, b2 = (torch.tensor(v, device=cuda_device)
               for v in riccati_inputs(np.random.default_rng(n + batch), n, (batch,)))
-    before = cs.riccati_d_sweep.launches
+    before = launch_counts()["riccati_d_sweep"]
     got = cs.riccati_d_sweep(kd, b2)
-    assert cs.riccati_d_sweep.launches == before + 1
+    assert launch_counts()["riccati_d_sweep"] == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), cs.riccati_d_sweep_plain(kd, b2).cpu().numpy(),
                                rtol=1e-10)
 
@@ -137,9 +138,9 @@ def test_sweep_kernels_match_plain_on_extreme_chains(cuda_device, n, kind):
 def test_riccati_f32_kernel_edge_sizes(cuda_device, n, batch):
     kd, b2 = (torch.tensor(v, device=cuda_device, dtype=torch.float32)
               for v in riccati_inputs(np.random.default_rng(n + batch), n, (batch,)))
-    before = riccati_d_sweep_f32.launches
+    before = launch_counts()["riccati_d_sweep_f32"]
     got = riccati_d_sweep_f32(kd, b2)
-    assert riccati_d_sweep_f32.launches == before + 1
+    assert launch_counts()["riccati_d_sweep_f32"] == before + 1
     ref = riccati_d_sweep_f32_plain(kd, b2, windows=window_shape(n))
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4)
 
@@ -195,9 +196,9 @@ def test_riccati_d_scalar_on_card_skips_the_b2_check(cuda_device):
                   for v in riccati_inputs(np.random.default_rng(0), 4097))
         bad = b2.clone()
         bad[-1] = 0.5
-        before = public.launches
+        before = launch_counts()[public.__name__]
         assert bool(torch.isfinite(riccati_d_scalar(kd, bad)).all())
-        assert public.launches == before + 1
+        assert launch_counts()[public.__name__] == before + 1
         with pytest.raises(ValueError, match="b2"):
             public(kd, bad)
 
@@ -234,10 +235,10 @@ def test_backward_matches_autograd_through_plain(cuda_device, name):
     for f in (fn, plain):
         leaves = [x.detach().clone().requires_grad_() for x in inputs]
         out = f(*leaves)
-        before = cs.linear_recurrence.launches
+        before = launch_counts()["linear_recurrence"]
         grads.append(torch.autograd.grad(out, leaves, ct))
         if f is fn:
-            assert cs.linear_recurrence.launches > before  # the backward ran on K2
+            assert launch_counts()["linear_recurrence"] > before  # the backward ran on K2
     for i, (g, r) in enumerate(zip(*grads)):
         if name in ("K1", "K4") and i == 1:
             # b2[-1] is the structural zero: autograd through the plain
@@ -278,9 +279,9 @@ def test_linear_recurrence_kernel_edge_sizes(cuda_device, dtype, reverse, n, bat
     t, c = (torch.tensor(v, device=cuda_device, dtype=dtype)
             for v in affine_inputs(np.random.default_rng(n + batch), n, (batch,)))
     x0 = torch.linspace(-0.5, 0.7, batch, device=cuda_device, dtype=dtype)
-    before = cs.linear_recurrence.launches
+    before = launch_counts()["linear_recurrence"]
     got = cs.linear_recurrence(t, c, x0, reverse)
-    assert cs.linear_recurrence.launches == before + 1
+    assert launch_counts()["linear_recurrence"] == before + 1
     ref = cs.linear_recurrence_plain(t, c, x0, reverse)
     assert_close_scaled(got.cpu(), ref.cpu(), 1e-11 if dtype == torch.float64 else 2e-6)
 
@@ -291,9 +292,9 @@ def test_linear_recurrence_kernel_edge_sizes(cuda_device, dtype, reverse, n, bat
 def test_dist_q_kernel_edge_sizes(cuda_device, out_dtype, n, batch):
     nat = [torch.tensor(v, device=cuda_device)
            for v in naturals(np.random.default_rng(n + batch), n, (batch,))]
-    before = cs.dist_q_1d_planes.launches
+    before = launch_counts()["dist_q_1d_planes"]
     got = cs.dist_q_1d_planes(*nat, out_dtype)
-    assert cs.dist_q_1d_planes.launches == before + 1
+    assert launch_counts()["dist_q_1d_planes"] == before + 1
     ref = cs.dist_q_1d_planes_plain(*nat, out_dtype)
     for nm, g, r in zip(NAMES, got, ref):
         assert g.dtype == out_dtype, nm
@@ -379,9 +380,9 @@ def test_sweep_kernels_decouple_at_interior_zeros(cuda_device, t_row, batch):
     cases = ((cs.riccati_d_sweep, cs.riccati_d_sweep_plain, kd, b2, 1e-10),
              (riccati_d_sweep_f32, riccati_d_sweep_f32_plain, kd.float(), b2.float(), 1e-4))
     for kernel, plain, k, c, rtol in cases:
-        before = kernel.launches
+        before = launch_counts()[kernel.__name__]
         flat = kernel(k.reshape(-1), c.reshape(-1)).reshape(batch, t_row)
-        assert kernel.launches == before + 1
+        assert launch_counts()[kernel.__name__] == before + 1
         assert torch.equal(flat[:, -1], k[:, -1])  # D = kd where b2 = 0
         np.testing.assert_allclose(flat.cpu().numpy(), plain(k, c).cpu().numpy(), rtol=rtol)
         np.testing.assert_allclose(flat.cpu().numpy(), kernel(k, c).cpu().numpy(), rtol=rtol)
@@ -405,10 +406,10 @@ def test_dist_q_kernel_decouples_at_interior_zeros(cuda_device, t_row, batch, ou
     nat1, nat2d, nat2s = (torch.tensor(v, device=cuda_device)
                           for v in naturals(np.random.default_rng(t_row + batch), t_row, (batch,)))
     flat_sub = torch.nn.functional.pad(nat2s, (0, 1)).reshape(-1)[:-1].contiguous()
-    before = cs.dist_q_1d_planes.launches
+    before = launch_counts()["dist_q_1d_planes"]
     a, b, qv, _, _, means, varis = cs.dist_q_1d_planes(
         nat1.reshape(-1), nat2d.reshape(-1), flat_sub, out_dtype)
-    assert cs.dist_q_1d_planes.launches == before + 1
+    assert launch_counts()["dist_q_1d_planes"] == before + 1
     pad = lambda x: torch.cat([x, x.new_zeros(1)]).reshape(batch, t_row)
     assert bool((pad(a)[:-1, -1] == 0).all())
     got = {"a": pad(a)[:, :-1], "b": pad(b)[:, :-1], "qv": pad(qv)[:, :-1],
@@ -455,11 +456,11 @@ def test_batched_step_on_card_matches_cpu(cuda_device):
     for dev in (cuda_device, torch.device("cpu")):
         models = [_double_well_model(dev, 512, j, 0.1 * j, 0.8 + 0.1 * j) for j in range(3)]
         state = pack_state_batched(models)
-        before = cs.dist_q_1d_planes.launches
+        before = launch_counts()["dist_q_1d_planes"]
         for _ in range(3):
             state, elbos = packed_natgrad_step_batched(models[0], state, 0.3)
         if dev.type == "cuda":
-            assert cs.dist_q_1d_planes.launches == before + 6
+            assert launch_counts()["dist_q_1d_planes"] == before + 6
         out.append((elbos.cpu(), state))
     (e_card, s_card), (e_cpu, s_cpu) = out
     np.testing.assert_allclose(e_card.numpy(), e_cpu.numpy(), rtol=1e-9)
@@ -482,11 +483,11 @@ def test_batched_step_with_x64_off_on_card_matches_cpu(cuda_device):
             models = [_double_well_model(dev, 513, j, dtype=torch.float32) for j in range(3)]
             state = pack_state_batched(models)
             assert state.p_nat1.dtype == torch.float32
-            before = riccati_d_sweep_f32.launches
+            before = launch_counts()["riccati_d_sweep_f32"]
             for _ in range(2):
                 state, elbos = packed_natgrad_step_batched(models[0], state, 0.3)
             if dev.type == "cuda":
-                assert riccati_d_sweep_f32.launches == before + 4
+                assert launch_counts()["riccati_d_sweep_f32"] == before + 4
             out.append((elbos.cpu(), state))
     (e_card, s_card), (e_cpu, s_cpu) = out
     np.testing.assert_allclose(e_card.numpy(), e_cpu.numpy(), rtol=1e-3)
@@ -521,11 +522,11 @@ def test_vdp_step_on_card_matches_cpu(cuda_device, stabilize):
             Gaussian(0.04).to(dev), stabilize=stabilize,
         ).replace(A=torch.tensor(a0, device=dev), b=torch.tensor(b0, device=dev))
         state, generic = pack_vdp(model), model
-        before = cs.linear_recurrence.launches
+        before = launch_counts()["linear_recurrence"]
         for _ in range(3):
             state = packed_inference_step(model, state, 0.05, 0.02)
         if dev.type == "cuda":
-            assert cs.linear_recurrence.launches == before + 12
+            assert launch_counts()["linear_recurrence"] == before + 12
         for _ in range(3):
             generic = generic.inference_step(0.05, 0.02)
         out.append((float(packed_vdp_elbo(model, state)), state, pack_vdp(generic)))

@@ -27,8 +27,8 @@ import pytest
 import torch
 
 from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed_ch as tch
-from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 from vi_diffusion_processes_tpu_torch.ops import quad_kl as qk
+from vi_diffusion_processes_tpu_torch.ops._build import launch_counts, reset_launch_counts
 from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
 
 from .test_torch_compiled_cuda import _assert_bits_equal, _vanderpol
@@ -82,11 +82,11 @@ def test_kernels_against_the_plain_version(transitions, dtype, n):
     g_s = torch.randn(n, generator=torch.Generator().manual_seed(n), dtype=torch.float64)
     g_s = g_s.to(dtype).cuda()
     leaves = [x.clone().requires_grad_() for x in tensors]
-    cs.reset_launch_counts()
+    reset_launch_counts()
     s = qk.quad_kl(*leaves, *grid, "vanderpol", params)
     grads = torch.autograd.grad(s, leaves, g_s)
     torch.cuda.synchronize()
-    assert cs.launch_counts()["quad_kl"] == 1 and cs.launch_counts()["quad_kl_adjoint"] == 1
+    assert launch_counts()["quad_kl"] == 1 and launch_counts()["quad_kl_adjoint"] == 1
     assert s.dtype == dtype and all(g.dtype == dtype for g in grads)
 
     ref_leaves = [x.double().requires_grad_() for x in tensors]
@@ -137,17 +137,17 @@ def test_captured_float64_step_replays_its_eager_bits(cuda_device):
     first = step(model, start, 0.2)  # warm-up and capture
     _assert_bits_equal(first, tch.packed_natgrad_step_ch(model, start, 0.2), "first call")
     assert next(iter(step._graphs.values())).launches == {
-        k: {"quad_kl": 2, "quad_kl_adjoint": 1}.get(k, 0) for k in cs.launch_counts()}
+        k: {"quad_kl": 2, "quad_kl_adjoint": 1}.get(k, 0) for k in launch_counts()}
     captured = eager = first[0]
-    cs.reset_launch_counts()
+    reset_launch_counts()
     for i in range(3):
         out = step(model, captured, 0.2 if i % 2 else 0.1)
         ref = tch.packed_natgrad_step_ch(model, eager, 0.2 if i % 2 else 0.1)
         _assert_bits_equal(out, ref, f"replay {i}")
         captured, eager = out[0], ref[0]
-    assert cs.launch_counts()["quad_kl"] == 3 * 2 + 3 * 2  # replays, then the eager steps
-    assert cs.launch_counts()["quad_kl_adjoint"] == 3 + 3
+    assert launch_counts()["quad_kl"] == 3 * 2 + 3 * 2  # replays, then the eager steps
+    assert launch_counts()["quad_kl_adjoint"] == 3 + 3
     elbo_of(model, captured)
-    cs.reset_launch_counts()
+    reset_launch_counts()
     _assert_bits_equal(elbo_of(model, captured), tch.packed_elbo_ch(model, captured), "elbo")
-    assert cs.launch_counts()["quad_kl"] == 2 and cs.launch_counts()["quad_kl_adjoint"] == 0
+    assert launch_counts()["quad_kl"] == 2 and launch_counts()["quad_kl_adjoint"] == 0

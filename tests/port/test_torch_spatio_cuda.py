@@ -29,7 +29,7 @@ from vi_diffusion_processes_tpu_torch.models.spatio_packed import (
 )
 from vi_diffusion_processes_tpu_torch.models.spatio_temporal import SpatioTemporalSparseCVI
 from vi_diffusion_processes_tpu_torch.models.variational import VariationalGaussianProcess
-from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
+from vi_diffusion_processes_tpu_torch.ops._build import launch_counts, reset_launch_counts
 from vi_diffusion_processes_tpu_torch.optim.natgrad import natgrad_step
 
 from .helpers import assert_close_scaled
@@ -73,10 +73,10 @@ def _spatio_outputs(device):
 
 
 def test_spatio_steps_on_the_card_match_the_cpu(cuda_device):
-    cs.reset_launch_counts()
+    reset_launch_counts()
     card = _spatio_outputs(cuda_device)
     torch.cuda.synchronize()
-    assert not any(cs.launch_counts().values())  # d = 6: no kernel of the port
+    assert not any(launch_counts().values())  # d = 6: no kernel of the port
     for k, (a, b) in enumerate(zip(card, _spatio_outputs("cpu"))):
         _close(a, b, err_msg=f"output {k}")
 
@@ -94,10 +94,10 @@ def _natgrad(device):
 
 
 def test_natgrad_step_on_the_card_matches_the_cpu(cuda_device):
-    cs.reset_launch_counts()
+    reset_launch_counts()
     card = _natgrad(cuda_device)
     torch.cuda.synchronize()
-    counts = cs.launch_counts()
+    counts = launch_counts()
     assert counts["riccati_d_sweep"] > 0 and counts["linear_recurrence"] > 0, counts
     for a, b in zip(card, _natgrad("cpu")):
         _close(a, b)
@@ -118,10 +118,10 @@ def _sparse_pep(device):
 
 
 def test_sparse_pep_on_the_card_matches_the_cpu(cuda_device):
-    cs.reset_launch_counts()
+    reset_launch_counts()
     card = _sparse_pep(cuda_device)
     torch.cuda.synchronize()
-    assert cs.launch_counts()["riccati_d_sweep"] > 0
+    assert launch_counts()["riccati_d_sweep"] > 0
     for a, b in zip(card, _sparse_pep("cpu")):
         _close(a, b)
 

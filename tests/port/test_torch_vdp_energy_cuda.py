@@ -1,4 +1,4 @@
-"""VDP's drift energy kernels (``ops/vdp_energy.py``, ``csrc/quad_kl.cu``) on
+"""VDP's drift energy kernels (``ops/quad_kl.py``, ``csrc/quad_kl.cu``) on
 the card: against their plain PyTorch version, inside VDP's step, and a
 whole fit through them against the same fit through the plain route.
 
@@ -33,9 +33,8 @@ import pytest
 import torch
 
 from vi_diffusion_processes_tpu_torch.models import vdp as vdp_mod
-from vi_diffusion_processes_tpu_torch.ops import cuda_scan as cs
 from vi_diffusion_processes_tpu_torch.ops import quad_kl as qk
-from vi_diffusion_processes_tpu_torch.ops import vdp_energy as ve
+from vi_diffusion_processes_tpu_torch.ops._build import launch_counts, reset_launch_counts
 from vi_diffusion_processes_tpu_torch.sde.zoo import VanderPolOscillatorSDE
 
 REPO = Path(__file__).resolve().parents[2]
@@ -125,12 +124,12 @@ def test_kernels_against_the_plain_version(transitions, dtype, state, n):
     g_e = torch.randn(n, generator=torch.Generator().manual_seed(n), dtype=torch.float64)
     g_e = g_e.to(dtype).cuda()
     leaves = [x.clone().requires_grad_() for x in tensors[:4]]
-    cs.reset_launch_counts()
-    e = ve.vdp_energy(*leaves, tensors[4], *grid, "vanderpol", params)
+    reset_launch_counts()
+    e = qk.vdp_energy(*leaves, tensors[4], *grid, "vanderpol", params)
     grads = torch.autograd.grad(e, leaves, g_e)
     torch.cuda.synchronize()
     launched = int(n > 0)
-    assert (cs.launch_counts()["vdp_energy"], cs.launch_counts()["vdp_energy_adjoint"]) == (
+    assert (launch_counts()["vdp_energy"], launch_counts()["vdp_energy_adjoint"]) == (
         launched, launched)
     assert e.shape == (n,) and e.dtype == dtype and all(g.dtype == dtype for g in grads)
     if n == 0:
@@ -138,7 +137,7 @@ def test_kernels_against_the_plain_version(transitions, dtype, state, n):
 
     ref_leaves = [x.double().requires_grad_() for x in tensors[:4]]
     a, tau = (p.double() for p in params)
-    ref = ve.vdp_energy_plain(*ref_leaves, tensors[4].double(), *(x.double() for x in grid),
+    ref = qk.vdp_energy_plain(*ref_leaves, tensors[4].double(), *(x.double() for x in grid),
                               lambda x: qk.vanderpol_drift(x, a, tau)[0])
     ref_grads = torch.autograd.grad(ref, ref_leaves, g_e.double())
     e_limit, g_limit = LIMITS[dtype]
@@ -157,8 +156,8 @@ def test_nan_in_chol_gives_nan_on_the_card(transitions):
     tensors, grid, params = transitions["later"]
     tensors = [x[:100].clone() for x in tensors[:4]] + [tensors[4]]
     tensors[1][37, 1, 1] = float("nan")
-    e = ve.vdp_energy(*tensors, *grid, "vanderpol", params)
-    g = ve.vdp_energy_adjoint(torch.ones_like(e), *tensors, *grid, "vanderpol", params)
+    e = qk.vdp_energy(*tensors, *grid, "vanderpol", params)
+    g = qk.vdp_energy_adjoint(torch.ones_like(e), *tensors, *grid, "vanderpol", params)
     bad = torch.zeros(100, dtype=torch.bool, device=e.device)
     bad[37] = True
     assert torch.equal(torch.isnan(e), bad)
@@ -186,11 +185,11 @@ def test_step_launches_once_each_and_makes_no_point_tensor(cuda_device):
     peaks = {}
     for label, model in (("fused", fused), ("plain", plain)):
         _step_peak_bytes(model)  # the grids, √2 and the library, made once
-        cs.reset_launch_counts()
+        reset_launch_counts()
         peaks[label] = _step_peak_bytes(model)
         model.elbo()
         torch.cuda.synchronize()
-        counts = cs.launch_counts()
+        counts = launch_counts()
         expected = (2, 1) if label == "fused" else (0, 0)
         assert (counts["vdp_energy"], counts["vdp_energy_adjoint"]) == expected, (label, counts)
     assert peaks["plain"] - peaks["fused"] >= 3 * POINT_TENSOR_BYTES, peaks

@@ -11,8 +11,8 @@ tensors ``[T, d]`` and ``[T, d, d]``.  The naturals → SSM → marginals chain
 ``affine_scan`` and the ``(A, b, Q)`` marginals scan, all on the generic
 associative scan; K1–K4 do not lie on this path.  The KL's Gauss–Hermite
 path term at d = 2 under the Van der Pol drift runs, on the card, as one
-kernel forward and one for its adjoint (``ops/quad_kl.py``), counted by
-``kl_quad.fused`` and ``kl_quad.plain`` (``utils/tracing.py``).
+kernel forward and one for its adjoint (``ops/quad_kl.py``, whose
+``kernel_drift`` decides and counts ``kl_quad.fused`` or ``kl_quad.plain``).
 
 Dtype boundaries follow the reference (cvi_dp_packed_ch.py:238-253):
 naturals in float64 under the x64 policy, marginals and everything after
@@ -29,11 +29,10 @@ import torch
 
 from ..config import default_jitter
 from ..ops.btd import BTD, affine_scan, btd_udu_parallel
-from ..ops.quad_kl import quad_kl, quad_kl_plain
+from ..ops.quad_kl import kernel_drift, quad_kl, quad_kl_plain
 from ..ops.quadrature import gauss_hermite_grid
 from ..sde.utils import BTDNaturals
 from ..ssm.state_space_model import chain_marginals
-from ..utils import tracing
 from ..utils.linalg import (
     chol_psd,
     inv_pd,
@@ -180,17 +179,11 @@ def _kl_packed_ch(e1, ed, es, sde, p_var, p_mu0, p_cov0, quad_z, quad_w, dt):
     # drift that a kernel knows, on the card, one kernel (and its adjoint)
     # keeps the points in registers; else the plain [T-1, P, d] expression
     chol = chol_psd(var_k + default_jitter() * torch.eye(d, dtype=var.dtype, device=var.device))
-    drift = sde.device_drift()
-    if d == 2 and drift is not None and e1.is_cuda:
-        tracing.count("kl_quad.fused")
-        kind, params = drift
-        # the step differentiates only its fresh leaves, never the SDE's
-        # parameters: those go in detached
-        dtype = mu_k.dtype
+    drift = kernel_drift(sde, d, e1, "kl_quad")
+    if drift is not None:
         s = quad_kl(*(x.contiguous() for x in (mu_k, chol, a, b, p_inv)), quad_z, quad_w,
-                    dt.to(dtype), kind, tuple(p.detach().to(dtype) for p in params))
+                    dt.to(e1.dtype), *drift)
     else:
-        tracing.count("kl_quad.plain")
         s = quad_kl_plain(mu_k, chol, a, b, p_inv, quad_z, quad_w, dt, sde.drift)
     kl_path = 0.5 * torch.sum(s + c_term)
 

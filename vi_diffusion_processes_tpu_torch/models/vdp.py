@@ -11,7 +11,7 @@ Lagrange recursions are affine in the multiplier, so they and the marginals
 run as the scalar recurrences of :mod:`..ops.btd` at d = 1 (kernel K2 on
 CUDA) and as the matrix ``affine_scan`` on the generic associative scan at
 d ≥ 2.  At d = 2 on the card, under a drift that a kernel knows, E_sde's
-quadrature and its gradient are one kernel each (``ops/vdp_energy.py``).
+quadrature and its gradient are one kernel each (``ops/quad_kl.py``).
 Everything is in the observations' dtype.
 
 The model is a frozen dataclass of tensors; every update returns a new
@@ -27,7 +27,7 @@ import torch
 
 from ..ops.btd import affine_scan
 from ..ops.quadrature import gauss_hermite_grid
-from ..ops.vdp_energy import vdp_energy
+from ..ops.quad_kl import kernel_drift, vdp_energy
 from ..sde.base import SDE
 from ..sde.drift import LinearDrift, linear_drift_to_ssm
 from ..sde.utils import Gaussian, squared_drift_difference_along_Gaussian_path
@@ -162,24 +162,19 @@ class VariationalMarkovGP:
         """``E_sde = ½E_q ∫‖f_L − f_p‖²_{Σ⁻¹} dt`` (vdp.py:136-143); ``m, S``
         are the marginals at the transitions' left points.  At d = 2 under a
         drift that a kernel knows, on the card, one kernel and its adjoint
-        (``ops/vdp_energy.py``) keep the Gauss–Hermite points in registers;
+        (``ops/quad_kl.py``) keep the Gauss–Hermite points in registers;
         else the plain ``[T-1, P, d]`` expression.  Differentiable in
         ``(m, S)``, ``A`` and ``b``; each route decided counts
-        ``vdp_energy.<route>``."""
-        drift = self.prior_sde.device_drift()
-        if self.state_dim == 2 and drift is not None and m.is_cuda:
-            tracing.count("vdp_energy.fused")
-            kind, params = drift
-            dtype = m.dtype
-            quad_z, quad_w = gauss_hermite_grid(2, SDE_QUAD_POINTS, dtype, m.device)
-            # the step differentiates only (m, S), never the SDE's
-            # parameters: those go in detached
-            sigma_inv = inv_small(torch.broadcast_to(self.prior_sde.q.detach(), (2, 2)).to(dtype))
+        ``vdp_energy.<route>`` (``kernel_drift``)."""
+        drift = kernel_drift(self.prior_sde, self.state_dim, m, "vdp_energy")
+        if drift is not None:
+            quad_z, quad_w = gauss_hermite_grid(2, SDE_QUAD_POINTS, m.dtype, m.device)
+            # the step differentiates only (m, S), never the SDE's q
+            sigma_inv = inv_small(torch.broadcast_to(self.prior_sde.q.detach(), (2, 2)).to(m.dtype))
             e = vdp_energy(*(x.contiguous() for x in (m, cholesky_with_jitter(S), self.A, self.b,
                                                       sigma_inv)),
-                           quad_z, quad_w, kind, tuple(p.detach().to(dtype) for p in params))
+                           quad_z, quad_w, *drift)
             return 0.5 * torch.sum(e) * self.dt
-        tracing.count("vdp_energy.plain")
         return squared_drift_difference_along_Gaussian_path(
             self.prior_sde, LinearDrift(A=-self.A, b=self.b), Gaussian(m, S), self.dt,
             SDE_QUAD_POINTS,

@@ -8,6 +8,12 @@ sources and flags, so an edited source rebuilds; ptxas's register report
 (``-Xptxas -v``) is kept beside it.  ``nvcc`` is taken from ``PATH``, else
 from ``$CUDA_HOME/bin``, else from the CUDA toolkit that PyTorch detected;
 without one the build raises.
+
+Every launch goes through :func:`_launch`, which counts it under its
+kernel's name (:data:`KERNELS`): :func:`launch_counts`,
+:func:`reset_launch_counts` and :func:`add_launch_counts` read and adjust
+those counts.  A CPU tensor runs a kernel's plain version and counts
+nothing.
 """
 from __future__ import annotations
 
@@ -20,7 +26,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_seconds", "ptxas_report", "CSRC_DIR", "BUILD_DIR"]
+import torch
+
+__all__ = ["load_library", "build_seconds", "ptxas_report", "launch_counts",
+           "reset_launch_counts", "add_launch_counts", "KERNELS", "CSRC_DIR", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
@@ -52,6 +61,13 @@ _SIGNATURES = {
     "vidp_vdp_energy_bwd_f64": [_vp] * 11 + [_int, _int, _vp],
     "vidp_vdp_energy_bwd_f32": [_vp] * 11 + [_int, _int, _vp],
 }
+
+#: the names under which launches are counted, in the order of
+#: :func:`launch_counts`: K1–K4, the quadrature KL (Q, Q′) and VDP's drift
+#: energy (V, V′)
+KERNELS = ("riccati_d_sweep", "linear_recurrence", "dist_q_1d_planes", "riccati_d_sweep_f32",
+           "quad_kl", "quad_kl_adjoint", "vdp_energy", "vdp_energy_adjoint")
+_launches = dict.fromkeys(KERNELS, 0)
 
 #: wall seconds of the last compile in this process (0.0 when cached)
 _last_build_seconds = [0.0]
@@ -136,3 +152,38 @@ def ptxas_report() -> str:
     """ptxas's per-kernel register and shared-memory lines of the last build."""
     path = _library_path().with_suffix(".ptxas.txt")
     return path.read_text() if path.exists() else ""
+
+
+def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _launch(name: str, fn, *args) -> None:
+    """Call a C launcher on the current stream, raise on its error code, and
+    count one launch of the kernel ``name`` (one of :data:`KERNELS`)."""
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    _launches[name] += 1
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches}`` of every kernel of :data:`KERNELS` since
+    the last reset."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for name in KERNELS:
+        _launches[name] = 0
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``{kernel name: launches}`` to the counts: a CUDA graph's replay
+    adds the launches it captured, and a capture takes back the launches
+    counted while it was recorded, which ran nothing
+    (``optim/compiled.py``)."""
+    for name in KERNELS:
+        _launches[name] += counts.get(name, 0)

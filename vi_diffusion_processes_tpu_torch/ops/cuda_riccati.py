@@ -36,13 +36,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from ._build import _launch, _ptr, load_library
 from .cuda_scan import (
     _batch,
     _check_last_b2,
     _check_sweep,
-    _launch,
-    _lib,
-    _ptr,
     _sweep_op_setup,
     sweep_adjoint,
     sweep_launch_shape,
@@ -72,7 +70,7 @@ def riccati_d_sweep_f32_plain(
 def _plan(device: int, batch: int, nb: int, l: int) -> Tuple[int, ...]:
     out = (ctypes.c_int * 6)()
     with torch.cuda.device(device):
-        err = _lib().vidp_riccati_f32_shape(batch, nb, l, out)
+        err = load_library().vidp_riccati_f32_shape(batch, nb, l, out)
     if err != 0:
         raise RuntimeError(f"vidp_riccati_f32_shape failed with cudaError_t {err}")
     return tuple(out)
@@ -98,9 +96,8 @@ def _forward(kd: torch.Tensor, b2: torch.Tensor,
         # the windows' maps (4 floats each), then their entry pairs (2)
         scratch = torch.empty(6 * batch * nb, dtype=kd.dtype, device=kd.device)
         with torch.cuda.device(kd.device):
-            _launch("riccati_d_sweep_f32", _lib().vidp_riccati_f32, _ptr(kd), _ptr(b2),
+            _launch("riccati_d_sweep_f32", load_library().vidp_riccati_f32, _ptr(kd), _ptr(b2),
                     _ptr(out), _ptr(scratch), batch, n, nb, l)
-        riccati_d_sweep_f32.launches += 1
     return out
 
 
@@ -140,6 +137,3 @@ def _(kd, b2):
 
 
 _riccati_f32_op.register_autograd(_riccati_f32_backward, setup_context=_sweep_op_setup)
-
-
-riccati_d_sweep_f32.launches = 0

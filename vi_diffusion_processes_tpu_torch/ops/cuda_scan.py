@@ -43,8 +43,8 @@ vectorised over windows), on any device: K2's a Hillis–Steele scan across
 windows, the sweep's (:func:`sweep_windows_plain`) a walk over the window
 maps in sequence, on the kernel's windows.  ``windows=`` sets their window
 count, so that the CPU tests can reach the kernels' edge cases (windows of
-one or two elements, empty trailing windows).  Each wrapper carries a
-plain-int ``launches`` count, raised by one where it launches its kernel.
+one or two elements, empty trailing windows).  Each launch is counted
+under the wrapper's name (``_build.py::launch_counts``).
 
 Each forward launch is registered as a ``torch.library.custom_op``
 (``vidp_torch::riccati_d_sweep``, ``::linear_recurrence``,
@@ -67,6 +67,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ._build import _launch, _ptr, load_library
+
 __all__ = [
     "riccati_d_sweep",
     "linear_recurrence",
@@ -75,8 +77,6 @@ __all__ = [
     "linear_recurrence_plain",
     "dist_q_1d_planes_plain",
     "sweep_adjoint",
-    "launch_counts",
-    "reset_launch_counts",
     "launch_shape",
 ]
 
@@ -374,24 +374,6 @@ def _batch(x: torch.Tensor) -> int:
     return b
 
 
-def _launch(name: str, fn, *args) -> None:
-    """Call a C launcher on the current stream and raise on its error code."""
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-
-
-def _lib():
-    from ._build import load_library
-
-    return load_library()
-
-
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
-
-
 #: kernel index of ``vidp_scan_shape``: (K2 f32, K2 f64, K3 f32 out, K3 f64 out)
 _SCAN_KERNELS = {("linear_recurrence", torch.float32): 0,
                  ("linear_recurrence", torch.float64): 1,
@@ -406,7 +388,7 @@ def _scan_shape(which: int, device: int, batch: int, n: int) -> Tuple[int, ...]:
     ``dist_q_kernel`` picks."""
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
-        err = _lib().vidp_scan_shape(which, batch, n, out)
+        err = load_library().vidp_scan_shape(which, batch, n, out)
     if err != 0:
         raise RuntimeError(f"vidp_scan_shape failed with cudaError_t {err}")
     return tuple(out)
@@ -419,7 +401,7 @@ def _sweep_plan(device: int, naturals: bool, batch: int, nb: int, l: int) -> Tup
     sweep: K1's, or with ``naturals`` K3's phase R."""
     out = (ctypes.c_int * 6)()
     with torch.cuda.device(device):
-        err = _lib().vidp_riccati_f64_shape(int(naturals), batch, nb, l, out)
+        err = load_library().vidp_riccati_f64_shape(int(naturals), batch, nb, l, out)
     if err != 0:
         raise RuntimeError(f"vidp_riccati_f64_shape failed with cudaError_t {err}")
     return tuple(out)
@@ -469,9 +451,8 @@ def _riccati_forward(kd: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
         # the windows' maps (4 doubles each), then their entry pairs (2)
         scratch = torch.empty(6 * batch * nb, dtype=kd.dtype, device=kd.device)
         with torch.cuda.device(kd.device):
-            _launch("riccati_d_sweep", _lib().vidp_riccati_f64, _ptr(kd), _ptr(b2),
+            _launch("riccati_d_sweep", load_library().vidp_riccati_f64, _ptr(kd), _ptr(b2),
                     _ptr(out), _ptr(scratch), batch, n, nb, l)
-        riccati_d_sweep.launches += 1
     return out
 
 
@@ -541,7 +522,7 @@ def _linrec_forward(t: torch.Tensor, c: torch.Tensor, x0: torch.Tensor, reverse:
     x0 = x0.contiguous()
     out = torch.empty_like(t)
     if out.numel():
-        lib = _lib()
+        lib = load_library()
         fn = lib.vidp_linrec_f64 if t.dtype == torch.float64 else lib.vidp_linrec_f32
         batch, n = _batch(t), t.shape[-1]
         grid, *_, per_block = _scan_shape(_SCAN_KERNELS["linear_recurrence", t.dtype],
@@ -550,7 +531,6 @@ def _linrec_forward(t: torch.Tensor, c: torch.Tensor, x0: torch.Tensor, reverse:
         with torch.cuda.device(t.device):
             _launch("linear_recurrence", fn, _ptr(t), _ptr(c), _ptr(x0), _ptr(out),
                     _ptr(agg), batch, n, int(reverse))
-        linear_recurrence.launches += 1
     return out
 
 
@@ -616,13 +596,12 @@ def _dist_q_buffers(nat1, nat2d, nat2s, out_dtype):
         nb, l = window_shape(n)
         scratch = torch.empty(3 * batch * n + 6 * batch * nb + grid * per_block,
                               dtype=torch.float64, device=nat1.device)
-        lib = _lib()
+        lib = load_library()
         fn = lib.vidp_dist_q_1d_f64 if out_dtype == torch.float64 else lib.vidp_dist_q_1d_f32
         with torch.cuda.device(nat1.device):
             _launch("dist_q_1d_planes", fn, _ptr(nat1), _ptr(nat2d), _ptr(nat2s),
                     _ptr(scratch), _ptr(covs), _ptr(a), _ptr(w), _ptr(means),
                     _ptr(varis), batch, n, nb, l)
-        dist_q_1d_planes.launches += 1
     return covs, a, w, means, varis
 
 
@@ -727,38 +706,3 @@ def _dist_q_op_backward(ctx, g_covs, g_a, g_w, g_means, g_vars):
 
 
 _dist_q_op.register_autograd(_dist_q_op_backward, setup_context=_dist_q_op_setup)
-
-
-def _kernels():
-    # K4, the quadrature KL and VDP's drift energy build on this module
-    from .cuda_riccati import riccati_d_sweep_f32
-    from .quad_kl import quad_kl, quad_kl_adjoint
-    from .vdp_energy import vdp_energy, vdp_energy_adjoint
-
-    return (riccati_d_sweep, linear_recurrence, dist_q_1d_planes, riccati_d_sweep_f32, quad_kl,
-            quad_kl_adjoint, vdp_energy, vdp_energy_adjoint)
-
-
-def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0 (K1–K4, the quadrature KL's
-    two, ``ops/quad_kl.py``, and VDP's drift energy's two,
-    ``ops/vdp_energy.py``)."""
-    for fn in _kernels():
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    """``{wrapper name: launches}`` of K1–K4 and the forward and adjoint of
-    the quadrature KL and of VDP's drift energy since the last reset."""
-    return {fn.__name__: fn.launches for fn in _kernels()}
-
-
-def add_launch_counts(counts: dict) -> None:
-    """Add ``{wrapper name: launches}`` to the counts: a CUDA graph's replay
-    adds the launches it captured, and a capture takes back the wrappers'
-    increments, which launched nothing (``optim/compiled.py``)."""
-    for fn in _kernels():
-        fn.launches += counts.get(fn.__name__, 0)
-
-
-riccati_d_sweep.launches = linear_recurrence.launches = dist_q_1d_planes.launches = 0

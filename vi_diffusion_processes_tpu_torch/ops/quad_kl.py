@@ -1,47 +1,77 @@
-"""The Gauss–Hermite path term of the d = 2 CVI-DP KL, forward and adjoint,
-as one CUDA kernel each, with their plain PyTorch versions.
+"""The Gauss–Hermite point loops at d = 2 under the Van der Pol drift, forward
+and adjoint, as one CUDA kernel each, with their plain PyTorch versions: the
+path term of the d = 2 CVI-DP KL (Q, Q′) and VDP's drift energy (V, V′).
 
-For each transition ``n`` of the grid, ``s_n = Σ_p w_p · diff_pᵀ P_n diff_p``
-with ``x_p = μ_n + √2 L_n z_p`` and ``diff_p = x_p + Δt·f(x_p) − (A_n x_p + b_n)``
-(``models/cvi_dp_packed_ch.py::_kl_packed_ch``; the JAX package computes it
-with XLA, ``cvi_dp_packed_ch.py:256-323``, and no Pallas kernel).
-:func:`quad_kl_plain` is that expression as the packed step has always
-taken it: it builds ``[N, P, d]`` tensors for the points, the drift, the
-differences and their products, and autograd as many again.  The kernels
-(``csrc/quad_kl.cu``) keep every point in registers, for the Van der Pol
-drift: :func:`quad_kl` launches ``vidp_quad_kl_fwd_*`` for CUDA tensors and
-its backward ``vidp_quad_kl_bwd_*`` (:func:`quad_kl_adjoint`), which
-recomputes each point and returns the cotangents of ``μ``, ``L``, ``A``,
-``b`` and ``P``: with ``ḡ_diff = g_s w_p (P + Pᵀ) diff`` and
-``ḡ_x = (I + Δt J_f − A)ᵀ ḡ_diff``, ``ḡ_μ = Σ_p ḡ_x``,
-``ḡ_L = Σ_p ḡ_x (√2 z_p)ᵀ``, ``ḡ_A = −Σ_p ḡ_diff x_pᵀ``, ``ḡ_b = −Σ_p ḡ_diff``
-and ``ḡ_P = Σ_p g_s w_p diff diffᵀ`` (:func:`quad_kl_adjoint_plain`).  For
-CPU tensors both run their plain versions.
+For each transition ``n`` of the grid both loops sum over the points
+``x_p = μ_n + √2 L_n z_p`` of a Gauss–Hermite grid ``(z, w)``:
 
-``Δt`` and the drift's parameters ``(a, τ)`` are 0-d tensors on the
-inputs' device, read by the kernels from device memory: a host read would
-be refused while a step is captured as a CUDA graph, and would fix the
-value in the graph.  The launches go through the custom ops
-``vidp_torch::quad_kl`` and ``vidp_torch::quad_kl_adjoint`` (the pattern of
-``cuda_scan.py``); each wrapper carries a plain-int ``launches`` count.
+* Q: ``s_n = Σ_p w_p · diff_pᵀ P_n diff_p`` with
+  ``diff_p = x_p + Δt·f(x_p) − (A_n x_p + b_n)``
+  (``models/cvi_dp_packed_ch.py::_kl_packed_ch``; the JAX package computes it
+  with XLA, ``cvi_dp_packed_ch.py:256-323``, and no Pallas kernel);
+* V: ``e_n = Σ_p w_p · diff_pᵀ Σ⁻¹ diff_p`` with ``diff_p = b_n − A_n x_p − f(x_p)``,
+  so that ``E_sde = ½ Δt Σ_n e_n`` (``models/vdp.py::VariationalMarkovGP.e_sde``;
+  the JAX package computes it with XLA through ``mvnquad``,
+  ``sde/utils.py:111-131``).  ``A_n`` is the posterior's ``A`` (its linear
+  drift is ``−A x + b``) and ``Σ`` the prior's diffusion covariance, one
+  matrix for every transition.
+
+:func:`quad_kl_plain` and :func:`vdp_energy_plain` are those sums as the
+packed step and ``squared_drift_difference_along_Gaussian_path`` take them:
+they build ``[N, P, d]`` tensors for the points, the drift, the differences
+and their products, and autograd as many again.  They stay the references
+and the route for drifts that no kernel knows.  The kernels
+(``csrc/quad_kl.cu``: one point loop under two ``Form``\\ s) keep every point
+in registers: :func:`quad_kl` and :func:`vdp_energy` launch
+``vidp_<form>_fwd_*`` for CUDA tensors, and their backward
+``vidp_<form>_bwd_*`` (:func:`quad_kl_adjoint`, :func:`vdp_energy_adjoint`)
+recomputes each point and returns the cotangents of ``μ``, ``L``, ``A``, ``b``
+and, for Q, ``P``:
+
+* Q: ``ḡ_diff = g_s w_p (P + Pᵀ) diff``, ``ḡ_x = (I + Δt J_f − A)ᵀ ḡ_diff``,
+  ``ḡ_A = −Σ_p ḡ_diff x_pᵀ``, ``ḡ_b = −Σ_p ḡ_diff``,
+  ``ḡ_P = Σ_p g_s w_p diff diffᵀ`` (:func:`quad_kl_adjoint_plain`);
+* V: ``ḡ_diff = g_e w_p (Σ⁻¹ + Σ⁻ᵀ) diff``, ``ḡ_x = −(A + J_f)ᵀ ḡ_diff``,
+  ``ḡ_A = −Σ_p ḡ_diff x_pᵀ``, ``ḡ_b = Σ_p ḡ_diff``
+  (:func:`vdp_energy_adjoint_plain`);
+
+and for both ``ḡ_μ = Σ_p ḡ_x`` and ``ḡ_L = Σ_p ḡ_x (√2 z_p)ᵀ``.  For CPU
+tensors the wrappers run the plain versions.
+
+``Δt``, ``Σ⁻¹`` and the drift's parameters ``(a, τ)`` are tensors on the
+inputs' device, read by the kernels from device memory: a host read would be
+refused while a step is captured as a CUDA graph, and would fix the value in
+the graph.  The launches go through the custom ops ``vidp_torch::quad_kl``,
+``::quad_kl_adjoint``, ``::vdp_energy`` and ``::vdp_energy_adjoint`` (the
+pattern of ``cuda_scan.py``), counted under those names
+(``_build.py::launch_counts``).
+
+:func:`kernel_drift` is the one decision between a kernel and the plain
+expression, which both models take.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from .cuda_scan import _launch, _lib, _ptr
+from ..utils import tracing
+from ._build import _launch, _ptr, load_library
 
 __all__ = [
     "quad_kl",
     "quad_kl_adjoint",
     "quad_kl_plain",
     "quad_kl_adjoint_plain",
+    "vdp_energy",
+    "vdp_energy_adjoint",
+    "vdp_energy_plain",
+    "vdp_energy_adjoint_plain",
     "vanderpol_drift",
     "launch_shape",
+    "kernel_drift",
 ]
 
 #: the drifts the kernels compute (``SDE.device_drift``'s kinds)
@@ -92,98 +122,189 @@ def quad_kl_adjoint_plain(g_s, mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_
     )
 
 
+def vdp_energy_plain(mu, chol, a, b, sigma_inv, quad_z, quad_w, drift):
+    """``e [N]`` over ``μ [N, d]``, ``L, A [N, d, d]``, ``b [N, d]``,
+    ``Σ⁻¹ [d, d]``, the grid ``z [P, d]``, ``w [P]`` and a drift ``f`` (a
+    callable on ``[..., d]``), any ``d``, with ``[N, P, d]``
+    intermediates."""
+    x = mu[:, None, :] + torch.einsum("nij,pj->npi", chol, 2.0**0.5 * quad_z)
+    diff = b[:, None, :] - torch.einsum("nij,npj->npi", a, x) - drift(x)
+    weighted = torch.einsum("npi,ij,npj->np", diff, sigma_inv, diff)
+    return torch.sum(weighted * quad_w, dim=-1)
+
+
+def vdp_energy_adjoint_plain(g_e, mu, chol, a, b, sigma_inv, quad_z, quad_w, drift_a,
+                             drift_tau):
+    """The cotangents ``(ḡ_μ, ḡ_L, ḡ_A, ḡ_b)`` of :func:`vdp_energy_plain`
+    under the Van der Pol drift for the cotangent ``g_e [N]``, by the
+    formulas the adjoint kernel takes (the module's docstring)."""
+    zs = 2.0**0.5 * quad_z
+    x = mu[:, None, :] + torch.einsum("nij,pj->npi", chol, zs)
+    f, jac = vanderpol_drift(x, drift_a, drift_tau)
+    diff = b[:, None, :] - torch.einsum("nij,npj->npi", a, x) - f
+    gw = g_e[:, None] * quad_w  # [N, P]
+    g_diff = gw[..., None] * torch.einsum("ij,npj->npi", sigma_inv + sigma_inv.T, diff)
+    g_x = -torch.einsum("npij,npi->npj", a[:, None] + jac, g_diff)
+    return (
+        torch.sum(g_x, dim=1),
+        torch.einsum("npi,pj->nij", g_x, zs),
+        -torch.einsum("npi,npj->nij", g_diff, x),
+        torch.sum(g_diff, dim=1),
+    )
+
+
+# ----------------------------------------------------------------- the route
+def _known(name: str, kind: str) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"{name}: no kernel for the drift {kind!r} (known: {KINDS})")
+
+
+def kernel_drift(sde, d: int, x: torch.Tensor, prefix: str):
+    """The kernels' drift ``(kind, params)`` where a kernel runs (``d = 2``,
+    a drift that a kernel knows, ``sde.device_drift()``, and ``x`` on the
+    card), else ``None`` for the plain expression; ``params`` detached and
+    cast to ``x``'s dtype: a step differentiates its fresh leaves, never the
+    SDE's parameters.  Counts ``<prefix>.fused`` or ``<prefix>.plain``
+    (``utils/tracing.py``) for the decision."""
+    drift = sde.device_drift()
+    if d == 2 and drift is not None and x.is_cuda:
+        kind, params = drift
+        _known(prefix, kind)
+        tracing.count(f"{prefix}.fused")
+        return kind, tuple(p.detach().to(x.dtype) for p in params)
+    tracing.count(f"{prefix}.plain")
+    return None
+
+
 # ------------------------------------------------------------------ wrappers
-#: ``(name, shape)`` of the inputs after ``g_s``: N transitions, P points
-_INPUTS = (("mu", ("N", 2)), ("chol", ("N", 2, 2)), ("a", ("N", 2, 2)), ("b", ("N", 2)),
-           ("p_inv", ("N", 2, 2)), ("quad_z", ("P", 2)), ("quad_w", ("P",)), ("dt", ()),
-           ("drift_a", ()), ("drift_tau", ()))
+class _Form(NamedTuple):
+    """One integrand of the point loop (``csrc/quad_kl.cu``'s ``Form``)."""
+
+    #: the custom ops ``vidp_torch::<name>[_adjoint]``, the launchers
+    #: ``vidp_<name>_{fwd,bwd}_*`` and the launch counts' keys
+    name: str
+    #: ``(name, shape)`` of the cotangent, then of the inputs: N transitions,
+    #: P points
+    inputs: tuple
+    #: columns of the adjoint's cotangent tensor
+    width: int
+    plain: Callable
+    adjoint_plain: Callable
 
 
-def _check(name: str, tensors, inputs=_INPUTS) -> None:
-    """Device, dtype, shape and contiguity of the inputs, named and shaped
-    by ``inputs``, whose sixth is the grid ``quad_z`` (read from their
-    metadata alone: nothing waits for the device)."""
+_QUAD_KL = _Form(
+    "quad_kl",
+    (("g_s", ("N",)), ("mu", ("N", 2)), ("chol", ("N", 2, 2)), ("a", ("N", 2, 2)),
+     ("b", ("N", 2)), ("p_inv", ("N", 2, 2)), ("quad_z", ("P", 2)), ("quad_w", ("P",)),
+     ("dt", ()), ("drift_a", ()), ("drift_tau", ())),
+    16, quad_kl_plain, quad_kl_adjoint_plain)
+_VDP_ENERGY = _Form(
+    "vdp_energy",
+    (("g_e", ("N",)), ("mu", ("N", 2)), ("chol", ("N", 2, 2)), ("a", ("N", 2, 2)),
+     ("b", ("N", 2)), ("sigma_inv", (2, 2)), ("quad_z", ("P", 2)), ("quad_w", ("P",)),
+     ("drift_a", ()), ("drift_tau", ())),
+    12, vdp_energy_plain, vdp_energy_adjoint_plain)
+
+
+def _check(name: str, inputs, tensors) -> None:
+    """Device, dtype, shape and contiguity of the tensors, named and shaped
+    by ``inputs`` (read from their metadata alone: nothing waits for the
+    device)."""
     for (arg, _), x in zip(inputs, tensors):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name}: {arg} must be a tensor, got {type(x).__name__}")
-    first = tensors[0]
-    n = first.shape[0] if first.dim() else -1
-    np_ = tensors[5].shape[0] if tensors[5].dim() else -1  # quad_z
+    named = dict(zip((arg for arg, _ in inputs), tensors))
+    mu, quad_z = named["mu"], named["quad_z"]
+    n = mu.shape[0] if mu.dim() else -1
+    np_ = quad_z.shape[0] if quad_z.dim() else -1
     sizes = {"N": n, "P": np_}
     for (arg, shape), x in zip(inputs, tensors):
-        if x.device != first.device:
-            raise ValueError(f"{name}: inputs on {first.device} and {x.device}")
-        if x.dtype != first.dtype or x.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"{name}: {arg} has dtype {x.dtype}, expected {first.dtype} "
+        if x.device != mu.device:
+            raise ValueError(f"{name}: inputs on {mu.device} and {x.device}")
+        if x.dtype != mu.dtype or x.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"{name}: {arg} has dtype {x.dtype}, expected {mu.dtype} "
                             "(float32 or float64)")
         if tuple(x.shape) != tuple(sizes.get(s, s) for s in shape):
             raise ValueError(f"{name}: {arg} has shape {tuple(x.shape)}, expected {shape} "
                              f"with N = {n}, P = {np_}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    if first.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {first.device}")
+    if mu.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {mu.device}")
 
 
-def _fn(which: str, dtype: torch.dtype):
-    return getattr(_lib(), f"vidp_quad_kl_{which}_{'f64' if dtype == torch.float64 else 'f32'}")
+def _call(form: _Form, tensors, kind, params, g=None):
+    """The forward op of ``form`` on ``tensors`` and the drift's
+    ``params``, or with the cotangent ``g`` the adjoint op, split into the
+    cotangents of the inputs; the inputs and ``kind`` checked first."""
+    if g is None:
+        name, inputs, args = form.name, form.inputs[1:], (*tensors, *params)
+    else:
+        name, inputs, args = f"{form.name}_adjoint", form.inputs, (g, *tensors, *params)
+    _known(name, kind)
+    _check(name, inputs, args)
+    out = getattr(torch.ops.vidp_torch, name)(*args)
+    return out if g is None else _split(out)
+
+
+def _fn(name: str, which: str, dtype: torch.dtype):
+    suffix = "f64" if dtype == torch.float64 else "f32"
+    return getattr(load_library(), f"vidp_{name}_{which}_{suffix}")
 
 
 @functools.lru_cache(maxsize=64)
 def _shape(n: int, n_points: int) -> Tuple[int, ...]:
     out = (ctypes.c_int * 5)()
-    err = _lib().vidp_quad_kl_shape(n, n_points, out)
+    err = load_library().vidp_quad_kl_shape(n, n_points, out)
     if err != 0:
         raise RuntimeError(f"vidp_quad_kl_shape({n}, {n_points}) failed with cudaError_t {err}")
     return tuple(out)
 
 
 def launch_shape(n: int, n_points: int = 400) -> dict:
-    """The launch of either kernel for ``n`` transitions and ``n_points``
-    points: grid, threads per block, lanes per transition, bytes of dynamic
-    shared memory (float64) and the most points a launch takes."""
+    """The launch of any of the four kernels for ``n`` transitions and
+    ``n_points`` points: grid, threads per block, lanes per transition,
+    bytes of dynamic shared memory (float64) and the most points a launch
+    takes."""
     grid, threads, group, smem, most = _shape(n, n_points)
     return {"grid": grid, "threads_per_block": threads, "lanes_per_transition": group,
             "shared_memory_bytes": smem, "max_points": most}
 
 
-def _forward(mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_a, drift_tau):
+def _forward(form: _Form, *tensors):
+    """``[N]`` of ``form`` on its inputs, the last two the drift's ``(a, τ)``."""
+    mu, quad_z, (drift_a, drift_tau) = tensors[0], tensors[5], tensors[-2:]
     if mu.device.type == "cpu":
-        return quad_kl_plain(mu, chol, a, b, p_inv, quad_z, quad_w, dt,
-                             lambda x: vanderpol_drift(x, drift_a, drift_tau)[0])
-    s = torch.empty(mu.shape[:1], dtype=mu.dtype, device=mu.device)
-    if s.numel():
+        return form.plain(*tensors[:-2], lambda x: vanderpol_drift(x, drift_a, drift_tau)[0])
+    out = torch.empty(mu.shape[:1], dtype=mu.dtype, device=mu.device)
+    if out.numel():
         with torch.cuda.device(mu.device):
-            _launch("quad_kl", _fn("fwd", mu.dtype),
-                    *(_ptr(x) for x in (mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_a,
-                                        drift_tau, s)),
-                    s.numel(), quad_z.shape[0])
-        quad_kl.launches += 1
-    return s
+            _launch(form.name, _fn(form.name, "fwd", mu.dtype),
+                    *(_ptr(x) for x in (*tensors, out)), out.numel(), quad_z.shape[0])
+    return out
 
 
-def _adjoint(g_s, mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_a, drift_tau):
-    """The cotangents as one ``[N, 16]`` tensor: ``μ`` (2), ``L`` (4), ``A``
-    (4), ``b`` (2), ``P`` (4), each matrix row-major."""
+def _adjoint(form: _Form, g, *tensors):
+    """The cotangents as one ``[N, form.width]`` tensor: ``μ`` (2), ``L``
+    (4), ``A`` (4), ``b`` (2) and for Q ``P`` (4), each matrix row-major."""
+    mu, quad_z = tensors[0], tensors[5]
     if mu.device.type == "cpu":
-        grads = quad_kl_adjoint_plain(g_s, mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_a,
-                                      drift_tau)
-        return torch.cat([g.reshape(g.shape[0], -1) for g in grads], dim=-1)
-    g = torch.empty((mu.shape[0], 16), dtype=mu.dtype, device=mu.device)
-    if g.numel():
+        grads = form.adjoint_plain(g, *tensors)
+        return torch.cat([x.reshape(x.shape[0], -1) for x in grads], dim=-1)
+    out = torch.empty((mu.shape[0], form.width), dtype=mu.dtype, device=mu.device)
+    if out.numel():
         with torch.cuda.device(mu.device):
-            _launch("quad_kl_adjoint", _fn("bwd", mu.dtype),
-                    *(_ptr(x) for x in (g_s, mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_a,
-                                        drift_tau, g)),
-                    g.shape[0], quad_z.shape[0])
-        quad_kl_adjoint.launches += 1
-    return g
+            _launch(f"{form.name}_adjoint", _fn(form.name, "bwd", mu.dtype),
+                    *(_ptr(x) for x in (g, *tensors, out)), out.shape[0], quad_z.shape[0])
+    return out
 
 
 def _split(g: torch.Tensor):
+    """``(ḡ_μ, ḡ_L, ḡ_A, ḡ_b)``, and ``ḡ_P`` for 16 columns, of the
+    adjoint's cotangent tensor."""
     n = g.shape[0]
-    return (g[:, 0:2], g[:, 2:6].reshape(n, 2, 2), g[:, 6:10].reshape(n, 2, 2), g[:, 10:12],
-            g[:, 12:16].reshape(n, 2, 2))
+    parts = (g[:, 0:2], g[:, 2:6].reshape(n, 2, 2), g[:, 6:10].reshape(n, 2, 2), g[:, 10:12])
+    return parts + ((g[:, 12:16].reshape(n, 2, 2),) if g.shape[1] == 16 else ())
 
 
 def quad_kl(mu, chol, a, b, p_inv, quad_z, quad_w, dt, kind, params):
@@ -192,25 +313,30 @@ def quad_kl(mu, chol, a, b, p_inv, quad_z, quad_w, dt, kind, params):
     ``"vanderpol"``, ``(a, τ)``), ``dt`` and each parameter a 0-d tensor.
     Kernel for CUDA tensors, plain version for CPU; differentiable in ``μ``,
     ``L``, ``A``, ``b`` and ``P``, whose backward is the adjoint kernel."""
-    if kind not in KINDS:
-        raise ValueError(f"quad_kl: no kernel for the drift {kind!r} (known: {KINDS})")
-    tensors = (mu, chol, a, b, p_inv, quad_z, quad_w, dt, *params)
-    _check("quad_kl", tensors)
-    return torch.ops.vidp_torch.quad_kl(*tensors)
+    return _call(_QUAD_KL, (mu, chol, a, b, p_inv, quad_z, quad_w, dt), kind, params)
 
 
 def quad_kl_adjoint(g_s, mu, chol, a, b, p_inv, quad_z, quad_w, dt, kind, params):
     """The adjoint kernel alone: ``(ḡ_μ, ḡ_L, ḡ_A, ḡ_b, ḡ_P)`` of
     :func:`quad_kl` for the cotangent ``g_s [N]`` (on CPU tensors by the
     plain formulas)."""
-    if kind not in KINDS:
-        raise ValueError(f"quad_kl_adjoint: no kernel for the drift {kind!r} (known: {KINDS})")
-    tensors = (mu, chol, a, b, p_inv, quad_z, quad_w, dt, *params)
-    _check("quad_kl_adjoint", tensors)
-    if not (isinstance(g_s, torch.Tensor) and g_s.shape == mu.shape[:1]
-            and g_s.dtype == mu.dtype and g_s.device == mu.device and g_s.is_contiguous()):
-        raise ValueError("quad_kl_adjoint: g_s must be a contiguous [N] tensor beside mu")
-    return _split(torch.ops.vidp_torch.quad_kl_adjoint(g_s, *tensors))
+    return _call(_QUAD_KL, (mu, chol, a, b, p_inv, quad_z, quad_w, dt), kind, params, g_s)
+
+
+def vdp_energy(mu, chol, a, b, sigma_inv, quad_z, quad_w, kind, params):
+    """``e [N]`` of the drift energy at ``d = 2`` under the drift ``kind``
+    with its parameters ``params`` (``SDE.device_drift``; the kernel knows
+    ``"vanderpol"``, ``(a, τ)``), each parameter a 0-d tensor.  Kernel for
+    CUDA tensors, plain version for CPU; differentiable in ``μ``, ``L``,
+    ``A`` and ``b``, whose backward is the adjoint kernel."""
+    return _call(_VDP_ENERGY, (mu, chol, a, b, sigma_inv, quad_z, quad_w), kind, params)
+
+
+def vdp_energy_adjoint(g_e, mu, chol, a, b, sigma_inv, quad_z, quad_w, kind, params):
+    """The adjoint kernel alone: ``(ḡ_μ, ḡ_L, ḡ_A, ḡ_b)`` of
+    :func:`vdp_energy` for the cotangent ``g_e [N]`` (on CPU tensors by the
+    plain formulas)."""
+    return _call(_VDP_ENERGY, (mu, chol, a, b, sigma_inv, quad_z, quad_w), kind, params, g_e)
 
 
 # --------------------------------------------------------- the custom ops
@@ -218,12 +344,7 @@ def quad_kl_adjoint(g_s, mu, chol, a, b, p_inv, quad_z, quad_w, dt, kind, params
 def _quad_kl_op(mu: torch.Tensor, chol: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 p_inv: torch.Tensor, quad_z: torch.Tensor, quad_w: torch.Tensor,
                 dt: torch.Tensor, drift_a: torch.Tensor, drift_tau: torch.Tensor) -> torch.Tensor:
-    return _forward(mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_a, drift_tau)
-
-
-@_quad_kl_op.register_fake
-def _(mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_a, drift_tau):
-    return mu.new_empty(mu.shape[:1])
+    return _forward(_QUAD_KL, mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_a, drift_tau)
 
 
 @torch.library.custom_op("vidp_torch::quad_kl_adjoint", mutates_args=())
@@ -231,25 +352,49 @@ def _quad_kl_adjoint_op(g_s: torch.Tensor, mu: torch.Tensor, chol: torch.Tensor,
                         a: torch.Tensor, b: torch.Tensor, p_inv: torch.Tensor,
                         quad_z: torch.Tensor, quad_w: torch.Tensor, dt: torch.Tensor,
                         drift_a: torch.Tensor, drift_tau: torch.Tensor) -> torch.Tensor:
-    return _adjoint(g_s, mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_a, drift_tau)
+    return _adjoint(_QUAD_KL, g_s, mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_a, drift_tau)
 
 
-@_quad_kl_adjoint_op.register_fake
-def _(g_s, mu, chol, a, b, p_inv, quad_z, quad_w, dt, drift_a, drift_tau):
-    return mu.new_empty((mu.shape[0], 16))
+@torch.library.custom_op("vidp_torch::vdp_energy", mutates_args=())
+def _vdp_energy_op(mu: torch.Tensor, chol: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   sigma_inv: torch.Tensor, quad_z: torch.Tensor, quad_w: torch.Tensor,
+                   drift_a: torch.Tensor, drift_tau: torch.Tensor) -> torch.Tensor:
+    return _forward(_VDP_ENERGY, mu, chol, a, b, sigma_inv, quad_z, quad_w, drift_a, drift_tau)
+
+
+@torch.library.custom_op("vidp_torch::vdp_energy_adjoint", mutates_args=())
+def _vdp_energy_adjoint_op(g_e: torch.Tensor, mu: torch.Tensor, chol: torch.Tensor,
+                           a: torch.Tensor, b: torch.Tensor, sigma_inv: torch.Tensor,
+                           quad_z: torch.Tensor, quad_w: torch.Tensor, drift_a: torch.Tensor,
+                           drift_tau: torch.Tensor) -> torch.Tensor:
+    return _adjoint(_VDP_ENERGY, g_e, mu, chol, a, b, sigma_inv, quad_z, quad_w, drift_a,
+                    drift_tau)
+
+
+def _fake_forward(mu, *rest):
+    return mu.new_empty(mu.shape[:1])
+
+
+def _fake_adjoint(width, g, mu, *rest):
+    return mu.new_empty((mu.shape[0], width))
 
 
 def _setup(ctx, inputs, output):
     ctx.save_for_backward(*inputs)
 
 
-def _backward(ctx, g_s):
-    """The adjoint kernel on the saved inputs; no cotangent for the grid,
-    ``Δt`` or the drift's parameters."""
-    g = torch.ops.vidp_torch.quad_kl_adjoint(g_s.contiguous(), *ctx.saved_tensors)
-    return (*_split(g), None, None, None, None, None)
+def _backward(adjoint_op):
+    def backward(ctx, g):
+        """The adjoint kernel on the saved inputs; no cotangent for the grid,
+        ``Δt`` or ``Σ⁻¹``, or the drift's parameters."""
+        return (*_split(adjoint_op(g.contiguous(), *ctx.saved_tensors)),
+                None, None, None, None, None)
+    return backward
 
 
-_quad_kl_op.register_autograd(_backward, setup_context=_setup)
-
-quad_kl.launches = quad_kl_adjoint.launches = 0
+_quad_kl_op.register_fake(_fake_forward)
+_vdp_energy_op.register_fake(_fake_forward)
+_quad_kl_adjoint_op.register_fake(functools.partial(_fake_adjoint, _QUAD_KL.width))
+_vdp_energy_adjoint_op.register_fake(functools.partial(_fake_adjoint, _VDP_ENERGY.width))
+_quad_kl_op.register_autograd(_backward(_quad_kl_adjoint_op), setup_context=_setup)
+_vdp_energy_op.register_autograd(_backward(_vdp_energy_adjoint_op), setup_context=_setup)

@@ -38,9 +38,9 @@ its arguments into the graph's static inputs and replays the graph.
   other than the capturing one, and did so for VDP's d = 2 step at
   T = 10,000 on the card: the capture is ``"thread_local"``, which still
   refuses any host read or copy on the capturing thread.
-* Launch counts (``ops/cuda_scan.py::launch_counts``): the warm-up's
-  launches count; the wrappers' increments during capture, which launch
-  nothing, are taken back; every replay adds the launches it captured.
+* Launch counts (``ops/_build.py::launch_counts``): the warm-up's
+  launches count; those counted during capture, which ran nothing, are
+  taken back; every replay adds the launches it captured.
 * On the CPU the step is called directly.  On CUDA nothing falls back to
   eager execution: a failed warm-up, capture or replay raises.
 * While a profile is active (``utils/tracing.py``), a capture (warm-up,
@@ -60,7 +60,7 @@ import torch
 from torch import nn
 
 from .. import config
-from ..ops import cuda_scan
+from ..ops._build import add_launch_counts, launch_counts
 from ..utils import tracing
 
 __all__ = ["CapturedStep"]
@@ -209,14 +209,14 @@ class _Graph:
         current.wait_stream(stream)
 
         self.graph = torch.cuda.CUDAGraph()
-        before = cuda_scan.launch_counts()
+        before = launch_counts()
         try:
             with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
                 self.out = fn(*self.args, **self.kwargs)
         finally:
-            after = cuda_scan.launch_counts()
+            after = launch_counts()
             self.launches = {k: after[k] - before[k] for k in after}
-            cuda_scan.add_launch_counts({k: -n for k, n in self.launches.items()})
+            add_launch_counts({k: -n for k, n in self.launches.items()})
         out_leaves = []
         _flatten(self.out, out_leaves, [], kept=self._module_index)
         # an output that is a static input is handed back as the caller's own
@@ -259,7 +259,7 @@ class _Graph:
                     dst.copy_(leaf)
                     self._seen[i] = (leaf, leaf._version)
         self.graph.replay()
-        cuda_scan.add_launch_counts(self.launches)
+        add_launch_counts(self.launches)
         sources = iter(self._out_source)
 
         def hand_back(t):

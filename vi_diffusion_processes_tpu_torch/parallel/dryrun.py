@@ -227,20 +227,20 @@ def _check_sharded_step(rank, world, device, t_size, lr=0.5):
     """Check 4: the time-sharded packed natgrad step in float64."""
     from ..models.cvi_dp_packed import pack_state, packed_natgrad_step
     from ..models.cvi_dp_sharded import shard_packed_state, sharded_packed_natgrad_step
-    from ..ops import cuda_scan
+    from ..ops._build import launch_counts, reset_launch_counts
     from ..ops.btd import dist_q_1d, dist_q_1d_core
     from .sharded import gather_time
 
     model = flagship_model(t_size, torch.float64, device)
     state = pack_state(model)
-    cuda_scan.reset_launch_counts()
+    reset_launch_counts()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     mine, elbo = sharded_packed_natgrad_step(model, shard_packed_state(state), lr)
     elbo = float(elbo)
     seconds = time.perf_counter() - t0
-    launches = cuda_scan.launch_counts()
+    launches = launch_counts()
     sites = {name: gather_time(getattr(mine, name), t_size, pairs=name == "g_nat2s")
              for name in ("g_nat1", "g_nat2d", "g_nat2s", "fx_mu", "fx_var")}
 
