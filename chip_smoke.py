@@ -1152,6 +1152,15 @@ def _compiled_route(label: str, card: str, captured, args: tuple, rates, expect:
     return rec
 
 
+def _fresh_step(fn):
+    """A ``CapturedStep`` of ``fn`` whose first call captures: the process's
+    cache of captured graphs (``optim/compiled.py``) emptied first."""
+    from vi_diffusion_processes_tpu_torch.optim import compiled
+
+    compiled.clear_cache()
+    return compiled.CapturedStep(fn)
+
+
 def _run_cvi_dp_captured_and_eager(label: str, card: str, cfg, dataset,
                                    use_packed: bool = True) -> tuple:
     """``run_cvi_dp`` with its trainer's steps captured, then the same run
@@ -1161,9 +1170,10 @@ def _run_cvi_dp_captured_and_eager(label: str, card: str, cfg, dataset,
     ELBO, at least two replays of the step.  Returns the captured run's
     result and the seconds of both runs."""
     from vi_diffusion_processes_tpu_torch.exp.runners import run_cvi_dp
-    from vi_diffusion_processes_tpu_torch.optim import trainers
+    from vi_diffusion_processes_tpu_torch.optim import compiled, trainers
     from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
 
+    compiled.clear_cache()
     made, post_init = [], trainers.CVISitesTrainer.__post_init__
 
     def keep(self):
@@ -1219,7 +1229,6 @@ def phase_compiled(dev, card: str, dataset) -> None:
     from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig
     from vi_diffusion_processes_tpu_torch.models.cvi_dp_packed import pack_state, packed_natgrad_step
     from vi_diffusion_processes_tpu_torch.models.vdp_packed import pack_vdp, packed_inference_step
-    from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
 
     cfg = ExperimentConfig(prior_sde="dw", q=0.8, max_inner_iters=5, max_outer_iters=2)
     _run_cvi_dp_captured_and_eager("run_cvi_dp", card, cfg, dataset)
@@ -1227,13 +1236,13 @@ def phase_compiled(dev, card: str, dataset) -> None:
         with config.enable_x64(x64):
             model = flagship_model(T_FLAGSHIP, torch.float32, dev)[0]
             state = pack_state(model)
-            captured = CapturedStep(packed_natgrad_step)
+            captured = _fresh_step(packed_natgrad_step)
             state = captured(model, state, LR)[0]  # warm-up and capture
             expect = ({"dist_q_1d_planes": 2} if x64
                       else {"riccati_d_sweep_f32": 2, "linear_recurrence": 8})
             _compiled_route(route, card, captured, (model, state), [(LR,)] * STEPS, expect)
     model = vdp_model(T_FLAGSHIP, torch.float32, dev)[0]
-    captured = CapturedStep(packed_inference_step)
+    captured = _fresh_step(packed_inference_step)
     state = captured(model, pack_vdp(model), 1e-6, 0.0)  # warm-up and capture
     _compiled_route("vdp", card, captured, (model, state), [(1e-6, 1e-6)] * STEPS,
                     {"linear_recurrence": 4})
@@ -1264,13 +1273,12 @@ def phase_compiled_generic(dev, card: str, dataset) -> dict:
     )
     from vi_diffusion_processes_tpu_torch.models.vdp import VariationalMarkovGP
     from vi_diffusion_processes_tpu_torch.optim import trainers
-    from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
 
     cfg = ExperimentConfig(prior_sde="dw", q=0.8, max_inner_iters=3, max_outer_iters=2)
     _run_cvi_dp_captured_and_eager("run_cvi_dp", card, cfg, dataset, use_packed=False)
     records = {}
     vanderpol = vanderpol_model(T_FLAGSHIP, torch.float32, dev)[0]
-    captured = CapturedStep(packed_natgrad_step_ch)
+    captured = _fresh_step(packed_natgrad_step_ch)
     state = captured(vanderpol, pack_state_ch(vanderpol), LR_VANDERPOL)[0]
     records["vanderpol"] = _compiled_route("vanderpol", card, captured, (vanderpol, state),
                                            [(LR_VANDERPOL,)] * STEPS,
@@ -1284,7 +1292,7 @@ def phase_compiled_generic(dev, card: str, dataset) -> dict:
         flagship.dist_p, flagship.time_grid,
         (flagship.time_grid[flagship.obs_indices], flagship.observations), flagship.likelihood)
     for prior, model in (("sde", flagship), ("ssm", ssm_prior)):
-        captured = CapturedStep(trainers._site_step)
+        captured = _fresh_step(trainers._site_step)
         model = captured(model, LR)[0]  # warm-up and capture
         records[f"generic_{prior}"] = _compiled_route(
             f"generic_{prior}", card, captured, (model,), [(LR,)] * STEPS, GENERIC_LAUNCHES,
@@ -1292,7 +1300,7 @@ def phase_compiled_generic(dev, card: str, dataset) -> dict:
     vdp = VariationalMarkovGP.initialize(
         (vanderpol.time_grid[vanderpol.obs_indices], vanderpol.observations),
         vanderpol.prior_sde, vanderpol.time_grid, vanderpol.likelihood)
-    captured = CapturedStep(trainers._vdp_step)
+    captured = _fresh_step(trainers._vdp_step)
     vdp = captured(vdp, 1e-6, 0.0)  # warm-up and capture
     records["vdp_d2"] = _compiled_route(
         "vdp_d2", card, captured, (vdp,), [(1e-6, 1e-6)] * STEPS,

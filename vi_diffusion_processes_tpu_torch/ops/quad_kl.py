@@ -165,7 +165,8 @@ def kernel_drift(sde, d: int, x: torch.Tensor, prefix: str):
     card), else ``None`` for the plain expression; ``params`` detached and
     cast to ``x``'s dtype: a step differentiates its fresh leaves, never the
     SDE's parameters.  Counts ``<prefix>.fused`` or ``<prefix>.plain``
-    (``utils/tracing.py``) for the decision."""
+    (``utils/tracing.py``), which a captured step counts again at each
+    replay."""
     drift = sde.device_drift()
     if d == 2 and drift is not None and x.is_cuda:
         kind, params = drift

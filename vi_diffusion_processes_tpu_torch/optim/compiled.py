@@ -43,17 +43,37 @@ its arguments into the graph's static inputs and replays the graph.
   taken back; every replay adds the launches it captured.
 * On the CPU the step is called directly.  On CUDA nothing falls back to
   eager execution: a failed warm-up, capture or replay raises.
+* The counters that the step counts (``utils/tracing.py::count``, such as
+  a kernel route's ``kl_quad.fused``) count as its launches do: at the
+  warm-up, not at the capture, which tallies them apart; every replay counts
+  the tally again, so a counter counts each execution of its step.
+* The graphs are the process's, not a ``CapturedStep``'s: one cache, keyed
+  by the function, the structure and the device, holds the
+  :data:`CACHE_SIZE` graphs used last (each with its private memory pool)
+  and frees the one used longest ago when another is captured, as
+  ``jax.jit``'s compile cache serves every caller of a function.  A step of
+  a new trainer whose arguments have a structure that an earlier one
+  captured replays that graph.  Two facts keep such a replay the new
+  caller's own: the graph holds the previous caller's leaves by identity
+  and version, so every leaf of the new caller is copied in; and every
+  output is a copy or the caller's own input, so nothing of one caller
+  aliases another's.  The port drives one graph from one thread at a time.
 * While a profile is active (``utils/tracing.py``), a capture (warm-up,
   capture and the first hand-back) is the span
   ``vidp.captured_step.capture`` with the step's name and the port's kernel
   launches it captured, and a replay (copy-in, ``graph.replay()`` and the
   hand-back) is ``vidp.captured_step.replay``; flattening the arguments and
-  finding the graph come before either and count to the caller.
+  finding the graph come before either and count to the caller.  The first
+  time a ``CapturedStep`` needs a structure it counts
+  ``captured_step.captured`` where it captures the graph and
+  ``captured_step.shared`` where it finds the graph in the cache.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import weakref
+from collections import OrderedDict
 from typing import Callable, Optional
 
 import torch
@@ -63,7 +83,10 @@ from .. import config
 from ..ops._build import add_launch_counts, launch_counts
 from ..utils import tracing
 
-__all__ = ["CapturedStep"]
+__all__ = ["CapturedStep", "CACHE_SIZE", "clear_cache"]
+
+#: the captured graphs a process keeps, the least recently used freed first
+CACHE_SIZE = 4
 
 #: the structure's mark of a traced Python float
 _TRACED_FLOAT = "traced float"
@@ -183,8 +206,8 @@ def _storage(t: torch.Tensor) -> int:
 
 
 class _Graph:
-    """One captured structure: the static inputs, the graph, its outputs
-    and the launches it captured."""
+    """One captured structure: the static inputs, the graph, its outputs,
+    and the launches and counters it captured."""
 
     def __init__(self, fn: Callable, args: tuple, kwargs: dict, leaves: list,
                  device: torch.device):
@@ -211,12 +234,14 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph()
         before = launch_counts()
         try:
-            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+            with tracing.tallied() as counted, torch.cuda.graph(
+                    self.graph, stream=stream, capture_error_mode="thread_local"):
                 self.out = fn(*self.args, **self.kwargs)
         finally:
             after = launch_counts()
             self.launches = {k: after[k] - before[k] for k in after}
             add_launch_counts({k: -n for k, n in self.launches.items()})
+        self.counted = dict(counted)
         out_leaves = []
         _flatten(self.out, out_leaves, [], kept=self._module_index)
         # an output that is a static input is handed back as the caller's own
@@ -260,6 +285,8 @@ class _Graph:
                     self._seen[i] = (leaf, leaf._version)
         self.graph.replay()
         add_launch_counts(self.launches)
+        for name, n in self.counted.items():
+            tracing.count(name, n)
         sources = iter(self._out_source)
 
         def hand_back(t):
@@ -271,36 +298,80 @@ class _Graph:
         return _map(self.out, hand_back, self._kept(modules))
 
 
+_cache: "OrderedDict[tuple, _Graph]" = OrderedDict()
+
+
+def _cached(key: tuple) -> Optional[_Graph]:
+    """The cache's graph of ``(fn, structure, device)``, now the most
+    recently used, or ``None``."""
+    graph = _cache.get(key)
+    if graph is not None:
+        _cache.move_to_end(key)
+    return graph
+
+
+def _keep(key: tuple, graph: _Graph) -> None:
+    """Cache ``graph`` and free the least recently used beyond
+    :data:`CACHE_SIZE`."""
+    _cache[key] = graph
+    while len(_cache) > CACHE_SIZE:
+        _cache.popitem(last=False)
+
+
+def clear_cache() -> None:
+    """Free every cached graph: each structure's next call captures again."""
+    _cache.clear()
+
+
+def _device(fn: Callable, leaves: list) -> Optional[torch.device]:
+    """The CUDA device of a call's tensors, or ``None`` where none is on one."""
+    devices = {leaf.device for leaf in leaves if isinstance(leaf, torch.Tensor)}
+    if all(d.type != "cuda" for d in devices):
+        return None
+    if len(devices) > 1:
+        # a CPU scalar would enter the graph as a constant
+        raise ValueError(f"CapturedStep({fn.__name__}): arguments on {sorted(map(str, devices))}")
+    return devices.pop()
+
+
 class CapturedStep:
     """``fn`` captured once per structure of its arguments as a CUDA graph,
-    and replayed (the module docstring says how).
+    or found in the process's cache, and replayed (the module docstring
+    says how).
 
-    ``captures`` and ``replays`` count what it did; on the CPU both stay 0.
+    ``captures``, ``shared`` and ``replays`` count what it did: graphs it
+    captured, graphs it found captured, and replays; on the CPU all stay 0.
     """
 
     def __init__(self, fn: Callable):
         self.fn = fn
         self.captures = 0
+        self.shared = 0
         self.replays = 0
-        self._graphs = {}
+        # the graphs it has used, while the cache holds them
+        self._graphs = weakref.WeakValueDictionary()
         self._memo = {}
 
     def __call__(self, *args, **kwargs):
         leaves, key, modules = _flatten_call(args, kwargs, self._memo)
-        devices = {leaf.device for leaf in leaves if isinstance(leaf, torch.Tensor)}
-        if all(d.type != "cuda" for d in devices):
+        device = _device(self.fn, leaves)
+        if device is None:
             return self.fn(*args, **kwargs)
-        if len(devices) > 1:
-            # a CPU scalar would enter the graph as a constant
-            raise ValueError(f"CapturedStep({self.fn.__name__}): arguments on {sorted(map(str, devices))}")
-        graph = self._graphs.get(key)
+        cache_key = (self.fn, key, device)
+        graph = _cached(cache_key)
         if graph is None:
             with tracing.annotate("vidp.captured_step.capture", fn=self.fn.__name__) as span:
-                graph = _Graph(self.fn, args, kwargs, leaves, devices.pop())
+                graph = _Graph(self.fn, args, kwargs, leaves, device)
+                _keep(cache_key, graph)
                 self._graphs[key] = graph
                 self.captures += 1
+                tracing.count("captured_step.captured")
                 span.set(launches=dict(graph.launches))
                 return graph.first_result(leaves, modules)
+        if self._graphs.get(key) is not graph:
+            self._graphs[key] = graph
+            self.shared += 1
+            tracing.count("captured_step.shared")
         self.replays += 1
         with tracing.annotate("vidp.captured_step.replay", fn=self.fn.__name__):
             return graph.replay(leaves, modules)

@@ -16,8 +16,10 @@ packed steps at d = 1 and at 2 ≤ d ≤ 8 with their ELBOs, the generic site
 step (both site updates, then ``classic_elbo``) with the first
 ``classic_elbo`` of an inner loop, and VDP's packed or generic step and
 ELBO.  A re-linearized or drift-learned model of the same structure is
-copied in, not captured again.  The ELBO is read on the host once a step,
-as ``float(elbo_arr)`` is in the reference.  While a profile is active
+copied in, not captured again, and so is a later trainer's model of that
+structure: the graphs are the process's (``compiled.CACHE_SIZE`` of
+them).  The ELBO is read on the host once a step, as ``float(elbo_arr)``
+is in the reference.  While a profile is active
 the loops record the spans ``vidp.trainer.optimize``,
 ``vidp.trainer.optimize_sites`` and ``vidp.trainer.read_elbo`` and count
 ``trainer.steps_tried`` and ``trainer.steps_accepted``, and in VDP's loop
@@ -121,7 +123,7 @@ class CVISitesTrainer:
     def __post_init__(self):
         # (pack, unpack, step, elbo) of the packed loop, or None for the
         # generic update rules (trainers.py:53-78); every step and ELBO is
-        # captured once as a CUDA graph on the card, as jax.jit'ed there
+        # captured once a process as a CUDA graph on the card, as jax.jit'ed there
         self._packed = None
         d = self.model.state_dim
         if self.use_packed and isinstance(self.model, CVISitesSDE):
@@ -237,7 +239,7 @@ class VDPTrainer:
 
     def __post_init__(self):
         self._packed = self.model.state_dim == 1
-        # captured once as CUDA graphs on the card, as jax.jit'ed there
+        # captured once a process as CUDA graphs on the card, as jax.jit'ed there
         # (trainers.py:191-197); the warm-up's x0_lr = 0 is a value
         if self._packed:
             from ..models.vdp_packed import packed_inference_step, packed_vdp_elbo

@@ -31,10 +31,16 @@ The program's spans: ``vidp.trainer.optimize`` and
 ``trainer.steps_accepted``, VDP's ``trainer.warmup_steps``,
 ``trainer.nan_reverts`` and ``trainer.rate_damped``, and
 ``kl_quad.fused`` and ``kl_quad.plain``, the route of the d ≥ 2 KL's
-quadrature (``models/cvi_dp_packed_ch.py``).  Those two sit inside the
-captured steps on purpose: they count each time the route is decided in
-Python (eagerly, at a warm-up or at a capture), and a replay runs the route
-its capture took.
+quadrature (``models/cvi_dp_packed_ch.py``), and ``vdp_energy.fused`` and
+``vdp_energy.plain``, the route of VDP's drift energy (both decided by
+``ops/quad_kl.py::kernel_drift``); and ``captured_step.captured`` and
+``captured_step.shared``, a ``CapturedStep``'s first call of a structure
+that captured its graph or found it in the process's cache.  The route
+counters sit inside the captured steps on purpose and count each execution
+of a step: an eager call or a warm-up counts them as any code does; a
+capture, which runs nothing, counts them into a tally (:func:`tallied`),
+whether or not a profile is active, and not into the record; every replay
+of the graph counts the tally again, as it counts its kernel launches.
 
 The reference gates TensorFlow name scopes behind the ``AUTO_NAMESCOPE``
 environment variable (markovflow/base.py:51-61, utils.py:31-73);
@@ -55,8 +61,8 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 import torch.autograd.profiler as _profiler
 
-__all__ = ["AUTO_NAMESCOPE", "named_scope_fn", "annotate", "annotated", "count", "spans",
-           "counters", "reset", "Span", "trace_to", "TRACE_FILE"]
+__all__ = ["AUTO_NAMESCOPE", "named_scope_fn", "annotate", "annotated", "count", "tallied",
+           "spans", "counters", "reset", "Span", "trace_to", "TRACE_FILE"]
 
 #: mirrors markovflow/base.py:51: opt-in annotation of library functions
 AUTO_NAMESCOPE = os.environ.get("AUTO_NAMESCOPE", "").lower() in ("1", "true")
@@ -81,6 +87,7 @@ _spans: List[Span] = []
 _counters: Dict[str, int] = {}
 _ids = itertools.count(1)
 _counting = threading.Lock()
+_tally: Optional[Dict[str, int]] = None  # while set, counters go here alone
 _open = threading.local()  # .stack: the thread's open spans, outermost first
 
 
@@ -162,10 +169,27 @@ def annotated(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the record's counter ``name`` while a profile is active."""
-    if _profiler._is_profiler_enabled:
+    """Add ``n`` to the record's counter ``name`` while a profile is active;
+    inside :func:`tallied`, to its tally instead."""
+    if _tally is not None:
+        with _counting:
+            _tally[name] = _tally.get(name, 0) + n
+    elif _profiler._is_profiler_enabled:
         with _counting:
             _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tallied():
+    """Count the enclosed block's counters into the yielded dict alone,
+    profile or not: a CUDA graph's capture, whose every replay counts them
+    (``optim/compiled.py``)."""
+    global _tally
+    outer, _tally = _tally, {}
+    try:
+        yield _tally
+    finally:
+        _tally = outer
 
 
 def spans() -> List[Span]:
