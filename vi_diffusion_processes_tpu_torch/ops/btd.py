@@ -21,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import tracing
 from ..utils.linalg import (
     chol_psd,
     cho_solve,
@@ -377,7 +378,12 @@ def dist_q_1d(nat1, nat2d, nat2s, compute_dtype):
     """The d = 1 naturals → SSM params → marginals chain by the naturals'
     dtype: float64 (the x64 policy) takes kernel K3, one launch on CUDA;
     float32 (x64 off) takes its composition :func:`dist_q_1d_core`, one K4
-    and four float32 K2 launches."""
+    and four float32 K2 launches.  Counts the route (``utils/tracing.py``):
+    ``dist_q_1d.k3`` where K3 launches, ``dist_q_1d.plain`` otherwise (K3's
+    plain version on the CPU, or the composition), which a captured step
+    counts again at each replay."""
     if nat1.dtype == torch.float64:
+        tracing.count("dist_q_1d.k3" if nat1.is_cuda else "dist_q_1d.plain")
         return dist_q_1d_planes(nat1, nat2d, nat2s, compute_dtype)
+    tracing.count("dist_q_1d.plain")
     return dist_q_1d_core(nat1, nat2d, nat2s, compute_dtype)

@@ -33,9 +33,12 @@ The program's spans: ``vidp.trainer.optimize`` and
 ``kl_quad.fused`` and ``kl_quad.plain``, the route of the d ≥ 2 KL's
 quadrature (``models/cvi_dp_packed_ch.py``), and ``vdp_energy.fused`` and
 ``vdp_energy.plain``, the route of VDP's drift energy (both decided by
-``ops/quad_kl.py::kernel_drift``); and ``captured_step.captured`` and
-``captured_step.shared``, a ``CapturedStep``'s first call of a structure
-that captured its graph or found it in the process's cache.  The route
+``ops/quad_kl.py::kernel_drift``); ``dist_q_1d.k3`` and ``dist_q_1d.plain``,
+the route of the d = 1 naturals → marginals chain (``ops/btd.py::dist_q_1d``:
+kernel K3, or its plain version or float32 composition); and
+``captured_step.captured`` and ``captured_step.shared``, a
+``CapturedStep``'s first call of a structure that captured its graph or
+found it in the process's cache.  The route
 counters sit inside the captured steps on purpose and count each execution
 of a step: an eager call or a warm-up counts them as any code does; a
 capture, which runs nothing, counts them into a tally (:func:`tallied`),
