@@ -1223,7 +1223,8 @@ def phase_compiled(dev, card: str, dataset) -> None:
     the ELBO trace and the trained sites bit for bit, one capture of the step
     and one of ``packed_elbo``; then STEPS eager steps against STEPS replays
     of the flagship through K3 (2 a step), with x64 off through K4 (2) and
-    K2 (8), and of VDP through K2 (4 a step), bit for bit, each with its
+    K2 (8), both through F and F′ (1 each), and of VDP through K2 (4 a
+    step), bit for bit, each with its
     steps/s, device ms and launches a step; a failed capture fails the run."""
     from vi_diffusion_processes_tpu_torch import config
     from vi_diffusion_processes_tpu_torch.exp.runners import ExperimentConfig
@@ -1240,6 +1241,7 @@ def phase_compiled(dev, card: str, dataset) -> None:
             state = captured(model, state, LR)[0]  # warm-up and capture
             expect = ({"dist_q_1d_planes": 2} if x64
                       else {"riccati_d_sweep_f32": 2, "linear_recurrence": 8})
+            expect.update(quad_kl_1d=1, quad_kl_1d_adjoint=1)
             _compiled_route(route, card, captured, (model, state), [(LR,)] * STEPS, expect)
     model = vdp_model(T_FLAGSHIP, torch.float32, dev)[0]
     captured = _fresh_step(packed_inference_step)
@@ -1931,6 +1933,109 @@ def phase_vdp_energy(dev) -> dict:
             f"{shape['shared_memory_bytes']} bytes of dynamic shared memory (float64)")
         if not shape["grid"] > 1:
             raise AssertionError("vdp_energy runs on one block")
+    return records
+
+
+#: operations of one point of the d = 1 KL's path term under the double well
+#: (F's point loop: x, f(x), the difference, its weighted square), and of its
+#: adjoint's (F′: the same difference, f′(x) and four sums) for one pair
+QUAD_KL_1D_POINT_FLOPS = (13, 23)
+#: limits of F's s and F′'s cotangents, each over its largest magnitude,
+#: against the plain twin in the same dtype on the same inputs
+#: (``tests/port/test_torch_quad_kl_1d_cuda.py``)
+QUAD_KL_1D_LIMITS = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+def _quad_kl_1d_inputs(model, state):
+    """The arguments that one packed d = 1 step hands ``quad_kl_1d_adjoint``:
+    ``(g, e1, ed, es, p_var, z, w, Δt, jitter, kind, params, μ₀, var₀)``."""
+    from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed as tp
+
+    calls, real = [], tp.quad_kl_1d_adjoint
+    tp.quad_kl_1d_adjoint = lambda *args: calls.append(args) or real(*args)
+    try:
+        tp.packed_natgrad_step(model, state, LR)
+    finally:
+        tp.quad_kl_1d_adjoint = real
+    return calls[0]
+
+
+def phase_quad_kl_1d(dev) -> dict:
+    """The d = 1 KL's kernels F and F′ (``ops/quad_kl.py``) at T = 100,000 on
+    the inputs that the third float64 flagship step hands F′: ``s`` and the
+    three cotangents (of ``g = ½``, with ``KL₀``) against the plain twin in
+    the same dtype on the same inputs (``QUAD_KL_1D_LIMITS``), each kernel's
+    host-clock median, device time per launch and bound, the plain route's
+    forward (``_kl_path``) and its autograd gradient, and the launch, which
+    must take many blocks.  Returns ``{name: record}`` for the kernel table."""
+    from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed as tp
+    from vi_diffusion_processes_tpu_torch.ops import quad_kl as qk
+
+    model = flagship_model(T_FLAGSHIP, torch.float64, dev)[0]
+    state = tp.pack_state(model)
+    for _ in range(2):
+        state, _ = tp.packed_natgrad_step(model, state, LR)
+    g, *f64_inputs, kind, f64_params, f64_mu0, f64_var0 = _quad_kl_1d_inputs(model, state)
+    drift_fn, n = tp._step_constants(model)[-1], f64_inputs[2].shape[0]
+    records = {}
+    for dtype in (torch.float64, torch.float32):
+        inputs, params, mu0, var0 = ([x.to(dtype) for x in group] for group in (
+            f64_inputs, f64_params, (f64_mu0,), (f64_var0,)))
+        gd, (mu0,), (var0,) = g.to(dtype), mu0, var0
+
+        def forward():
+            return qk.quad_kl_1d(*inputs, kind, params)
+
+        def adjoint():
+            return qk.quad_kl_1d_adjoint(gd, *inputs, kind, params, mu0, var0)
+
+        def plain():
+            e1, ed, es, p_var, z, w, dt, _ = inputs
+            return tp._kl_path(e1, ed, es, drift_fn, p_var, z, w, dt)
+
+        def plain_both():
+            e1, ed, es, p_var, z, w, dt, _ = inputs
+            leaves = [x.clone().requires_grad_() for x in (e1, ed, es)]
+            with torch.enable_grad():
+                kl = tp._kl_packed(*leaves, drift_fn, p_var, mu0, var0, z, w, dt)
+                return torch.autograd.grad(kl, leaves)
+
+        err_s = _scaled_err(forward(), qk.quad_kl_1d_plain(*inputs, *params))
+        ref_g = qk.quad_kl_1d_adjoint_plain(gd, *inputs, *params, mu0, var0)
+        err_g = max(_scaled_err(x, r) for x, r in zip(adjoint(), ref_g))
+        limit, label = QUAD_KL_1D_LIMITS[dtype], str(dtype)[6:]
+        log(f"[quad-kl-1d] T={T_FLAGSHIP} {label}: s against the twin {err_s:.3e}, "
+            f"cotangents {err_g:.3e} of their largest magnitudes (limit {limit:.0e})")
+        if not (err_s <= limit and err_g <= limit):
+            raise AssertionError(f"quad_kl_1d ({label}) disagrees with its plain twin")
+        size, (fwd_flops, bwd_flops) = torch.finfo(dtype).bits // 8, QUAD_KL_1D_POINT_FLOPS
+        n_points = inputs[4].shape[0]
+        # bytes: e1, ed (T each), es, p_var and s (N each); the adjoint reads
+        # the four inputs and writes three rows of T cotangents
+        fwd = {"err": err_s, "bound": bound_ms(5 * size * n, fwd_flops * n_points * n, dtype),
+               "ms": median_ms(forward),
+               "device_ms": device_ms(forward, "quad_kl_1d_fwd_kernel", "quad_kl_1d"),
+               "plain_ms": median_ms(plain)}
+        bwd = {"err": err_g, "bound": bound_ms(7 * size * n, bwd_flops * n_points * n, dtype),
+               "ms": median_ms(adjoint),
+               "device_ms": device_ms(adjoint, "quad_kl_1d_bwd_kernel", "quad_kl_1d_adjoint"),
+               "plain_ms": median_ms(plain_both)}
+        for name, rec in (("quad_kl_1d", fwd), ("quad_kl_1d_adjoint", bwd)):
+            log(f"[kernels] {name} ({label}) T={T_FLAGSHIP}: kernel {rec['ms']:.4f} ms host "
+                f"clock, {rec['device_ms']:.5f} ms device per launch, bound "
+                f"{rec['bound'][0]:.6f} ms ({rec['bound'][1]}): share "
+                f"{100 * rec['bound'][0] / rec['device_ms']:.1f}%; plain route "
+                f"{'forward' if name == 'quad_kl_1d' else 'forward and autograd'} "
+                f"{rec['plain_ms']:.4f} ms (median of {REPS})")
+        if dtype == torch.float64:
+            records = {"quad_kl_1d": fwd, "quad_kl_1d_adjoint": bwd}
+    for name, count in (("quad_kl_1d", n), ("quad_kl_1d_adjoint", n + 1)):
+        shape = qk.launch_shape_1d(count)
+        log(f"[launch] {name} T={T_FLAGSHIP}: {count} {'pairs' if count == n else 'points'}, "
+            f"grid {shape['grid']}, {shape['threads_per_block']} threads per block, "
+            f"{shape['lanes_per_pair']} lanes a pair or point, no shared memory")
+        if not shape["grid"] > 1:
+            raise AssertionError(f"{name} runs on one block")
     return records
 
 
@@ -3075,12 +3180,17 @@ def main() -> None:
     kernels = phase_kernels(dev)
     kernels.update(phase_quad_kl(dev))
     kernels.update(phase_vdp_energy(dev))
+    kernels.update(phase_quad_kl_1d(dev))
     phase_adjoints(dev)
 
     (model, obs_idx, obs_y, elbo64), main_counts = _counted(phase_main_path, dev, card)
     if main_counts["dist_q_1d_planes"] != 2 * STEPS:
         raise AssertionError(f"K3 launched {main_counts['dist_q_1d_planes']} times in "
                              f"{STEPS} steps, expected {2 * STEPS}")
+    if (main_counts["quad_kl_1d"], main_counts["quad_kl_1d_adjoint"]) != (STEPS, STEPS):
+        raise AssertionError(f"F and F′ launched {main_counts['quad_kl_1d']} and "
+                             f"{main_counts['quad_kl_1d_adjoint']} times in {STEPS} steps, "
+                             f"expected {STEPS} each")
     dataset = flagship_dataset(model.time_grid, obs_idx, obs_y, dev)
     _, trainer_counts = _counted(phase_trainer, dataset)
     for name in ("riccati_d_sweep", "linear_recurrence"):
@@ -3192,7 +3302,8 @@ def main() -> None:
     pallas = "vi_diffusion_processes_tpu/ops/"
     source = {"riccati_d_sweep_f32": csrc + "cuda_riccati.cu", "quad_kl": csrc + "quad_kl.cu",
               "quad_kl_adjoint": csrc + "quad_kl.cu", "vdp_energy": csrc + "quad_kl.cu",
-              "vdp_energy_adjoint": csrc + "quad_kl.cu"}
+              "vdp_energy_adjoint": csrc + "quad_kl.cu", "quad_kl_1d": csrc + "quad_kl.cu",
+              "quad_kl_1d_adjoint": csrc + "quad_kl.cu"}
     replaces = {
         "riccati_d_sweep": pallas + "pallas_scan.py:257",
         "linear_recurrence": pallas + "pallas_scan.py:394",
@@ -3202,6 +3313,8 @@ def main() -> None:
         "quad_kl_adjoint": "none (its autograd)",
         "vdp_energy": "none (XLA: vi_diffusion_processes_tpu/sde/utils.py:111-131)",
         "vdp_energy_adjoint": "none (its autograd)",
+        "quad_kl_1d": "none (XLA: vi_diffusion_processes_tpu/models/cvi_dp_packed.py:251-286)",
+        "quad_kl_1d_adjoint": "none (its autograd)",
     }
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source.get(name, csrc + "cuda_scan.cu"),

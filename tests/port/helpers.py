@@ -44,6 +44,25 @@ class NoHostSync(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
+class OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card: a route reads ``is_cuda``
+    (``ops/quad_kl.py::kernel_drift``), and the kernels' wrappers then run
+    their plain versions."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def decide_on_card(monkeypatch, module):
+    """Make ``module.kernel_drift`` decide as for a tensor on the card: on
+    CPU tensors the fused route runs the kernels' plain versions."""
+    from vi_diffusion_processes_tpu_torch.ops import quad_kl
+
+    monkeypatch.setattr(module, "kernel_drift", lambda sde, d, x, prefix: quad_kl.kernel_drift(
+        sde, d, x.as_subclass(OnCard), prefix))
+
+
 def all_launches(**nonzero):
     """The whole ``launch_counts()`` dict: every kernel of ``KERNELS`` at 0
     but those named in ``nonzero``; raises on a name that is no kernel."""

@@ -60,9 +60,12 @@ T = 100_000
 STEPS = 8
 LR = 0.3
 #: kernel launches of one step by route: float64 naturals take K3 twice, x64
-#: off K4 twice and K2 eight times; VDP's step K2 four times and its ELBO twice
-LAUNCHES = {"x64": {"dist_q_1d_planes": 2}, "x64_off": {"riccati_d_sweep_f32": 2,
-                                                        "linear_recurrence": 8}}
+#: off K4 twice and K2 eight times, and both the double well's KL kernel F
+#: (the ELBO) and its adjoint F′ (the Girsanov gradient) once; VDP's step K2
+#: four times and its ELBO twice
+LAUNCHES = {"x64": {"dist_q_1d_planes": 2, "quad_kl_1d": 1, "quad_kl_1d_adjoint": 1},
+            "x64_off": {"riccati_d_sweep_f32": 2, "linear_recurrence": 8, "quad_kl_1d": 1,
+                        "quad_kl_1d_adjoint": 1}}
 #: VDP's generic step at d = 2 on the card: its drift energy's kernel once
 #: and its adjoint once (``ops/quad_kl.py``), no K1-K4
 VDP_D2_LAUNCHES = {"vdp_energy": 1, "vdp_energy_adjoint": 1}
@@ -105,7 +108,7 @@ def test_flagship_replays_equal_eager_steps(cuda_device, route):
     """STEPS replays, the rate changing between them, against STEPS eager
     steps from the same state, bit for bit; every state handed back stays
     valid after later replays; one capture; the launches of N replays are N
-    times the captured ones (K3 2·N, or K4 2·N and K2 8·N)."""
+    times the captured ones (K3 2·N, or K4 2·N and K2 8·N; F and F′ N)."""
     with config.enable_x64(route == "x64"):
         model = flagship_model(T, torch.float32, cuda_device)
         step, elbo_of = CapturedStep(packed_natgrad_step), CapturedStep(packed_elbo)

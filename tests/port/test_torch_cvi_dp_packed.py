@@ -27,10 +27,14 @@ from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
 from vi_diffusion_processes_tpu_torch.sde.utils import Gaussian as TGaussian
 from vi_diffusion_processes_tpu_torch.sde.zoo import DoubleWellSDE, VanderPolOscillatorSDE
 
-from .helpers import assert_close_scaled, to_np
+from .helpers import assert_close_scaled, decide_on_card, to_np
 
 T = 600
 TOL = {"float64": 1e-9, "float32": 1e-4}
+#: the d = 1 KL's fused route (F and F′'s plain twin on the CPU) against the
+#: plain route, three steps and an ELBO: the ELBO relative, each state
+#: field over its largest magnitude
+FUSED_TOL = {"float64": 1e-12, "float32": 1e-4}
 
 
 def _jax_model(dtype):
@@ -120,6 +124,28 @@ def test_packed_steps_and_elbo_match_jax(models):
     jr, tr = jax.jit(lambda m: m.relinearize())(jm), tm.relinearize()
     for g, r in zip(tr.girsanov_sites, jr.girsanov_sites):
         assert_close_scaled(g.numpy(), np.asarray(r), rtol)
+
+
+def _steps_and_elbo(tmodel):
+    state, elbos = tp.pack_state(tmodel), []
+    for _ in range(3):
+        state, elbo = tp.packed_natgrad_step(tmodel, state, 0.3)
+        elbos.append(float(elbo))
+    return state, elbos + [float(tp.packed_elbo(tmodel, state))]
+
+
+def test_fused_kl_route_matches_the_plain_route(models, monkeypatch):
+    """The step and ``packed_elbo`` with the d = 1 KL on the route of F and
+    F′ (their twin on the CPU: the Girsanov gradient in closed form, the
+    difference as ``(1 − a) x − b + Δt f(x)``) against the plain route."""
+    dtype, _, tmodel = models
+    plain, plain_elbos = _steps_and_elbo(tmodel)
+    decide_on_card(monkeypatch, tp)
+    fused, fused_elbos = _steps_and_elbo(tmodel)
+    np.testing.assert_allclose(fused_elbos, plain_elbos, rtol=FUSED_TOL[dtype], atol=0)
+    for f in dataclasses.fields(fused):
+        assert_close_scaled(getattr(fused, f.name).numpy(), getattr(plain, f.name).numpy(),
+                            FUSED_TOL[dtype], err_msg=f.name)
 
 
 def test_generic_update_rules_raise_naming_their_slice(models):

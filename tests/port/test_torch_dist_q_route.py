@@ -79,14 +79,15 @@ def test_a_capture_tallies_the_route():
 def test_packed_step_counts_two_chains_and_its_elbo_one(x64):
     """The packed d = 1 step refreshes q twice (after the data sites, after
     the Girsanov sites) and ``packed_elbo`` once, x64 on (K3's route) and
-    off (the composition)."""
+    off (the composition); the KL's path term decides its own route twice a
+    step (the Girsanov gradient, the ELBO) and once an ELBO."""
     with config.enable_x64(x64):
         model = flagship_model(T, torch.float32, torch.device("cpu"))
         state = pack_state(model)
         (state, _), step_counts, _ = _profiled(lambda: packed_natgrad_step(model, state, 0.5))
         _, elbo_counts, _ = _profiled(lambda: packed_elbo(model, state))
-    assert step_counts == {"dist_q_1d.plain": 2}
-    assert elbo_counts == {"dist_q_1d.plain": 1}
+    assert step_counts == {"dist_q_1d.plain": 2, "kl_quad_1d.plain": 2}
+    assert elbo_counts == {"dist_q_1d.plain": 1, "kl_quad_1d.plain": 1}
 
 
 def test_a_fit_counts_each_chain_it_ran():

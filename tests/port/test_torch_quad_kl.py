@@ -1,6 +1,7 @@
-"""The Gauss–Hermite point loops at d = 2 (``ops/quad_kl.py``) on the CPU,
-for both forms: the d = 2 KL's path term (``"quad_kl"``) and VDP's drift
-energy (``"vdp_energy"``).  For each, the plain adjoint formulas of the
+"""The Gauss–Hermite point loops (``ops/quad_kl.py``) on the CPU, for both
+forms at d = 2: the d = 2 KL's path term (``"quad_kl"``) and VDP's drift
+energy (``"vdp_energy"``); and at d = 1 the KL's path term under the double
+well (F, F′, at the end of the file).  For each, the plain adjoint formulas of the
 kernel against autograd, NaN in ``L``, what the wrappers refuse, the route
 that ``_kl_packed_ch`` or ``VariationalMarkovGP.e_sde`` takes by device,
 state dimension and SDE, and its counters; the decision itself
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from vi_diffusion_processes_tpu_torch.config import default_jitter
+from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed as tp
 from vi_diffusion_processes_tpu_torch.models import cvi_dp_packed_ch as tch
 from vi_diffusion_processes_tpu_torch.models import vdp as vdp_mod
 from vi_diffusion_processes_tpu_torch.models.cvi_dp import _param_grads
@@ -31,7 +33,16 @@ from vi_diffusion_processes_tpu_torch.sde.utils import (
     Gaussian,
     squared_drift_difference_along_Gaussian_path,
 )
-from vi_diffusion_processes_tpu_torch.sde.zoo import VanderPolOscillatorSDE
+from vi_diffusion_processes_tpu_torch.parallel.dryrun import flagship_model
+from vi_diffusion_processes_tpu_torch.sde.zoo import (
+    BenesSDE,
+    DoubleWellSDE,
+    MLPDrift,
+    OrnsteinUhlenbeckSDE,
+    SineDiffusionSDE,
+    SqrtDiffusionSDE,
+    VanderPolOscillatorSDE,
+)
 from vi_diffusion_processes_tpu_torch.utils import tracing
 from vi_diffusion_processes_tpu_torch.utils.linalg import (
     chol_psd,
@@ -44,7 +55,7 @@ from vi_diffusion_processes_tpu_torch.utils.linalg import (
     transpose_last,
 )
 
-from .helpers import vanderpol_model_port
+from .helpers import OnCard, decide_on_card, vanderpol_model_port
 
 F64 = torch.float64
 CPU = torch.device("cpu")
@@ -214,13 +225,22 @@ class _ShiftedVanderPol(VanderPolOscillatorSDE):
         return super().drift(x, t) + 0.1
 
 
-class _OnCard(torch.Tensor):
-    """A CPU tensor that says it lies on the card: the route reads
-    ``is_cuda``, and the wrappers then run their plain versions."""
+class _DoubleWell2D(DoubleWellSDE):
+    """The double well's drift on each of two coordinates."""
 
     @property
-    def is_cuda(self):
-        return True
+    def state_dim(self):
+        return 2
+
+
+class _ShiftedDoubleWell(DoubleWellSDE):
+    """A double-well subclass with a drift of its own."""
+
+    def drift(self, x, t=None):
+        return super().drift(x, t) + 0.1
+
+
+_OnCard = OnCard
 
 
 def test_device_drift_hooks():
@@ -231,33 +251,41 @@ def test_device_drift_hooks():
     assert kind == "vanderpol" and a is sde.a and tau is sde.tau
     assert _ShiftedVanderPol(a=1.0, tau=1.0, q=torch.eye(2, dtype=F64)).device_drift() is None
     assert SDE().device_drift() is None
+    well = DoubleWellSDE(q=[[0.8]])
+    kind, (scale, c) = well.device_drift()
+    assert kind == "double_well" and scale is well.scale and c is well.c
+    assert _ShiftedDoubleWell(q=[[0.8]]).device_drift() is None
 
 
 def test_kernel_drift_decides_counts_and_casts(monkeypatch):
     """``kernel_drift``: ``None`` off the card, at d ≠ 2 and for an SDE whose
     hook returns ``None``, each counted as ``plain``; on the card at d = 2
     the drift's parameters detached and in the dtype of the tensor that
-    decides, counted as ``fused``; a kind that no kernel knows refused."""
+    decides, counted as ``fused``; a drift that only another route's kernel
+    knows (the double well at d = 2) takes the plain path; a kind that no
+    kernel knows refused."""
     sde = VanderPolOscillatorSDE(a=1.3, tau=0.7, q=0.5 * torch.eye(2, dtype=F64))
     assert sde.a.requires_grad and sde.tau.requires_grad
     x = torch.zeros(4, 2, dtype=torch.float32)
     card = x.as_subclass(_OnCard)
     tracing.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        assert qk.kernel_drift(sde, 2, x, "route") is None
-        assert qk.kernel_drift(sde, 3, card, "route") is None
-        assert qk.kernel_drift(_UserSDE(2), 2, card, "route") is None
-        kind, params = qk.kernel_drift(sde, 2, card, "route")
+        assert qk.kernel_drift(sde, 2, x, "kl_quad") is None
+        assert qk.kernel_drift(sde, 3, card, "kl_quad") is None
+        assert qk.kernel_drift(_UserSDE(2), 2, card, "kl_quad") is None
+        kind, params = qk.kernel_drift(sde, 2, card, "kl_quad")
     counts = tracing.counters()
     tracing.reset()
-    assert counts == {"route.plain": 3, "route.fused": 1}
+    assert counts == {"kl_quad.plain": 3, "kl_quad.fused": 1}
     assert kind == "vanderpol" and len(params) == 2
     for p, ref in zip(params, (sde.a, sde.tau)):
         assert p.dtype == torch.float32 and not p.requires_grad
         assert torch.equal(p, ref.detach().float())
     monkeypatch.setattr(sde, "device_drift", lambda: ("double_well", (sde.a, sde.tau)))
-    with pytest.raises(ValueError, match="no kernel for the drift 'double_well'"):
-        qk.kernel_drift(sde, 2, card, "route")
+    assert qk.kernel_drift(sde, 2, card, "kl_quad") is None
+    monkeypatch.setattr(sde, "device_drift", lambda: ("lorenz", (sde.a, sde.tau)))
+    with pytest.raises(ValueError, match="no kernel for the drift 'lorenz'"):
+        qk.kernel_drift(sde, 2, card, "kl_quad")
 
 
 # ------------------------------------------------------------ the routes
@@ -295,6 +323,8 @@ def _route_sde(form, sde_kind, d, monkeypatch):
         return None if form == "quad_kl" else _sde(6)
     if sde_kind == "shifted":
         return _ShiftedVanderPol(a=1.2, tau=0.8, q=0.5 * torch.eye(2, dtype=F64))
+    if sde_kind == "double_well":  # a drift only the d = 1 kernel knows
+        return _DoubleWell2D(q=0.5 * torch.eye(2, dtype=F64))
     sde = _UserSDE(d)
     if sde_kind == "vanderpol_hook":  # a drift a kernel knows, claimed at another d
         monkeypatch.setattr(sde, "device_drift",
@@ -376,18 +406,20 @@ def _route(form, sde, d, on_card, monkeypatch):
     ("quad_kl", "user", 2, True, "plain"),
     ("quad_kl", "vanderpol_hook", 3, True, "plain"),
     ("quad_kl", "vanderpol_hook", 1, True, "plain"),
+    ("quad_kl", "double_well", 2, True, "plain"),
     ("vdp_energy", "vanderpol", 2, True, "fused"),
     ("vdp_energy", "vanderpol", 2, False, "plain"),
     ("vdp_energy", "shifted", 2, True, "plain"),
     ("vdp_energy", "user", 2, True, "plain"),
     ("vdp_energy", "vanderpol_hook", 3, True, "plain"),
     ("vdp_energy", "vanderpol_hook", 1, True, "plain"),
+    ("vdp_energy", "double_well", 2, True, "plain"),
 ])
 def test_route_by_device_dimension_and_sde(form, sde_kind, d, on_card, route, monkeypatch):
     """The kernel's route at d = 2 on the card under a drift that a kernel
     knows; the plain path on the CPU, for a Van der Pol subclass with a
-    drift of its own, for an SDE whose hook returns ``None`` and at any
-    other d; one count of ``<prefix>.<route>`` for the one decision.  On
+    drift of its own, for an SDE whose hook returns ``None``, for the double
+    well (whose kernel is the d = 1 KL's) and at any other d; one count of ``<prefix>.<route>`` for the one decision.  On
     CPU tensors the KL's two routes give the same bits (the kernel's
     wrapper runs the plain version), and the drift energy's route gives the
     plain path's energy and gradients to 1e-12."""
@@ -565,3 +597,173 @@ def test_drift_learning_gradients_never_take_the_route(monkeypatch):
     assert set(got) == set(ref) == {"a", "tau", "q_mat"}
     for name in ref:
         assert torch.equal(got[name], ref[name]), name
+
+
+# ------------------------------------------------ d = 1: the double well (F)
+def _pairs(t, seed, tiny=False, dt=0.01):
+    """q's expectation parameters ``e1, ed [t]``, ``es [t − 1]`` of a
+    Gauss–Markov path whose transitions ``x' = a x + b + N(0, q_v)`` have
+    ``a`` near 1 and ``q_v`` near ``p_v = Δt·q`` (``p_var``, also returned);
+    ``tiny`` puts the variance of point 0 at 3× the jitter."""
+    rng = np.random.default_rng(seed)
+    m = rng.normal(size=t)
+    a = 1.0 - rng.uniform(0.0, 0.2, size=t - 1)
+    p_var = rng.uniform(0.5, 1.5, size=t - 1) * dt
+    qv = p_var * rng.uniform(0.8, 1.2, size=t - 1)
+    v = np.empty(t)
+    v[0] = 3.0 * default_jitter() if tiny else rng.uniform(0.05, 0.5)
+    for k in range(t - 1):
+        v[k + 1] = a[k] ** 2 * v[k] + qv[k]
+    es = a * v[:-1] + m[1:] * m[:-1]
+    return [torch.tensor(x) for x in (m, v + m**2, es, p_var)]
+
+
+def _fixed_1d(dt=0.01):
+    """The step's grid ``(z, w)``, ``Δt`` and jitter as 0-d tensors."""
+    z, w = tp._quad_grid_1d(F64, CPU)
+    return z, w, torch.tensor(dt, dtype=F64), torch.tensor(default_jitter(), dtype=F64)
+
+
+#: the double well's ``(scale, c)``: the benchmark's, and a shallow wide well
+WELLS = [(4.0, 1.0), (0.5, 2.0)]
+
+
+@pytest.mark.parametrize("t,well,tiny", [
+    (2, 0, False), (3, 0, False), (257, 0, False), (2, 1, False), (3, 1, False),
+    (257, 1, False), (3, 0, True), (257, 1, True)])
+def test_1d_twin_agrees_with_the_kl_path(t, well, tiny):
+    """F's and F′'s formulas (``quad_kl_1d_plain``,
+    ``quad_kl_1d_adjoint_plain``) against ``_kl_path`` and against autograd
+    through ``_kl_packed``, ``KL₀`` included, in float64 on the CPU: 1e-12
+    of the largest magnitude (one order in the sums and the difference
+    ``(1 − a) x − b + Δt f`` against ``x + Δt f − (a x + b)``).  At a
+    variance of 3× the jitter ``ḡ_es`` takes 1e-4: autograd's cotangent of
+    ``a`` there subtracts two sums of the size of ``x`` whose difference,
+    of the size of ``x − m₀``, is 4e4 times smaller, and ``ḡ_es`` divides it
+    by ``v₀``.  Against the same formulas in extended precision (numpy's
+    ``longdouble``) autograd read 1.3e-5 off at T = 3, the twin 5e-7 (the
+    cancellation in ``cov = es − m₀m₁``, which both share)."""
+    e1, ed, es, p_var = _pairs(t, t + 10 * well, tiny)
+    z, w, dt, jitter = _fixed_1d()
+    scale, c = (torch.tensor(v, dtype=F64) for v in WELLS[well])
+    mu0, var0 = torch.tensor(0.3, dtype=F64), torch.tensor(0.8, dtype=F64)
+
+    def drift(x):
+        return scale * x * (c - torch.square(x))
+
+    s = qk.quad_kl_1d_plain(e1, ed, es, p_var, z, w, dt, jitter, scale, c)
+    ref = tp._kl_path(e1, ed, es, drift, p_var, z, w, dt)
+    torch.testing.assert_close(0.5 * torch.sum(s), ref, rtol=1e-12, atol=0)
+    leaves = [x.clone().requires_grad_() for x in (e1, ed, es)]
+    ref_grads = torch.autograd.grad(
+        tp._kl_packed(*leaves, drift, p_var, mu0, var0, z, w, dt), leaves)
+    half = torch.full((t - 1,), 0.5, dtype=F64)
+    grads = qk.quad_kl_1d_adjoint_plain(half, e1, ed, es, p_var, z, w, dt, jitter, scale, c,
+                                        mu0, var0)
+    for name, g, r in zip(("e1", "ed", "es"), grads, ref_grads):
+        assert g.shape == r.shape, name
+        limit = 1e-4 if tiny and name == "es" else 1e-12
+        torch.testing.assert_close(g, r, rtol=0, atol=limit * float(r.abs().max()), msg=name)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_1d_adjoint_twin_is_autograd_of_the_twin(seed):
+    """The adjoint's formulas (``quad_kl_1d_adjoint_plain``, without
+    ``KL₀``) against ``torch.autograd.grad`` through the forward twin, for a
+    random cotangent; and on CPU tensors the wrappers are the twins bit for
+    bit, ``p_var`` and ``g`` as one value expanded included."""
+    e1, ed, es, p_var = _pairs(9, seed)
+    z, w, dt, jitter = _fixed_1d()
+    params = (torch.tensor(4.0, dtype=F64), torch.tensor(1.0, dtype=F64))
+    g = torch.tensor(np.random.default_rng(seed).normal(size=8))
+    leaves = [x.clone().requires_grad_() for x in (e1, ed, es)]
+    ref = torch.autograd.grad(
+        qk.quad_kl_1d_plain(*leaves, p_var, z, w, dt, jitter, *params), leaves, g)
+    got = qk.quad_kl_1d_adjoint_plain(g, e1, ed, es, p_var, z, w, dt, jitter, *params)
+    for name, a, r in zip(("e1", "ed", "es"), got, ref):
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-12 * float(r.abs().max()), msg=name)
+    mu0, var0 = torch.tensor(0.3, dtype=F64), torch.tensor(0.8, dtype=F64)
+    for p in (p_var, p_var[:1].reshape(()).expand(8)):
+        s = qk.quad_kl_1d(e1, ed, es, p, z, w, dt, jitter, "double_well", params)
+        assert torch.equal(s, qk.quad_kl_1d_plain(e1, ed, es, p, z, w, dt, jitter, *params))
+        for gg in (g, g[:1].reshape(()).expand(8)):
+            got = qk.quad_kl_1d_adjoint(gg, e1, ed, es, p, z, w, dt, jitter, "double_well",
+                                        params, mu0, var0)
+            ref = qk.quad_kl_1d_adjoint_plain(gg, e1, ed, es, p, z, w, dt, jitter, *params, mu0,
+                                              var0)
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_1d_wrappers_refuse_what_the_kernel_does_not_take():
+    e1, ed, es, p_var = _pairs(6, 6)
+    z, w, dt, jitter = _fixed_1d()
+    params = (torch.tensor(4.0, dtype=F64), torch.tensor(1.0, dtype=F64))
+    good = [e1, ed, es, p_var, z, w, dt, jitter]
+    with pytest.raises(ValueError, match="no kernel for the drift 'vanderpol'"):
+        qk.quad_kl_1d(*good, "vanderpol", params)
+    for k, bad, err, match in ((1, ed[:-1], ValueError, "ed has shape"),
+                               (2, es[:-1], ValueError, "shape"),
+                               (3, torch.stack([p_var, p_var], 1)[:, 0], ValueError,
+                                "contiguous"),
+                               (0, e1.float(), TypeError, "dtype"),
+                               (7, 1e-10, TypeError, "tensor")):
+        args = list(good)
+        args[k] = bad
+        with pytest.raises(err, match=match):
+            qk.quad_kl_1d(*args, "double_well", params)
+    with pytest.raises(ValueError, match="g has shape"):
+        qk.quad_kl_1d_adjoint(torch.ones(6, dtype=F64), *good, "double_well", params)
+    assert launch_counts()["quad_kl_1d"] == launch_counts()["quad_kl_1d_adjoint"] == 0
+
+
+def _zoo_1d(kind):
+    """A d = 1 SDE of the zoo, or a double well whose drift a subclass
+    replaced."""
+    q = [[0.8]]
+    return {"double_well": lambda: DoubleWellSDE(q=q),
+            "shifted_double_well": lambda: _ShiftedDoubleWell(q=q),
+            "ou": lambda: OrnsteinUhlenbeckSDE(1.0, q),
+            "benes": lambda: BenesSDE(1.0, q),
+            "sine": lambda: SineDiffusionSDE(0.5, q),
+            "sqrt": lambda: SqrtDiffusionSDE(1.0, q),
+            "mlp": lambda: MLPDrift.initialize(torch.Generator().manual_seed(2), q)}[kind]()
+
+
+@pytest.mark.parametrize("kind,on_card,route", [
+    ("double_well", True, "fused"), ("double_well", False, "plain"),
+    ("shifted_double_well", True, "plain"), ("ou", True, "plain"), ("benes", True, "plain"),
+    ("sine", True, "plain"), ("sqrt", True, "plain"), ("mlp", True, "plain")])
+def test_1d_route_by_device_and_sde(kind, on_card, route, monkeypatch):
+    """The packed d = 1 step and ``packed_elbo``: F′ for the Girsanov
+    gradient and F for each ELBO on the card under the double well; the
+    plain path on the CPU, for a subclass with a drift of its own and for
+    every other drift of the zoo; ``kl_quad_1d.<route>`` counted twice a
+    step and once an ELBO.  The fused route's results (the twin's on CPU
+    tensors) agree with the plain route's to 1e-12."""
+    model = flagship_model(65, F64, CPU)
+    model = model.replace(prior_sde=_zoo_1d(kind))
+    calls = []
+    for name in ("quad_kl_1d", "quad_kl_1d_adjoint"):
+        monkeypatch.setattr(tp, name, lambda *a, _f=getattr(qk, name), _n=name:
+                            calls.append(_n) or _f(*a))
+
+    def run():
+        state, elbo = tp.packed_natgrad_step(model, tp.pack_state(model), 0.5)
+        return state, elbo, tp.packed_elbo(model, state)
+
+    plain = run()
+    if on_card:
+        decide_on_card(monkeypatch, tp)
+    tracing.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = run()
+    counts = tracing.counters()
+    tracing.reset()
+    assert counts == {"dist_q_1d.plain": 3, f"kl_quad_1d.{route}": 3}
+    assert calls == ([] if route == "plain" else ["quad_kl_1d_adjoint"] + ["quad_kl_1d"] * 2)
+    for a, b in zip((got[0].g_nat1, got[0].g_nat2d, got[0].g_nat2s, got[1], got[2]),
+                    (plain[0].g_nat1, plain[0].g_nat2d, plain[0].g_nat2s, plain[1], plain[2])):
+        if route == "plain":
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-12 * float(b.abs().max()))

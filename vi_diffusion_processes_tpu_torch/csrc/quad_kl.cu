@@ -1,7 +1,9 @@
 // Hand-written Hopper kernels for two Gauss-Hermite sums at d = 2 under the
 // Van der Pol drift, forward and adjoint: Q and Q', the path term of the
 // d = 2 CVI-DP step's KL (models/cvi_dp_packed_ch.py::_kl_packed_ch), and V
-// and V', VDP's drift energy (models/vdp.py::VariationalMarkovGP.e_sde).
+// and V', VDP's drift energy (models/vdp.py::VariationalMarkovGP.e_sde); and
+// one at d = 1 under the double-well drift, F and F', the path term of the
+// d = 1 step's KL (models/cvi_dp_packed.py::_kl_path), at the end of the file.
 //
 // They replace no TPU kernel: the JAX package computes both sums with XLA
 // (vi_diffusion_processes_tpu/models/cvi_dp_packed_ch.py:256-323 and
@@ -68,10 +70,10 @@ constexpr int kMaxPoints = 2048;
 // V's (M = A_n, f times 1, weight S shared by every transition).
 enum class Form { kKl, kEnergy };
 
-template <typename T>
+template <typename T, int G = kGroup>
 __device__ __forceinline__ T group_sum(T v) {
 #pragma unroll
-  for (int off = kGroup / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
@@ -358,6 +360,232 @@ int launch_energy_bwd(const T* g_e, const T* mu, const T* chol, const T* a, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------- d = 1
+// F and F': the path term of the d = 1 KL (models/cvi_dp_packed.py::_kl_path)
+// under the double-well drift f(x) = scale x (c - x^2).  They replace no TPU
+// kernel either: the JAX package computes the term with XLA
+// (vi_diffusion_processes_tpu/models/cvi_dp_packed.py:251-286), and the
+// port's plain version is ops/quad_kl.py::quad_kl_1d_plain.  For each pair
+// n < N = T - 1 of the grid, from q's expectation parameters e1 = E[x],
+// ed = E[x^2] at both ends and es = E[x_n x_n+1]:
+//
+//   v_k = ed_k - e1_k^2,  cov = es_n - e1_n e1_n+1,  a = cov / v_n,
+//   b = e1_n+1 - a e1_n,  qv = v_n+1 - a^2 v_n,  L = sqrt(v_n + jitter),
+//   x_p = e1_n + sqrt(2) L z_p,  diff_p = (1 - a) x_p - b + dt f(x_p),
+//   s_n = sum_p w_p diff_p^2 / pv_n - (log qv - log pv_n) - 1 + qv / pv_n,
+//
+// with P = 20 points (z_p, w_p) and pv_n p's process variance.  Plain
+// PyTorch builds [N, P] float64 tensors for x, f(x), both forward maps, their
+// difference and its square, 16 MB each at T = 100,000, and autograd as many
+// again.  Here 4 numbers a pair come in and 1 goes out: about 30 bytes and
+// 20 x 15 operations a pair, so neither bound is near and a launch costs its
+// latency.  The adjoint F' takes g [N] to the cotangents of e1, ed (each
+// grid point touches two pairs) and es; with p's initial mean and variance
+// it adds the gradient of KL_0 = KL[N(e1_0, v_0) || N(mu_0, var_0)] at
+// point 0, so that one launch is the Girsanov gradient of the whole KL.
+//
+// Design:
+//   * kGroup1 = 4 lanes share one pair (F) or one grid point (F'): lane r
+//     takes the points r, r + 4, ...; a block of 256 threads takes 64; the
+//     grid is read from device memory, where the 4 lanes of a group read 4
+//     neighbouring words and every group of a warp the same ones;
+//   * F' gives every grid point k its own group, which recomputes its two
+//     pairs k - 1 and k and adds their parts: no atomics, so every run gives
+//     the same bits; a group at the grid's ends computes a clamped pair and
+//     discards it, so that every lane takes part in the shuffles;
+//   * diff is taken as (1 - a) x - b + dt f(x), whose terms have the size of
+//     diff, where x + dt f(x) - (a x + b) subtracts two terms of the size of x;
+//   * the pair's closed forms (v, cov, a, b, qv, L) and the adjoint's chain
+//     rule take no fused multiply-add (mul_rn, sub_rn): cov = es - e1 e1' and
+//     qv = v' - a^2 v cancel three digits or more, and 1/qv enters the
+//     cotangents, so they are rounded as the plain route's separate PyTorch
+//     operations round them; the point loops contract freely;
+//   * every product is taken in the inputs' type, and nothing is clamped.
+// pv and g may be one value broadcast over the pairs (stride 0) or [N]; dt,
+// the jitter and the drift's (scale, c) are read from device memory, so that
+// a CUDA graph captures no value of them.
+constexpr int kGroup1 = 4;
+constexpr int kPerBlock1 = kThreads / kGroup1;
+
+// Products, sums and differences rounded each on its own (no fused
+// multiply-add); division and sqrt round correctly by default.
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+
+// One pair's quantities and the part of its summand the points share.
+template <typename T>
+struct Pair {
+  T m0, m1, v0, a, b, qv, pv, l, sl;
+};
+
+template <typename T>
+__device__ __forceinline__ Pair<T> load_pair(const T* __restrict__ e1, const T* __restrict__ ed,
+                                             const T* __restrict__ es, const T* __restrict__ pv,
+                                             int pv_stride, T jitter, int k) {
+  Pair<T> p;
+  p.m0 = e1[k], p.m1 = e1[k + 1];
+  p.v0 = sub_rn(ed[k], mul_rn(p.m0, p.m0));
+  const T v1 = sub_rn(ed[k + 1], mul_rn(p.m1, p.m1));
+  p.a = sub_rn(es[k], mul_rn(p.m0, p.m1)) / p.v0;
+  p.b = sub_rn(p.m1, mul_rn(p.a, p.m0));
+  p.qv = sub_rn(v1, mul_rn(mul_rn(p.a, p.a), p.v0));
+  p.pv = pv[static_cast<long long>(k) * pv_stride];
+  p.l = sqrt(add_rn(p.v0, jitter));
+  p.sl = mul_rn(T(1.4142135623730951), p.l);
+  return p;
+}
+
+// The closed-form C term -(log qv - log pv) - 1 + qv / pv.
+template <typename T>
+__device__ __forceinline__ T c_term(const Pair<T>& p) {
+  return -(log(p.qv) - log(p.pv)) - T(1) + p.qv / p.pv;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    quad_kl_1d_fwd_kernel(const T* __restrict__ e1, const T* __restrict__ ed,
+                          const T* __restrict__ es, const T* __restrict__ pv, int pv_stride,
+                          const T* __restrict__ z, const T* __restrict__ w,
+                          const T* __restrict__ dt_ptr, const T* __restrict__ jitter_ptr,
+                          const T* __restrict__ scale_ptr, const T* __restrict__ c_ptr,
+                          T* __restrict__ s, int n, int np) {
+  const int lane = threadIdx.x % kGroup1;
+  const int k = blockIdx.x * kPerBlock1 + threadIdx.x / kGroup1;
+  const Pair<T> p = load_pair(e1, ed, es, pv, pv_stride, *jitter_ptr, k < n ? k : n - 1);
+  const T dt = *dt_ptr, scale = *scale_ptr, cc = *c_ptr, one_a = T(1) - p.a;
+  T acc = T(0);
+  for (int i = lane; i < np; i += kGroup1) {
+    const T x = p.m0 + p.sl * z[i];
+    const T d = (one_a * x - p.b) + dt * (scale * x * (cc - x * x));
+    acc += w[i] * (d * d);
+  }
+  acc = group_sum<T, kGroup1>(acc);
+  if (k < n && lane == 0) s[k] = acc / p.pv + c_term(p);
+}
+
+// One pair's cotangents for its cotangent g: of e1 and ed at its left (m0,
+// v0 -> ed) and right (m1, v1 -> ed) ends, and of es.
+template <typename T>
+struct PairGrad {
+  T m0, ed0, m1, ed1, es;
+};
+
+template <typename T>
+__device__ __forceinline__ PairGrad<T> pair_adjoint(const Pair<T>& p, T g,
+                                                    const T* __restrict__ z,
+                                                    const T* __restrict__ w, int np, int lane,
+                                                    T dt, T scale, T cc) {
+  const T one_a = T(1) - p.a;
+  // sums over the lane's points of u = w diff, u z, gx = u (1 - a + dt f'(x))
+  // and gx z, each without the factor 2 g / pv
+  T su = 0, suz = 0, sgx = 0, sgxz = 0;
+  for (int i = lane; i < np; i += kGroup1) {
+    const T zi = z[i];
+    const T x = p.m0 + p.sl * zi;
+    const T xx = x * x;
+    const T u = w[i] * ((one_a * x - p.b) + dt * (scale * x * (cc - xx)));
+    const T gx = u * (one_a + dt * (scale * (cc - T(3) * xx)));
+    su += u, suz += u * zi, sgx += gx, sgxz += gx * zi;
+  }
+  su = group_sum<T, kGroup1>(su), suz = group_sum<T, kGroup1>(suz);
+  sgx = group_sum<T, kGroup1>(sgx), sgxz = group_sum<T, kGroup1>(sgxz);
+  const T k = mul_rn(T(2), g) / p.pv;
+  const T gb = mul_rn(-k, su);                                           // b
+  const T g_l = mul_rn(k, mul_rn(T(1.4142135623730951), sgxz));          // L
+  const T gqv = mul_rn(g, sub_rn(T(1) / p.pv, T(1) / p.qv));  // qv, from the C term
+  // a: through the points and b = m1 - a m0 together -k sum u (x - m0),
+  // which is -k sqrt(2) L sum u z and cancels nothing; and qv = v1 - a^2 v0
+  const T ga = sub_rn(mul_rn(mul_rn(-k, p.sl), suz),
+                      mul_rn(mul_rn(mul_rn(T(2), p.a), p.v0), gqv));
+  const T gcov = ga / p.v0;                                              // a = cov / v0
+  const T gv0 = sub_rn(add_rn(mul_rn(mul_rn(-p.a, p.a), gqv), g_l / mul_rn(T(2), p.l)),
+                       mul_rn(ga, p.a) / p.v0);
+  PairGrad<T> r;
+  r.m0 = sub_rn(sub_rn(sub_rn(mul_rn(k, sgx), mul_rn(gb, p.a)), mul_rn(gcov, p.m1)),
+                mul_rn(mul_rn(T(2), p.m0), gv0));
+  r.ed0 = gv0;
+  r.m1 = sub_rn(sub_rn(gb, mul_rn(gcov, p.m0)), mul_rn(mul_rn(T(2), p.m1), gqv));
+  r.ed1 = gqv;
+  r.es = gcov;
+  return r;
+}
+
+// g_out [3, n + 1]: the cotangents of e1, ed and es (the last column of the
+// third row 0).  mu0, var0 (p's initial mean and variance) may be null.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    quad_kl_1d_bwd_kernel(const T* __restrict__ g, int g_stride, const T* __restrict__ e1,
+                          const T* __restrict__ ed, const T* __restrict__ es,
+                          const T* __restrict__ pv, int pv_stride, const T* __restrict__ z,
+                          const T* __restrict__ w, const T* __restrict__ dt_ptr,
+                          const T* __restrict__ jitter_ptr, const T* __restrict__ scale_ptr,
+                          const T* __restrict__ c_ptr, const T* __restrict__ mu0_ptr,
+                          const T* __restrict__ var0_ptr, T* __restrict__ g_out, int n,
+                          int np) {
+  const int lane = threadIdx.x % kGroup1;
+  const int t = blockIdx.x * kPerBlock1 + threadIdx.x / kGroup1;  // the grid point
+  const int tt = t < n ? t : n;
+  const T dt = *dt_ptr, jitter = *jitter_ptr, scale = *scale_ptr, cc = *c_ptr;
+  // the pair on the right (t) and on the left (t - 1), clamped into [0, n)
+  const int kr = tt < n ? tt : n - 1, kl = tt > 0 ? tt - 1 : 0;
+  const PairGrad<T> right =
+      pair_adjoint(load_pair(e1, ed, es, pv, pv_stride, jitter, kr),
+                   g[static_cast<long long>(kr) * g_stride], z, w, np, lane, dt, scale, cc);
+  const PairGrad<T> left =
+      pair_adjoint(load_pair(e1, ed, es, pv, pv_stride, jitter, kl),
+                   g[static_cast<long long>(kl) * g_stride], z, w, np, lane, dt, scale, cc);
+  if (t > n || lane != 0) return;
+  T ge1 = T(0), ged = T(0);
+  if (t < n) ge1 = right.m0, ged = right.ed0;
+  if (t > 0) ge1 += left.m1, ged += left.ed1;
+  if (t == 0 && mu0_ptr != nullptr) {
+    // KL_0 = (v0 / var0 + (mu0 - e1_0)^2 / var0 - 1 + log(var0 / v0)) / 2
+    const T m = e1[0], var0 = *var0_ptr;
+    const T gv = mul_rn(T(0.5), sub_rn(T(1) / var0, T(1) / sub_rn(ed[0], mul_rn(m, m))));
+    ge1 = add_rn(ge1, sub_rn(sub_rn(m, *mu0_ptr) / var0, mul_rn(mul_rn(T(2), m), gv)));
+    ged = add_rn(ged, gv);
+  }
+  const long long cols = static_cast<long long>(n) + 1;
+  g_out[t] = ge1;
+  g_out[cols + t] = ged;
+  g_out[2 * cols + t] = t < n ? right.es : T(0);
+}
+
+inline int blocks1(int n) { return (n + kPerBlock1 - 1) / kPerBlock1; }
+
+inline bool valid1(int n, int np, int pv_stride) {
+  return n >= 1 && np >= 1 && (pv_stride == 0 || pv_stride == 1);
+}
+
+template <typename T>
+int launch_1d_fwd(const T* e1, const T* ed, const T* es, const T* pv, int pv_stride,
+                  const T* z, const T* w, const T* dt, const T* jitter, const T* scale,
+                  const T* c, T* s, int n, int np, void* stream) {
+  if (!valid1(n, np, pv_stride)) return static_cast<int>(cudaErrorInvalidValue);
+  quad_kl_1d_fwd_kernel<T><<<blocks1(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      e1, ed, es, pv, pv_stride, z, w, dt, jitter, scale, c, s, n, np);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_1d_bwd(const T* g, int g_stride, const T* e1, const T* ed, const T* es, const T* pv,
+                  int pv_stride, const T* z, const T* w, const T* dt, const T* jitter,
+                  const T* scale, const T* c, const T* mu0, const T* var0, T* g_out, int n,
+                  int np, void* stream) {
+  if (!valid1(n, np, pv_stride) || (g_stride != 0 && g_stride != 1) ||
+      ((mu0 == nullptr) != (var0 == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  quad_kl_1d_bwd_kernel<T><<<blocks1(n + 1), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      g, g_stride, e1, ed, es, pv, pv_stride, z, w, dt, jitter, scale, c, mu0, var0, g_out, n,
+      np);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -438,6 +666,56 @@ int vidp_vdp_energy_bwd_f32(const float* g_e, const float* mu, const float* chol
                             float* g, int n, int np, void* stream) {
   return launch_energy_bwd<float>(g_e, mu, chol, a, b, sigma_inv, z, w, da, tau, g, n, np,
                                   stream);
+}
+
+// The launch of F for n pairs: out[0] its grid, out[1] threads per block,
+// out[2] lanes per pair; F' takes the grid of n + 1 grid points.
+int vidp_quad_kl_1d_shape(int n, int* out) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = blocks1(n);
+  out[1] = kThreads;
+  out[2] = kGroup1;
+  return 0;
+}
+
+// s [n] from e1, ed [n + 1], es [n], pv [n] (pv_stride 1) or one value
+// (pv_stride 0), the grid z, w [np], and dt, the jitter, scale and c as 0-d
+// device tensors.
+int vidp_quad_kl_1d_fwd_f64(const double* e1, const double* ed, const double* es,
+                            const double* pv, int pv_stride, const double* z, const double* w,
+                            const double* dt, const double* jitter, const double* scale,
+                            const double* c, double* s, int n, int np, void* stream) {
+  return launch_1d_fwd<double>(e1, ed, es, pv, pv_stride, z, w, dt, jitter, scale, c, s, n, np,
+                               stream);
+}
+
+int vidp_quad_kl_1d_fwd_f32(const float* e1, const float* ed, const float* es, const float* pv,
+                            int pv_stride, const float* z, const float* w, const float* dt,
+                            const float* jitter, const float* scale, const float* c, float* s,
+                            int n, int np, void* stream) {
+  return launch_1d_fwd<float>(e1, ed, es, pv, pv_stride, z, w, dt, jitter, scale, c, s, n, np,
+                              stream);
+}
+
+// g_out [3, n + 1] (see quad_kl_1d_bwd_kernel) from g [n] (g_stride 1) or
+// one value (g_stride 0), the forward's inputs, and p's initial mean and
+// variance as 0-d device tensors, or both null.
+int vidp_quad_kl_1d_bwd_f64(const double* g, int g_stride, const double* e1, const double* ed,
+                            const double* es, const double* pv, int pv_stride, const double* z,
+                            const double* w, const double* dt, const double* jitter,
+                            const double* scale, const double* c, const double* mu0,
+                            const double* var0, double* g_out, int n, int np, void* stream) {
+  return launch_1d_bwd<double>(g, g_stride, e1, ed, es, pv, pv_stride, z, w, dt, jitter, scale,
+                               c, mu0, var0, g_out, n, np, stream);
+}
+
+int vidp_quad_kl_1d_bwd_f32(const float* g, int g_stride, const float* e1, const float* ed,
+                            const float* es, const float* pv, int pv_stride, const float* z,
+                            const float* w, const float* dt, const float* jitter,
+                            const float* scale, const float* c, const float* mu0,
+                            const float* var0, float* g_out, int n, int np, void* stream) {
+  return launch_1d_bwd<float>(g, g_stride, e1, ed, es, pv, pv_stride, z, w, dt, jitter, scale, c,
+                              mu0, var0, g_out, n, np, stream);
 }
 
 }  // extern "C"

@@ -3,17 +3,25 @@
 
 The whole per-step state is packed into rank-1 ``[T]`` tensors and one
 natgrad step — data-site update, Girsanov-site update, classic ELBO — runs
-on that layout.  The naturals→SSM→marginals chain (``_dist_q_1d``) is one
-launch of kernel K3 per call on CUDA (twice per step, once per
-``packed_elbo``), or with the x64 policy off one K4 and four K2 launches.
-Dtype boundaries follow the reference: float64 naturals under the x64
-policy, model dtype (float32 on the flagship) for everything else.
+on that layout.  The naturals→SSM→marginals chain (``_dist_q_1d``) is kernel
+K3 on CUDA, two launches a call (its sweep, then ``dist_q_kernel``), twice
+per step and once per ``packed_elbo``; with the x64 policy off it is one K4
+and four K2 launches.  Dtype boundaries follow the reference: float64
+naturals under the x64 policy, model dtype (float32 on the flagship) for
+everything else.
+
+The KL's path term (``_kl_path``: a 20-point Gauss–Hermite sum a pair) takes
+kernel F and its adjoint F′ (``ops/quad_kl.py``) on the card under the
+double-well drift, decided by ``ops/quad_kl.py::kernel_drift`` and counted as
+``kl_quad_1d.fused`` or ``kl_quad_1d.plain``: the step's Girsanov gradient is
+one F′ launch, each ELBO one F launch.  Every other drift, and the CPU, takes
+the plain expression.
 
 The reference's two ``jax.grad`` calls differentiate cheap elementwise
 functions of marginals that are already computed; here they are
-``torch.autograd.grad`` on fresh leaf tensors, and nothing differentiates
-through ``dist_q``: the step runs under ``torch.no_grad`` except for those
-two gradients.
+``torch.autograd.grad`` on fresh leaf tensors (on the plain route), and
+nothing differentiates through ``dist_q``: the step runs under
+``torch.no_grad`` except for those two gradients.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 
 from ..config import default_jitter
 from ..ops.btd import dist_q_1d
+from ..ops.quad_kl import kernel_drift, quad_kl_1d, quad_kl_1d_adjoint
 from ..ops.quadrature import _sqrt2, gauss_hermite_grid
 from ..sde.utils import BTDNaturals
 from .cvi_dp import CVISitesSDE, DataSites, _prior_nats_f64, _rates
@@ -173,6 +182,15 @@ def _quad_grid_1d(dtype, device, n_points: int = 20):
     return z[:, 0], w
 
 
+@functools.lru_cache(maxsize=None)
+def _fused_constants(dtype, device, jitter: float):
+    """F's jitter and F′'s cotangent ½ as 0-d tensors, made once per dtype,
+    device and jitter (in a captured step's warm-up, never inside the
+    capture)."""
+    return (torch.tensor(jitter, dtype=dtype, device=device),
+            torch.tensor(0.5, dtype=dtype, device=device))
+
+
 def _step_constants(model: CVISitesSDE):
     dtype = model.time_grid.dtype
     quad_z, quad_w = _quad_grid_1d(dtype, model.time_grid.device)
@@ -194,24 +212,25 @@ def _masked_ve(model, state, means, varis):
     return torch.sum(state.obs_mask * per_t)
 
 
+def _expectations(ssm, means, varis):
+    """q's expectation parameters ``E[x]``, ``E[x²]`` and ``E[xₖxₖ₊₁]``."""
+    return means, varis + means**2, ssm[0] * varis[:-1] + means[1:] * means[:-1]
+
+
 def _classic_elbo(model, state, ssm, means, varis, consts):
     dtype, quad_z, quad_w, q_scalar, p_mu0, p_var0, drift_fn = consts
     t = means.shape[0]
     dt = model.dt
-    a = ssm[0]
-    kl = _kl_packed(
-        means,
-        varis + means**2,
-        a * varis[:-1] + means[1:] * means[:-1],
-        drift_fn,
-        # classic_elbo's KL uses the scalar grid dt (cvi_dp.py::kl_q_p)
-        torch.broadcast_to(dt * q_scalar, (t - 1,)),
-        p_mu0,
-        p_var0,
-        quad_z,
-        quad_w,
-        dt,
-    )
+    e1, ed, es = _expectations(ssm, means, varis)
+    # classic_elbo's KL uses the scalar grid dt (cvi_dp.py::kl_q_p)
+    p_var = torch.broadcast_to(dt * q_scalar, (t - 1,))
+    drift = kernel_drift(model.prior_sde, 1, e1, "kl_quad_1d")
+    if drift is None:
+        kl = _kl_packed(e1, ed, es, drift_fn, p_var, p_mu0, p_var0, quad_z, quad_w, dt)
+    else:
+        jitter, _ = _fused_constants(dtype, e1.device, default_jitter())
+        kl = (0.5 * torch.sum(quad_kl_1d(e1, ed, es, p_var, quad_z, quad_w, dt, jitter, *drift))
+              + _kl_initial(e1, ed, p_mu0, p_var0))
     return _masked_ve(model, state, means, varis) - kl
 
 
@@ -258,12 +277,18 @@ def packed_natgrad_step(
     ssm_b, means_b, vars_b = _dist_q_1d(state, dtype, dist_q)
 
     # ---- update_girsanov_sites(lr): ∇_η KL at dist_q(B)
-    with torch.enable_grad():
-        e1 = means_b.detach().requires_grad_()
-        ed = (vars_b + means_b**2).detach().requires_grad_()
-        es = (ssm_b[0] * vars_b[:-1] + means_b[1:] * means_b[:-1]).detach().requires_grad_()
-        kl = _kl_packed(e1, ed, es, drift_fn, p_var, p_mu0, p_var0, quad_z, quad_w, dt)
-        grad_e1, grad_ed, grad_es = torch.autograd.grad(kl, (e1, ed, es))
+    e1, ed, es = _expectations(ssm_b, means_b, vars_b)
+    drift = kernel_drift(model.prior_sde, 1, e1, "kl_quad_1d")
+    if drift is None:
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (e1, ed, es)]
+            kl = _kl_packed(*leaves, drift_fn, p_var, p_mu0, p_var0, quad_z, quad_w, dt)
+            grad_e1, grad_ed, grad_es = torch.autograd.grad(kl, leaves)
+    else:
+        jitter, half = _fused_constants(dtype, e1.device, default_jitter())
+        grad_e1, grad_ed, grad_es = quad_kl_1d_adjoint(
+            half.expand(es.shape), e1, ed, es, p_var, quad_z, quad_w, dt, jitter, *drift,
+            p_mu0, p_var0)
     state = state.replace(
         g_nat1=state.g_nat1 + rate * (d_nat1 - grad_e1),
         g_nat2d=state.g_nat2d + rate * (d_nat2 - grad_ed),

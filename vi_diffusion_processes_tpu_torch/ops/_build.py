@@ -60,13 +60,19 @@ _SIGNATURES = {
     "vidp_vdp_energy_fwd_f32": [_vp] * 10 + [_int, _int, _vp],
     "vidp_vdp_energy_bwd_f64": [_vp] * 11 + [_int, _int, _vp],
     "vidp_vdp_energy_bwd_f32": [_vp] * 11 + [_int, _int, _vp],
+    "vidp_quad_kl_1d_shape": [_int, _vp],
+    "vidp_quad_kl_1d_fwd_f64": [_vp] * 4 + [_int] + [_vp] * 7 + [_int, _int, _vp],
+    "vidp_quad_kl_1d_fwd_f32": [_vp] * 4 + [_int] + [_vp] * 7 + [_int, _int, _vp],
+    "vidp_quad_kl_1d_bwd_f64": [_vp, _int] + [_vp] * 4 + [_int] + [_vp] * 9 + [_int, _int, _vp],
+    "vidp_quad_kl_1d_bwd_f32": [_vp, _int] + [_vp] * 4 + [_int] + [_vp] * 9 + [_int, _int, _vp],
 }
 
 #: the names under which launches are counted, in the order of
-#: :func:`launch_counts`: K1–K4, the quadrature KL (Q, Q′) and VDP's drift
-#: energy (V, V′)
+#: :func:`launch_counts`: K1–K4, the quadrature KL (Q, Q′), VDP's drift
+#: energy (V, V′) and the d = 1 quadrature KL (F, F′)
 KERNELS = ("riccati_d_sweep", "linear_recurrence", "dist_q_1d_planes", "riccati_d_sweep_f32",
-           "quad_kl", "quad_kl_adjoint", "vdp_energy", "vdp_energy_adjoint")
+           "quad_kl", "quad_kl_adjoint", "vdp_energy", "vdp_energy_adjoint", "quad_kl_1d",
+           "quad_kl_1d_adjoint")
 _launches = dict.fromkeys(KERNELS, 0)
 
 #: wall seconds of the last compile in this process (0.0 when cached)

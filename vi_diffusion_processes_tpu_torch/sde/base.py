@@ -37,9 +37,10 @@ class SDE(nn.Module):
 
     def device_drift(self):
         """``(kind, params)`` where a kernel of the port computes this drift
-        on the card (``ops/quad_kl.py``: ``"vanderpol"``, ``(a, τ)`` as 0-d
-        tensors), else ``None``: an SDE that no kernel knows, one a user
-        defines among them, takes the plain path."""
+        on the card (``ops/quad_kl.py``: ``"vanderpol"``, ``(a, τ)``, and
+        ``"double_well"``, ``(scale, c)``, as 0-d tensors), else ``None``:
+        an SDE that no kernel knows, one a user defines among them, takes the
+        plain path."""
         return None
 
     def diffusion(self, x: torch.Tensor, t=None) -> torch.Tensor:
