@@ -7,7 +7,11 @@ gradients are taken with respect to every parameter of the SDE (``q_mat``,
 recurrences by their custom backward passes, the JAX package's by autodiff
 of its CPU scans.  Tolerances: float64 rtol 1e-8 of each gradient (the two
 sides differ in scan association and in the adjoint's summation order);
-float32 model (float64 naturals) 1e-3 of each gradient's scale.
+float32 model (float64 naturals) 1e-3 of each gradient's scale.  The same
+in float64 under the MLP drift of ``prior_sde/mlpdrift.yaml`` (``q_mat``,
+``w1``, ``b1``, ``w2``, ``b2``; JAX's ``PRNGKey(0)`` draw) at T = 1,000,
+where the drift's Jacobian is that of its relus, by ``jacrev`` on both
+sides.
 """
 import functools
 
@@ -21,16 +25,19 @@ from vi_diffusion_processes_tpu.models import cvi_dp_packed as jp
 from vi_diffusion_processes_tpu.models.cvi_dp import CVISitesSDE as JCVISitesSDE
 from vi_diffusion_processes_tpu.sde.utils import Gaussian as JGaussian
 from vi_diffusion_processes_tpu.sde.zoo import DoubleWellSDE as JDoubleWell
+from vi_diffusion_processes_tpu.sde.zoo import MLPDrift as JMLPDrift
 from vi_diffusion_processes_tpu_torch import interop
 
 from .helpers import assert_close_scaled, to_np
 
 PARAMS = ("q_mat", "scale", "c")
+MLP_PARAMS = ("q_mat", "w1", "b1", "w2", "b2")
 
 
 @functools.lru_cache(maxsize=None)
-def _models(t_size, dtype):
-    """The flagship cut to ``t_size`` points after 5 site steps: JAX, port."""
+def _models(t_size, dtype, prior="dw"):
+    """The flagship cut to ``t_size`` points after 5 site steps: JAX, port;
+    with ``prior="mlp"`` under the MLP drift instead of the double well."""
     dtype = getattr(jnp, dtype)
     grid = jnp.linspace(0.0, 10.0, t_size, dtype=dtype)
     rng = np.random.default_rng(0)
@@ -42,7 +49,8 @@ def _models(t_size, dtype):
         prior_ssm=None, time_grid=grid, input_data=(obs_t, obs_y),
         likelihood=JGaussianLik(variance=jnp.asarray(0.04, dtype)),
         prior_initial_state=JGaussian(mu=jnp.zeros((1,), dtype), cov=jnp.asarray([[0.8]], dtype)),
-        prior_sde=JDoubleWell(q_mat=jnp.asarray([[0.8]], dtype)),
+        prior_sde=(JMLPDrift.initialize(jax.random.PRNGKey(0), jnp.asarray([[0.8]], dtype))
+                   if prior == "mlp" else JDoubleWell(q_mat=jnp.asarray([[0.8]], dtype))),
     ))
     state = jp.pack_state(jmodel)
     step = jax.jit(jp.packed_natgrad_step)
@@ -52,7 +60,8 @@ def _models(t_size, dtype):
     tree = to_np(jmodel)
     tmodel = interop.cvi_dp_from_numpy(
         tree,
-        interop.sde_from_numpy("DoubleWellSDE", tree["prior_sde"], device="cpu"),
+        interop.sde_from_numpy("MLPDrift" if prior == "mlp" else "DoubleWellSDE",
+                               tree["prior_sde"], device="cpu"),
         interop.likelihood_from_numpy(tree["likelihood"], device="cpu"),
         device="cpu",
     )
@@ -76,6 +85,20 @@ def test_prior_gradients_match_jax(which, t_size, dtype, rtol):
             np.testing.assert_allclose(g, r, rtol=rtol, err_msg=name)
         else:
             assert_close_scaled(g, r, rtol, err_msg=name)
+
+
+@pytest.mark.parametrize("which", ["kl", "ve"])
+def test_mlp_prior_gradients_match_jax(which):
+    jmodel, tmodel = _models(1000, "float64", "mlp")
+    method = f"grad_{which}_wrt_prior_params"
+    ref = jax.jit(lambda m: getattr(m, method)())(jmodel)
+    got = getattr(tmodel, method)()
+    assert sorted(got) == sorted(MLP_PARAMS)
+    for name in MLP_PARAMS:
+        g, r = got[name].detach().numpy(), np.asarray(getattr(ref, name))
+        assert g.shape == r.shape, name
+        assert np.all(np.isfinite(g)) and np.any(g != 0), name
+        np.testing.assert_allclose(g, r, rtol=1e-8, err_msg=name)
 
 
 def _port_vdp_model():

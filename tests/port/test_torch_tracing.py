@@ -188,6 +188,36 @@ def test_vdp_counters_agree_with_the_trace(fits):
     assert sum(s.name == VDP_INIT for s in run["spans"]) == 1
 
 
+def test_drift_learning_span_and_counter():
+    """``CVISitesTrainer``'s drift learning under the MLP drift: one span
+    ``vidp.trainer.optimize_prior_sde`` inside ``optimize`` and one count
+    of ``trainer.prior_steps`` an outer iteration, nothing without a
+    profile."""
+    from vi_diffusion_processes_tpu_torch.sde.zoo import MLPDrift
+
+    grid, obs_t, obs_y = _data(1, torch.device("cpu"))
+
+    def fit():
+        sde = MLPDrift.initialize(torch.Generator().manual_seed(0), [[1.0]])
+        model = CVISitesSDE.initialize_sde(sde, grid, (obs_t, obs_y),
+                                           Gaussian(0.1, dtype=torch.float64))
+        trainer = CVISitesTrainer(model, max_inner_iters=4, max_outer_iters=3,
+                                  learn_prior_sde=True)
+        return trainer.optimize()
+
+    tracing.reset()
+    fit()
+    assert tracing.spans() == [] and tracing.counters() == {}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        outer = fit()
+    spans, counters = tracing.spans(), tracing.counters()
+    tracing.reset()
+    by_id = {s.id: s for s in spans}
+    learning = [s for s in spans if s.name == "vidp.trainer.optimize_prior_sde"]
+    assert len(learning) == counters["trainer.prior_steps"] == len(outer) == 3
+    assert all(by_id[s.parent].name == OPTIMIZE for s in learning)
+
+
 def test_spans_are_profiler_events(fits):
     _, run = fits
     assert {s.name for s in run["spans"]} <= run["events"]

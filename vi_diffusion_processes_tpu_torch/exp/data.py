@@ -160,8 +160,8 @@ def build_prior_sde(name: str, dtype=torch.float64, q: float = 1.0, device=None,
     ``"vanderpol"`` takes ``a`` and ``tau`` (1 each by default) and the
     diffusion ``q·I₂``.  ``"mlpdrift"`` draws its weights from
     ``kwargs["generator"]`` (a CPU ``torch.Generator``; seed 0 when none is
-    given).  Built on ``device``: the CUDA card unless the caller names
-    another device."""
+    given), ``hidden`` units wide (3) at the scale ``stddev`` (1.0).  Built
+    on ``device``: the CUDA card unless the caller names another device."""
     q1 = [[q]]
     if name == "ou":
         sde = zoo.OrnsteinUhlenbeckSDE(decay=kwargs.get("decay", 1.0), q=q1, dtype=dtype)
@@ -176,7 +176,8 @@ def build_prior_sde(name: str, dtype=torch.float64, q: float = 1.0, device=None,
         generator = kwargs.get("generator")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        sde = zoo.MLPDrift.initialize(generator, q1, dtype=dtype)
+        sde = zoo.MLPDrift.initialize(generator, q1, hidden=kwargs.get("hidden", 3),
+                                      stddev=kwargs.get("stddev", 1.0), dtype=dtype)
     elif name == "vanderpol":
         sde = zoo.VanderPolOscillatorSDE(
             a=kwargs.get("a", 1.0), tau=kwargs.get("tau", 1.0), q=q * torch.eye(2, dtype=dtype),

@@ -22,7 +22,10 @@ them).  The ELBO is read on the host once a step, as ``float(elbo_arr)``
 is in the reference.  While a profile is active
 the loops record the spans ``vidp.trainer.optimize``,
 ``vidp.trainer.optimize_sites`` and ``vidp.trainer.read_elbo`` and count
-``trainer.steps_tried`` and ``trainer.steps_accepted``, and in VDP's loop
+``trainer.steps_tried`` and ``trainer.steps_accepted``; drift learning in
+:class:`CVISitesTrainer` records ``vidp.trainer.optimize_prior_sde`` (both
+prior gradients, the Adam step, the re-linearization) and counts
+``trainer.prior_steps``, one an Adam step; and in VDP's loop
 ``trainer.warmup_steps``, ``trainer.nan_reverts`` (a NaN ELBO: the step
 thrown away) and ``trainer.rate_damped`` (an accepted step whose ELBO
 fell) (:mod:`..utils.tracing`).
@@ -191,6 +194,7 @@ class CVISitesTrainer:
             self.model = self.model.relinearize()
         return elbo
 
+    @tracing.annotated("vidp.trainer.optimize_prior_sde")
     def optimize_prior_sde(self) -> None:
         """One Adam step on ``∇(KL + −VE)`` with respect to the SDE's
         parameters, then re-linearize (trainers.py:135-146).  The model gets
@@ -200,6 +204,7 @@ class CVISitesTrainer:
         new_sde = self._prior_learner.step(
             self.model.prior_sde, {name: g_kl[name] + g_ve[name] for name in g_kl}
         )
+        tracing.count("trainer.prior_steps")
         self.model = self.model.replace(prior_sde=new_sde).set_linearized_prior()
 
     @tracing.annotated("vidp.trainer.optimize")

@@ -24,11 +24,14 @@ captures (it would run at the warm-up and the capture, never at a replay).
 
 The program's spans: ``vidp.trainer.optimize`` and
 ``vidp.trainer.optimize_sites`` (the trainers' outer and inner loops),
+``vidp.trainer.optimize_prior_sde`` (CVI-DP's drift learning: both prior
+gradients, the Adam step and the re-linearization),
 ``vidp.trainer.read_elbo`` (each ELBO read on the host),
 ``vidp.captured_step.capture`` and ``vidp.captured_step.replay``,
 ``vidp.cvi_dp.relinearize``, ``vidp.cvi_dp.initialize_sde`` and
 ``vidp.vdp.initialize``; its counters: ``trainer.steps_tried`` and
-``trainer.steps_accepted``, VDP's ``trainer.warmup_steps``,
+``trainer.steps_accepted``, ``trainer.prior_steps`` (one an Adam step of
+CVI-DP's drift learning), VDP's ``trainer.warmup_steps``,
 ``trainer.nan_reverts`` and ``trainer.rate_damped``, and
 ``kl_quad.fused`` and ``kl_quad.plain``, the route of the d ≥ 2 KL's
 quadrature (``models/cvi_dp_packed_ch.py``), and ``vdp_energy.fused`` and
