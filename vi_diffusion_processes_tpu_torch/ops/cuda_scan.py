@@ -541,15 +541,17 @@ def _linrec_backward(ctx, g):
     back to the caller's shape)."""
     t, x, x0 = ctx.saved_tensors
     g = g.contiguous()
+    # the boundary value 0 made on the device: a Python 0.0 would be copied
+    # from the host, which a CUDA graph's capture refuses
     zero = torch.zeros_like(t[..., :1])
     if ctx.reverse:
         # x_k = t_k x_{k+1} + c_k:  ĝ_k = g_k + t_{k−1} ĝ_{k−1}
-        ghat = linear_recurrence(torch.cat([zero, t[..., :-1]], dim=-1), g, 0.0)
+        ghat = linear_recurrence(torch.cat([zero, t[..., :-1]], dim=-1), g, zero[..., 0])
         t_bar = ghat * torch.cat([x[..., 1:], x0[..., None]], dim=-1)
         x0_bar = t[..., -1] * ghat[..., -1]
     else:
         # x_k = t_k x_{k−1} + c_k:  ĝ_k = g_k + t_{k+1} ĝ_{k+1}
-        ghat = linear_recurrence(torch.cat([t[..., 1:], zero], dim=-1), g, 0.0, True)
+        ghat = linear_recurrence(torch.cat([t[..., 1:], zero], dim=-1), g, zero[..., 0], True)
         t_bar = ghat * torch.cat([x0[..., None], x[..., :-1]], dim=-1)
         x0_bar = t[..., 0] * ghat[..., 0]
     return t_bar, ghat, x0_bar if ctx.needs_input_grad[2] else None, None

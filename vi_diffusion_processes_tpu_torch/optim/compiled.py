@@ -3,7 +3,8 @@
 The JAX trainers compile each per-iteration step once and dispatch it as
 one program (vi_diffusion_processes_tpu/optim/trainers.py:10-12, the
 ``jax.jit`` calls at :49-78 and :191-197).  :class:`CapturedStep` is its
-counterpart on the card.  Its first call with CUDA tensors runs the step
+counterpart on the card, and also holds one step that the JAX trainer runs
+eagerly: CVI-DP's drift learning (``optim/trainers.py::_prior_sde_step``).  Its first call with CUDA tensors runs the step
 eagerly on a side stream (the warm-up, which does every lazy first use:
 the kernels' build, their launch plans, the quadrature grids) and returns
 that result; it then captures the step on the same stream as one
@@ -30,7 +31,9 @@ its arguments into the graph's static inputs and replays the graph.
   candidate.  A module that the step passes through (a model's SDE or
   likelihood) is handed back as the caller's own module, not deep-copied.
 * A step may take gradients (``torch.autograd.grad`` on fresh leaves, as
-  the d ≥ 2 packed step, the generic site step and VDP's step do).  The
+  the d ≥ 2 packed step, the generic site step and VDP's step do, or on a
+  module's parameters, as the drift-learning step does through the
+  kernels' backward passes).  The
   autograd engine runs the backward on its own device thread, on the
   stream of the forward, so it is captured with it and allocates from the
   graph's pool, a new segment of which that thread may ``cudaMalloc``.  The

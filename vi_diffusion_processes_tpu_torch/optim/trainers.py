@@ -15,7 +15,10 @@ a CUDA graph captured once per structure and replayed on the card: the
 packed steps at d = 1 and at 2 ≤ d ≤ 8 with their ELBOs, the generic site
 step (both site updates, then ``classic_elbo``) with the first
 ``classic_elbo`` of an inner loop, and VDP's packed or generic step and
-ELBO.  A re-linearized or drift-learned model of the same structure is
+ELBO.  So does CVI-DP's drift-learning step, which the reference runs
+eagerly (:func:`_prior_sde_step`: both prior gradients, Adam as tensor ops
+and the re-linearization); VDP's drift learning stays eager.  A
+re-linearized or drift-learned model of the same structure is
 copied in, not captured again, and so is a later trainer's model of that
 structure: the graphs are the process's (``compiled.CACHE_SIZE`` of
 them).  The ELBO is read on the host once a step, as ``float(elbo_arr)``
@@ -23,8 +26,8 @@ is in the reference.  While a profile is active
 the loops record the spans ``vidp.trainer.optimize``,
 ``vidp.trainer.optimize_sites`` and ``vidp.trainer.read_elbo`` and count
 ``trainer.steps_tried`` and ``trainer.steps_accepted``; drift learning in
-:class:`CVISitesTrainer` records ``vidp.trainer.optimize_prior_sde`` (both
-prior gradients, the Adam step, the re-linearization) and counts
+:class:`CVISitesTrainer` records ``vidp.trainer.optimize_prior_sde`` (the
+replayed learning step and the new SDE built from its result) and counts
 ``trainer.prior_steps``, one an Adam step; and in VDP's loop
 ``trainer.warmup_steps``, ``trainer.nan_reverts`` (a NaN ELBO: the step
 thrown away) and ``trainer.rate_damped`` (an accepted step whose ELBO
@@ -38,6 +41,7 @@ from dataclasses import dataclass, field
 from typing import List
 
 import torch
+from torch import nn
 
 from ..models.cvi_dp import CVISitesSDE, CVISitesSSM
 from ..models.vdp import VariationalMarkovGP
@@ -47,34 +51,98 @@ from .compiled import CapturedStep
 __all__ = ["CVISitesTrainer", "VDPTrainer"]
 
 
+#: ``torch.optim.Adam``'s defaults, which the reference's Adam takes too
+_BETA1, _BETA2, _EPS = 0.9, 0.999, 1e-8
+
+
+def _adam(grads, params, exp_avg, exp_avg_sq, neg_step, bc2_sqrt):
+    """One Adam step, by parameter name, out of place: the update of
+    ``torch.optim.Adam`` in its single-tensor, non-capturable form, whose
+    step count and bias corrections live on the host.  ``neg_step`` is
+    ``−lr/(1 − β₁ᵗ)`` and ``bc2_sqrt`` is ``√(1 − β₂ᵗ)``
+    (:meth:`_PriorSDELearner.state`): Python floats, or in a captured step
+    0-d device tensors, so that a new step is a fill and not a capture.
+    Returns the new ``(params, exp_avg, exp_avg_sq)``."""
+    new_params, new_avg, new_avg_sq = {}, {}, {}
+    for name, p in params.items():
+        g = grads[name]
+        m = exp_avg[name].lerp(g, 1 - _BETA1)
+        v = exp_avg_sq[name].mul(_BETA2).addcmul_(g, g, value=1 - _BETA2)
+        denom = (v.sqrt() / bc2_sqrt).add_(_EPS)
+        # p.addcdiv_(m, denom, value=neg_step) in its CPU order, (value·m)/denom
+        new_params[name] = p + neg_step * m / denom
+        new_avg[name], new_avg_sq[name] = m, v
+    return new_params, new_avg, new_avg_sq
+
+
+def _with_params(sde, params):
+    """A copy of the SDE module ``sde`` whose parameters are the tensors
+    ``params`` (by name) themselves, not copies of them."""
+    memo = {id(p): nn.Parameter(params[name], requires_grad=False)
+            for name, p in sde.named_parameters()}
+    return copy.deepcopy(sde, memo)
+
+
 class _PriorSDELearner:
     """Adam on an SDE's parameters that leaves every earlier model alone.
 
     The reference's SDE is an immutable tree: each step builds a new SDE and
     a new model, and a model taken before the step keeps its drift.  Here
-    the learner owns copies of the parameters and their Adam moments, and
-    :meth:`step` returns a fresh SDE module holding the new values; the
-    module it was given, and every model that holds it, is left unchanged.
+    the learner owns copies of the parameters, their Adam moments and the
+    step count.  A step is :func:`_adam` from :meth:`state`, run inside
+    CVI-DP's captured learning step or eagerly (:meth:`adam`); :meth:`step`
+    takes its result and returns a fresh SDE module holding the new values.
+    The module it was given, and every model that holds it, is left
+    unchanged.
     """
 
     def __init__(self, sde, lr: float):
-        self._params = {
-            name: p.detach().clone().requires_grad_() for name, p in sde.named_parameters()
-        }
-        # the reference's Adam defaults (b1 0.9, b2 0.999, eps 1e-8) are torch's
-        self._opt = torch.optim.Adam(self._params.values(), lr=lr)
+        self.lr = lr
+        self.params = {name: p.detach().clone() for name, p in sde.named_parameters()}
+        self.exp_avg = {name: torch.zeros_like(p) for name, p in self.params.items()}
+        self.exp_avg_sq = {name: torch.zeros_like(p) for name, p in self.params.items()}
+        self.steps = 0
 
-    def step(self, sde, grads):
-        """One Adam step along ``grads`` (by parameter name); a copy of
+    def state(self) -> tuple:
+        """:func:`_adam`'s arguments after the gradients for the next step:
+        the parameters, both moments, ``−lr/(1 − β₁ᵗ)`` and ``√(1 − β₂ᵗ)``
+        at ``t = steps + 1``, as ``torch.optim.Adam`` computes them."""
+        t = float(self.steps + 1)
+        return (self.params, self.exp_avg, self.exp_avg_sq,
+                -(self.lr / (1 - _BETA1**t)), (1 - _BETA2**t) ** 0.5)
+
+    @torch.no_grad()
+    def adam(self, grads):
+        """One eager Adam step along ``grads`` (by parameter name): the new
+        ``(params, exp_avg, exp_avg_sq)`` for :meth:`step`."""
+        return _adam(grads, *self.state())
+
+    def step(self, sde, moved):
+        """Take one Adam step's ``(params, exp_avg, exp_avg_sq)``; a copy of
         ``sde`` with the new values."""
-        for name, p in self._params.items():
-            p.grad = grads[name]
-        self._opt.step()
+        self.params, self.exp_avg, self.exp_avg_sq = moved
+        self.steps += 1
         new_sde = copy.deepcopy(sde)
         with torch.no_grad():
             for name, p in new_sde.named_parameters():
-                p.copy_(self._params[name])
+                p.copy_(self.params[name])
         return new_sde
+
+
+@torch.no_grad()
+def _prior_sde_step(model: CVISitesSDE, params, exp_avg, exp_avg_sq, neg_step, bc2_sqrt):
+    """CVI-DP's drift-learning step (trainers.py:135-146), captured as one
+    CUDA graph: ``∂KL/∂θ`` and ``∂(−VE)/∂θ`` at the model's SDE, one Adam
+    step on their sum (:func:`_adam` on the learner's parameters and
+    moments, with its rates), and the linearization at the new parameters.
+    Returns the new parameters and moments, and the re-linearized
+    ``dist_p`` and ``prior_nats``."""
+    g_kl = model.grad_kl_wrt_prior_params()
+    g_ve = model.grad_ve_wrt_prior_params()
+    grads = {name: g_kl[name] + g_ve[name] for name in g_kl}
+    params, exp_avg, exp_avg_sq = _adam(grads, params, exp_avg, exp_avg_sq, neg_step, bc2_sqrt)
+    lin = model.replace(prior_sde=_with_params(model.prior_sde, params)).set_linearized_prior()
+    return params, exp_avg, exp_avg_sq, lin.dist_p, lin.prior_nats
 
 
 def _read_elbo(elbo: torch.Tensor) -> float:
@@ -148,6 +216,7 @@ class CVISitesTrainer:
                          else (CapturedStep(_site_step), CapturedStep(_classic_elbo)))
         if self.learn_prior_sde:
             self._prior_learner = _PriorSDELearner(self.model.prior_sde, self.prior_sde_lr)
+            self._prior_step = CapturedStep(_prior_sde_step)
 
     @tracing.annotated("vidp.trainer.optimize_sites")
     def optimize_sites(self) -> float:
@@ -197,15 +266,14 @@ class CVISitesTrainer:
     @tracing.annotated("vidp.trainer.optimize_prior_sde")
     def optimize_prior_sde(self) -> None:
         """One Adam step on ``∇(KL + −VE)`` with respect to the SDE's
-        parameters, then re-linearize (trainers.py:135-146).  The model gets
-        a new SDE; a model taken before the step keeps its drift."""
-        g_kl = self.model.grad_kl_wrt_prior_params()
-        g_ve = self.model.grad_ve_wrt_prior_params()
-        new_sde = self._prior_learner.step(
-            self.model.prior_sde, {name: g_kl[name] + g_ve[name] for name in g_kl}
-        )
+        parameters, then re-linearize (trainers.py:135-146): one replay of
+        :func:`_prior_sde_step` on the card.  The model gets a new SDE; a
+        model taken before the step keeps its drift."""
+        learner = self._prior_learner
+        *moved, dist_p, prior_nats = self._prior_step(self.model, *learner.state())
+        new_sde = learner.step(self.model.prior_sde, moved)
         tracing.count("trainer.prior_steps")
-        self.model = self.model.replace(prior_sde=new_sde).set_linearized_prior()
+        self.model = self.model.replace(prior_sde=new_sde, dist_p=dist_p, prior_nats=prior_nats)
 
     @tracing.annotated("vidp.trainer.optimize")
     def optimize(self) -> List[float]:
@@ -307,10 +375,9 @@ class VDPTrainer:
     def optimize_prior_sde(self) -> None:
         """One Adam step on ``∂E_sde/∂θ_p`` (trainers.py:236-243).  The
         model gets a new SDE; a model taken before the step keeps its drift."""
-        new_sde = self._prior_learner.step(
-            self.model.prior_sde, self.model.grad_prior_sde_params()
-        )
-        self.model = self.model.replace(prior_sde=new_sde)
+        learner = self._prior_learner
+        moved = learner.adam(self.model.grad_prior_sde_params())
+        self.model = self.model.replace(prior_sde=learner.step(self.model.prior_sde, moved))
 
     @tracing.annotated("vidp.trainer.optimize")
     def optimize(self, n_rounds: int = 5) -> List[float]:

@@ -178,13 +178,15 @@ def _check_outer(rank, world, device, batch, t_size, lr=0.5):
                         .reshape(()) for n in names] + [torch.as_tensor(
                             elbo_sum, dtype=torch.float64, device=device).reshape(())])
     flat = all_reduce_sum(flat)
-    new_sde = _PriorSDELearner(shared, 0.01).step(
-        shared, {n: flat[i].reshape(p.shape) for i, (n, p) in enumerate(shared.named_parameters())})
+    learner = _PriorSDELearner(shared, 0.01)
+    new_sde = learner.step(shared, learner.adam(
+        {n: flat[i].reshape(p.shape) for i, (n, p) in enumerate(shared.named_parameters())}))
     with torch.no_grad():
         mine = [m.replace(prior_sde=new_sde).set_linearized_prior() for m in mine]
     # one process over every model
     ref_models, ref_elbo, ref_grads = _outer(models, lr)
-    ref_sde = _PriorSDELearner(shared, 0.01).step(shared, ref_grads)
+    ref_learner = _PriorSDELearner(shared, 0.01)
+    ref_sde = ref_learner.step(shared, ref_learner.adam(ref_grads))
     err = max(_rel(p, q) for p, q in zip(new_sde.parameters(), ref_sde.parameters()))
     err_elbo = abs(float(flat[-1]) - float(ref_elbo)) / max(1.0, abs(float(ref_elbo)))
     with torch.no_grad():

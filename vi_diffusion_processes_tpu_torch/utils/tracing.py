@@ -24,8 +24,9 @@ captures (it would run at the warm-up and the capture, never at a replay).
 
 The program's spans: ``vidp.trainer.optimize`` and
 ``vidp.trainer.optimize_sites`` (the trainers' outer and inner loops),
-``vidp.trainer.optimize_prior_sde`` (CVI-DP's drift learning: both prior
-gradients, the Adam step and the re-linearization),
+``vidp.trainer.optimize_prior_sde`` (CVI-DP's drift learning: a replay
+of the captured step of both prior gradients, the Adam step and the
+re-linearization, and the new SDE),
 ``vidp.trainer.read_elbo`` (each ELBO read on the host),
 ``vidp.captured_step.capture`` and ``vidp.captured_step.replay``,
 ``vidp.cvi_dp.relinearize``, ``vidp.cvi_dp.initialize_sde`` and
