@@ -37,6 +37,12 @@ MODULE_ABSENCES = {
         "serves the TPU's window layout; the port scans with assoc_scan",
     ("utils.validation", "validated_dataclass"):
         "validates JAX pytree dataclasses; the port's models check in their constructors",
+    ("utils.tracing", "AUTO_NAMESCOPE"):
+        "no function of the port was wrapped in the gated name scope; its spans record "
+        "while a profile is active",
+    ("utils.tracing", "named_scope_fn"):
+        "no function of the port was wrapped in the gated name scope; its spans record "
+        "while a profile is active",
 }
 
 

@@ -39,7 +39,7 @@ class StandInGraph:
     made = []
 
     def __init__(self, fn, args, kwargs, leaves, device):
-        self.fn, self.device, self.launches = fn, device, {}
+        self.fn, self.device, self.launches, self.nodes = fn, device, {}, 0
         self.replayed = 0
         StandInGraph.made.append(weakref.ref(self))
 
@@ -243,19 +243,27 @@ class _NoGraph:
         pass
 
 
-def _graph(counted: dict, launches: dict) -> compiled._Graph:
-    """A ``_Graph`` with no inputs, a stand-in for its CUDA graph and the
-    launches and counters its capture tallied."""
+#: the node count given to a stand-in graph
+NODES = 7
+
+
+def _graph(counted: dict, launches: dict, static=(), seen=()) -> compiled._Graph:
+    """A ``_Graph`` with the static inputs ``static`` (last copied from
+    ``seen``), a stand-in for its CUDA graph of :data:`NODES` nodes, one
+    output to clone, and the launches and counters its capture tallied."""
     graph = object.__new__(compiled._Graph)
-    graph.static, graph._seen, graph._module_index = [], [], {}
-    graph.graph, graph.out, graph._out_source = _NoGraph(), torch.zeros(()), [None]
+    graph.name, graph.nodes = "_step", NODES
+    graph.static, graph._seen, graph._module_index = list(static), list(seen), {}
+    graph.graph, graph.out, graph._out_source = _NoGraph(), torch.zeros(3), [None]
+    graph.cloned, graph.cloned_bytes = 1, graph.out.nbytes
     graph.launches, graph.counted = launches, counted
     return graph
 
 
 def test_each_replay_counts_what_its_capture_tallied():
     """Every replay counts the capture's counters again, into the record
-    while a profile is active and nowhere otherwise, beside its launches."""
+    while a profile is active and nowhere otherwise, beside its launches,
+    its graph's nodes and the bytes it copied in and cloned out."""
     graph = _graph({"kl_quad.fused": 2, "vdp_energy.plain": 1}, {"quad_kl": 2})
     reset_launch_counts()
     tracing.reset()
@@ -267,6 +275,86 @@ def test_each_replay_counts_what_its_capture_tallied():
             graph.replay([], [])
 
     _, record = _profiled(replay_three_times)
-    assert record == {"kl_quad.fused": 6, "vdp_energy.plain": 3}
+    assert record == {"kl_quad.fused": 6, "vdp_energy.plain": 3,
+                      "captured_step.nodes": 3 * NODES, "captured_step.copied_bytes": 0,
+                      "captured_step.cloned_bytes": 3 * graph.out.nbytes}
     assert launch_counts()["quad_kl"] == 8
     reset_launch_counts()
+
+
+# -------------------------------------------------- the inside of a replay
+PHASES = ("vidp.captured_step.copy_in", "vidp.captured_step.launch",
+          "vidp.captured_step.hand_back")
+
+
+def _tensor_and_rate():
+    """A graph whose step takes a [4] float64 tensor and a traced float,
+    both last copied from ``x`` and 0.5."""
+    x = torch.arange(4.0, dtype=torch.float64)
+    static = [x.clone(), torch.full((), 0.5, dtype=torch.float64)]
+    return x, _graph({}, {}, static, [(x, x._version), 0.5])
+
+
+def test_a_replay_records_copy_in_launch_and_hand_back():
+    """Inside the caller's replay span, a replay's three spans in their
+    order, each inside the one before's end and the replay's range, with
+    the step's name, the graph's nodes and the hand-back's clones."""
+    x, graph = _tensor_and_rate()
+
+    def replay():
+        with tracing.annotate("vidp.captured_step.replay", fn="_step"):
+            return graph.replay([x, 0.25], [])
+
+    out, _ = _profiled(lambda: (replay(), tracing.spans())[1])
+    replay_span = out[-1]
+    phases = out[:-1]
+    assert [s.name for s in phases] == list(PHASES)
+    assert all(s.parent == replay_span.id for s in phases)
+    assert replay_span.start_ns <= phases[0].start_ns
+    assert all(a.end_ns <= b.start_ns for a, b in zip(phases, phases[1:]))
+    assert phases[-1].end_ns <= replay_span.end_ns
+    assert all(s.attrs["fn"] == "_step" for s in phases)
+    assert phases[0].attrs == {"fn": "_step", "copied": 1, "bytes": 8}
+    assert phases[1].attrs == {"fn": "_step", "nodes": NODES}
+    assert phases[2].attrs == {"fn": "_step", "cloned": 1, "bytes": graph.out.nbytes}
+
+
+def _changed(x: torch.Tensor, change: str) -> list:
+    """The leaves of a call after ``change`` to those last copied (``x``, 0.5)."""
+    leaf, rate = x, 0.5
+    if change in ("rate", "both"):
+        rate = 0.25
+    if change in ("tensor in place", "both"):
+        x.add_(1.0)  # the same tensor at a new version
+    if change == "new tensor":
+        leaf = x + 10.0
+    return [leaf, rate]
+
+
+@pytest.mark.parametrize("change,copied,nbytes", [
+    ("nothing", 0, 0), ("rate", 1, 8), ("tensor in place", 1, 32), ("new tensor", 1, 32),
+    ("both", 2, 40)])
+def test_copy_in_counts_only_what_changed(change, copied, nbytes):
+    """A leaf that is the tensor last copied, at its version, and a float
+    equal to the last, are not copied and count nothing; a changed float is
+    a fill of 8 B, a changed tensor its bytes; a replay that repeats the
+    last call's leaves copies nothing.  Off, the same copies are made and
+    nothing is recorded."""
+    for profiled in (False, True):
+        x, graph = _tensor_and_rate()
+        leaves = _changed(x, change)
+        tracing.reset()
+        if profiled:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                graph.replay(leaves, [])
+                graph.replay(leaves, [])
+            first, again = [s.attrs for s in tracing.spans() if s.name == PHASES[0]]
+            counters = tracing.counters()
+            tracing.reset()
+            assert (first["copied"], first["bytes"]) == (copied, nbytes)
+            assert (again["copied"], again["bytes"]) == (0, 0)
+            assert counters["captured_step.copied_bytes"] == nbytes
+        else:
+            graph.replay(leaves, [])
+            assert tracing.spans() == [] and tracing.counters() == {}
+        assert torch.equal(graph.static[0], leaves[0]) and graph.static[1].item() == leaves[1]

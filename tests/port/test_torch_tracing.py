@@ -8,8 +8,11 @@ counters agree with the ELBO trace, and the fit is bit for bit the fit
 with tracing off.  The CPU fits are the double well (d = 1) and the Van
 der Pol oscillator (d = 2) at T = 201 under ``initialize_sde`` and
 ``CVISitesTrainer``, and VDP under ``VDPTrainer`` at d = 1 and at d = 2
-(the Van der Pol oscillator, the CLI's 20 warm-up steps a round).  The test
-marked ``cuda`` counts the captured steps' spans on the card:
+(the Van der Pol oscillator, the CLI's 20 warm-up steps a round).  The
+record's span times are on the profiler's clock: each lies within
+:data:`CLOCK_TOL_NS` of its ``record_function`` event.  The tests marked
+``cuda`` count the captured steps' spans on the card, with the three
+phases of each replay, its graph's nodes and its bytes:
 
     python -m pytest tests/port/test_torch_tracing.py --confcutdir=tests/port -m cuda
 """
@@ -24,6 +27,9 @@ import torch
 from vi_diffusion_processes_tpu_torch.likelihoods.gaussian import Gaussian
 from vi_diffusion_processes_tpu_torch.models.cvi_dp import CVISitesSDE
 from vi_diffusion_processes_tpu_torch.models.vdp import VariationalMarkovGP
+from vi_diffusion_processes_tpu_torch.ops._build import graph_nodes
+from vi_diffusion_processes_tpu_torch.optim import compiled
+from vi_diffusion_processes_tpu_torch.optim.compiled import CapturedStep
 from vi_diffusion_processes_tpu_torch.optim.trainers import CVISitesTrainer, VDPTrainer
 from vi_diffusion_processes_tpu_torch.sde.zoo import (
     DoubleWellSDE,
@@ -42,6 +48,13 @@ VDP_INIT = "vidp.vdp.initialize"
 #: each span's parent in a fit (None: a root)
 PARENT = {INIT: None, VDP_INIT: None, OPTIMIZE: None, SITES: OPTIMIZE, RELIN: OPTIMIZE,
           READ: SITES, CAPTURE: SITES, REPLAY: SITES}
+COPY_IN, LAUNCH, HAND_BACK = ("vidp.captured_step.copy_in", "vidp.captured_step.launch",
+                              "vidp.captured_step.hand_back")
+#: how far a span's start or end in the record may lie from its
+#: ``record_function`` event's: readings after a first range of the profile
+#: (whose set-up took up to 0.52 ms) were 1.5-38 us on the CPU and 4-65 us
+#: on the card with CUDA activity
+CLOCK_TOL_NS = 250_000
 #: VDP's warm-up steps a round in the d = 2 fit (the CLI's) and the d = 1 one
 VDP_WARMUP = {"vdp_d1": 2, "vdp_d2": 20}
 VDP_ROUNDS = 2
@@ -277,6 +290,56 @@ def test_record_ids_threads_and_reset():
     assert tracing.spans() == [] and tracing.counters() == {}
 
 
+def _clock_offsets(prof, spans) -> list:
+    """``(start, end)`` of each span, in nanoseconds: the record's start less
+    its ``record_function`` event's and the event's end less the record's.
+    An event starts at the profile's ``trace_start_ns()`` plus its
+    ``time_range.start``; the spans of one name pair with its host events
+    in the order they started."""
+    origin = prof.profiler.kineto_results.trace_start_ns()
+    names = {s.name for s in spans}
+    events = sorted((e for e in prof.events() if e.name in names
+                     and e.device_type == torch.autograd.DeviceType.CPU),
+                    key=lambda e: e.time_range.start)
+    offsets = []
+    for name in sorted(names):
+        of_name = sorted((s for s in spans if s.name == name), key=lambda s: s.start_ns)
+        evs = [e for e in events if e.name == name]
+        assert len(evs) == len(of_name), name
+        for s, e in zip(of_name, evs):
+            offsets.append((s.start_ns - (origin + 1000 * e.time_range.start),
+                            origin + 1000 * e.time_range.end - s.end_ns))
+    return offsets
+
+
+@pytest.mark.parametrize("how", ["annotate", "annotated"])
+def test_record_shares_the_profiler_clock(how):
+    """Each span's start and end in the record lie within
+    :data:`CLOCK_TOL_NS` of its ``record_function`` event's, nested spans
+    and a decorated function alike: the record is on the profiler's clock."""
+    @tracing.annotated("vidp.test.decorated")
+    def decorated():
+        return torch.ones(64).cumsum(0)
+
+    tracing.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tracing.annotate("vidp.test.first"):  # the profile's first range sets up
+            pass
+        for _ in range(4):
+            if how == "annotate":
+                with tracing.annotate("vidp.test.outer"):
+                    with tracing.annotate("vidp.test.inner"):
+                        torch.ones(64).cumsum(0)
+            else:
+                decorated()
+    spans = [s for s in tracing.spans() if s.name != "vidp.test.first"]
+    tracing.reset()
+    offsets = _clock_offsets(prof, spans)
+    assert len(offsets) == (8 if how == "annotate" else 4)
+    assert all(abs(start) <= CLOCK_TOL_NS and abs(end) <= CLOCK_TOL_NS
+               for start, end in offsets), offsets
+
+
 def test_span_closes_on_an_exception():
     tracing.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -306,7 +369,7 @@ def test_captured_step_spans_on_the_card(cuda_device):
         with torch.profiler.record_function(bench_trace.WINDOW_SPAN):
             trainer = _cvi_fit(2, cuda_device)
             torch.cuda.synchronize()
-    spans = tracing.spans()
+    spans, counters = tracing.spans(), tracing.counters()
     tracing.reset()
     step, elbo_of = trainer._packed[2:]
     calls = step.captures + step.replays + elbo_of.captures + elbo_of.replays
@@ -332,3 +395,72 @@ def test_captured_step_spans_on_the_card(cuda_device):
     summary = bench_trace.summarize(events)
     assert not any(name.startswith("vidp.") for name in summary["kernels"])
     assert 0 < summary["busy_s"] < summary["window_s"]
+
+    # each replay: its copy-in, launch and hand-back, in order, inside it
+    children = {}
+    for s in spans:
+        children.setdefault(s.parent, []).append(s)
+    for r in replays:
+        phases = sorted(children[r.id], key=lambda s: s.start_ns)
+        assert [s.name for s in phases] == [COPY_IN, LAUNCH, HAND_BACK]
+        assert r.start_ns <= phases[0].start_ns and phases[-1].end_ns <= r.end_ns
+        assert all(a.end_ns <= b.start_ns for a, b in zip(phases, phases[1:]))
+    # each replay counts its graph's nodes by cudaGraphGetNodes
+    nodes = {g.name: graph_nodes(g.graph.raw_cuda_graph()) for g in compiled._cache.values()}
+    assert {s.attrs["fn"]: s.attrs["nodes"] for s in captures} == nodes
+    assert counters["captured_step.nodes"] == sum(nodes[s.attrs["fn"]] for s in replays)
+    assert nodes[step.fn.__name__] >= sum(quad[step.fn.__name__].values())
+    # the byte counters are the sums of the spans' attributes
+    assert counters["captured_step.copied_bytes"] == sum(
+        s.attrs["bytes"] for s in spans if s.name == COPY_IN)
+    assert counters["captured_step.cloned_bytes"] == sum(
+        s.attrs["bytes"] for s in spans if s.name == HAND_BACK) > 0
+    # the record on the profiler's clock, with CUDA activity in the profile
+    offsets = _clock_offsets(prof, spans)
+    assert all(abs(start) <= CLOCK_TOL_NS and abs(end) <= CLOCK_TOL_NS
+               for start, end in offsets), max(max(map(abs, o)) for o in offsets)
+
+    # the same fit untraced, replaying the same graphs: the same bits
+    off = _cvi_fit(2, cuda_device)
+    assert off.elbo_trace == trainer.elbo_trace
+    for sites, names in (("girsanov_sites", ("nat1", "nat2_diag", "nat2_sub")),
+                         ("data_sites", ("nat1", "nat2"))):
+        for name in names:
+            assert torch.equal(getattr(getattr(trainer.model, sites), name),
+                               getattr(getattr(off.model, sites), name))
+
+
+@pytest.mark.cuda
+def test_replay_copies_only_what_changed_on_the_card(cuda_device):
+    """A captured step of two tensors and a rate: a replay that repeats the
+    last call's leaves copies nothing, a new rate fills 8 B, a tensor
+    changed in place or a new one copies its bytes; every replay clones
+    its one output and launches its graph's nodes."""
+    def axpy(x, y, lr):
+        return x * lr + y
+
+    step = CapturedStep(axpy)
+    x = torch.arange(1000.0, dtype=torch.float64, device=cuda_device)
+    y = torch.ones(1000, dtype=torch.float64, device=cuda_device)
+    step(x, y, 0.5)  # the capture
+    tracing.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        step(x, y, 0.5)
+        step(x, y, 0.25)
+        x.add_(1.0)
+        step(x, y, 0.25)
+        out = step(x.clone(), y, 0.25)
+        torch.cuda.synchronize()
+    spans, counters = tracing.spans(), tracing.counters()
+    tracing.reset()
+    copy_ins = [(s.attrs["copied"], s.attrs["bytes"]) for s in spans if s.name == COPY_IN]
+    assert copy_ins == [(0, 0), (1, 8), (1, 8000), (1, 8000)]
+    assert [(s.attrs["cloned"], s.attrs["bytes"]) for s in spans
+            if s.name == HAND_BACK] == [(1, 8000)] * 4
+    assert counters["captured_step.copied_bytes"] == 16008
+    assert counters["captured_step.cloned_bytes"] == 32000
+    (graph,) = compiled._cache.values()
+    assert graph.nodes == graph_nodes(graph.graph.raw_cuda_graph()) >= 2
+    assert counters["captured_step.nodes"] == 4 * graph.nodes
+    assert torch.equal(out, x * 0.25 + y)

@@ -104,13 +104,6 @@ def test_trace_to_writes_an_annotated_region(tmp_path):
     assert any(e.key == "vidp_region" for e in prof.key_averages())
 
 
-def test_named_scope_fn_is_the_function_unless_asked():
-    def f(x):
-        return x + 1
-
-    assert tracing.named_scope_fn(f) is f or tracing.AUTO_NAMESCOPE
-
-
 def test_set_default_float():
     jax_before = jconfig.default_float()
     assert config.default_float() == torch.float64

@@ -13,7 +13,8 @@ Every launch goes through :func:`_launch`, which counts it under its
 kernel's name (:data:`KERNELS`): :func:`launch_counts`,
 :func:`reset_launch_counts` and :func:`add_launch_counts` read and adjust
 those counts.  A CPU tensor runs a kernel's plain version and counts
-nothing.
+nothing.  :func:`graph_nodes` reads a captured CUDA graph's node count
+through the same library (``csrc/graphs.cu``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["load_library", "build_seconds", "ptxas_report", "launch_counts",
-           "reset_launch_counts", "add_launch_counts", "KERNELS", "CSRC_DIR", "BUILD_DIR"]
+           "reset_launch_counts", "add_launch_counts", "graph_nodes", "KERNELS", "CSRC_DIR",
+           "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
@@ -40,7 +42,7 @@ NVCC_FLAGS = (
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
-#: argtypes of every launcher in csrc/*.cu; each returns a cudaError_t
+#: argtypes of every C function in csrc/*.cu; each returns a cudaError_t
 _SIGNATURES = {
     "vidp_riccati_f64": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
     "vidp_riccati_f64_shape": [_int, _int, _int, _int, _vp],
@@ -65,6 +67,7 @@ _SIGNATURES = {
     "vidp_quad_kl_1d_fwd_f32": [_vp] * 4 + [_int] + [_vp] * 7 + [_int, _int, _vp],
     "vidp_quad_kl_1d_bwd_f64": [_vp, _int] + [_vp] * 4 + [_int] + [_vp] * 9 + [_int, _int, _vp],
     "vidp_quad_kl_1d_bwd_f32": [_vp, _int] + [_vp] * 4 + [_int] + [_vp] * 9 + [_int, _int, _vp],
+    "vidp_graph_nodes": [_vp, ctypes.POINTER(ctypes.c_size_t)],
 }
 
 #: the names under which launches are counted, in the order of
@@ -193,3 +196,13 @@ def add_launch_counts(counts: dict) -> None:
     (``optim/compiled.py``)."""
     for name in KERNELS:
         _launches[name] += counts.get(name, 0)
+
+
+def graph_nodes(graph: int) -> int:
+    """The nodes of a captured CUDA graph, of every type: ``cudaGraphGetNodes``
+    of its ``cudaGraph_t`` (``torch.cuda.CUDAGraph.raw_cuda_graph()``)."""
+    count = ctypes.c_size_t(0)
+    err = load_library().vidp_graph_nodes(ctypes.c_void_p(graph), ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cudaGraphGetNodes failed with cudaError_t {err}")
+    return count.value

@@ -61,13 +61,26 @@ its arguments into the graph's static inputs and replays the graph.
   and version, so every leaf of the new caller is copied in; and every
   output is a copy or the caller's own input, so nothing of one caller
   aliases another's.  The port drives one graph from one thread at a time.
+* Each graph's node count, of every node type, is read once after its
+  capture (``cudaGraphGetNodes``, ``ops/_build.py::graph_nodes``) and kept
+  as ``_Graph.nodes``: the graph is captured with ``keep_graph=True`` for
+  the read and instantiated right after it, as a capture without it is.
 * While a profile is active (``utils/tracing.py``), a capture (warm-up,
   capture and the first hand-back) is the span
-  ``vidp.captured_step.capture`` with the step's name and the port's kernel
-  launches it captured, and a replay (copy-in, ``graph.replay()`` and the
-  hand-back) is ``vidp.captured_step.replay``; flattening the arguments and
-  finding the graph come before either and count to the caller.  The first
-  time a ``CapturedStep`` needs a structure it counts
+  ``vidp.captured_step.capture`` with the step's name, the port's kernel
+  launches it captured and the graph's nodes, and a replay is
+  ``vidp.captured_step.replay``, which holds three spans in turn:
+  ``vidp.captured_step.copy_in`` (the leaves copied or floats filled, and
+  their bytes; a fill is 8 B), ``vidp.captured_step.launch`` (exactly
+  ``graph.replay()``, with the graph's nodes) and
+  ``vidp.captured_step.hand_back`` (the outputs cloned, and their bytes,
+  and the result rebuilt).  The launch counts and the tallied counters are
+  added in the replay's own time, between the launch and the hand-back.
+  Each replay counts ``captured_step.nodes``,
+  ``captured_step.copied_bytes`` and ``captured_step.cloned_bytes``; with
+  no profile active the replay computes no byte count.  Flattening the
+  arguments and finding the graph come before either span and count to the
+  caller.  The first time a ``CapturedStep`` needs a structure it counts
   ``captured_step.captured`` where it captures the graph and
   ``captured_step.shared`` where it finds the graph in the cache.
 """
@@ -83,7 +96,7 @@ import torch
 from torch import nn
 
 from .. import config
-from ..ops._build import add_launch_counts, launch_counts
+from ..ops._build import add_launch_counts, graph_nodes, launch_counts
 from ..utils import tracing
 
 __all__ = ["CapturedStep", "CACHE_SIZE", "clear_cache"]
@@ -209,11 +222,14 @@ def _storage(t: torch.Tensor) -> int:
 
 
 class _Graph:
-    """One captured structure: the static inputs, the graph, its outputs,
-    and the launches and counters it captured."""
+    """One captured structure: the static inputs, the graph and its node
+    count (``nodes``), its outputs, and the launches and counters it
+    captured."""
 
     def __init__(self, fn: Callable, args: tuple, kwargs: dict, leaves: list,
                  device: torch.device):
+        self.name = fn.__name__
+
         def static(leaf):
             if isinstance(leaf, float):
                 return torch.full((), leaf, dtype=torch.float64, device=device)
@@ -234,7 +250,9 @@ class _Graph:
             self.first = fn(*self.args, **self.kwargs)
         current.wait_stream(stream)
 
-        self.graph = torch.cuda.CUDAGraph()
+        # kept past the capture for its node count, then instantiated as a
+        # capture without it would be
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = launch_counts()
         try:
             with tracing.tallied() as counted, torch.cuda.graph(
@@ -244,11 +262,16 @@ class _Graph:
             after = launch_counts()
             self.launches = {k: after[k] - before[k] for k in after}
             add_launch_counts({k: -n for k, n in self.launches.items()})
+        self.nodes = graph_nodes(self.graph.raw_cuda_graph())
+        self.graph.instantiate()
         self.counted = dict(counted)
         out_leaves = []
         _flatten(self.out, out_leaves, [], kept=self._module_index)
         # an output that is a static input is handed back as the caller's own
         self._out_source = [self._index.get(id(t)) for t in out_leaves]
+        cloned = [t for t, i in zip(out_leaves, self._out_source)
+                  if i is None or isinstance(leaves[i], float)]
+        self.cloned, self.cloned_bytes = len(cloned), sum(t.nbytes for t in cloned)
 
     def _kept(self, modules: list) -> dict:
         """The caller's own module for each static input module: an output
@@ -275,18 +298,31 @@ class _Graph:
         return result
 
     def replay(self, leaves: list, modules: list):
-        with torch.no_grad():
+        """Copy the changed leaves in, launch the graph, hand the outputs
+        back: three spans inside the caller's ``vidp.captured_step.replay``."""
+        with tracing.annotate("vidp.captured_step.copy_in", fn=self.name) as span, \
+                torch.no_grad():
+            copied = nbytes = 0
             for i, (leaf, dst) in enumerate(zip(leaves, self.static)):
                 seen = self._seen[i]
                 if isinstance(leaf, float):
-                    if seen != leaf:
-                        dst.fill_(leaf)
-                        self._seen[i] = leaf
-                elif not (isinstance(seen, tuple) and seen[0] is leaf
-                          and seen[1] == leaf._version):
+                    if seen == leaf:
+                        continue
+                    dst.fill_(leaf)
+                    self._seen[i] = leaf
+                elif isinstance(seen, tuple) and seen[0] is leaf and seen[1] == leaf._version:
+                    continue
+                else:
                     dst.copy_(leaf)
                     self._seen[i] = (leaf, leaf._version)
-        self.graph.replay()
+                if span.recording:
+                    copied += 1
+                    nbytes += dst.nbytes  # a traced float's static input: 8 B
+            span.set(copied=copied, bytes=nbytes)
+        with tracing.annotate("vidp.captured_step.launch", fn=self.name, nodes=self.nodes):
+            self.graph.replay()
+        tracing.count("captured_step.nodes", self.nodes)
+        tracing.count("captured_step.copied_bytes", nbytes)
         add_launch_counts(self.launches)
         for name, n in self.counted.items():
             tracing.count(name, n)
@@ -298,7 +334,11 @@ class _Graph:
                 return leaves[i]
             return t.clone()
 
-        return _map(self.out, hand_back, self._kept(modules))
+        with tracing.annotate("vidp.captured_step.hand_back", fn=self.name, cloned=self.cloned,
+                              bytes=self.cloned_bytes):
+            result = _map(self.out, hand_back, self._kept(modules))
+        tracing.count("captured_step.cloned_bytes", self.cloned_bytes)
+        return result
 
 
 _cache: "OrderedDict[tuple, _Graph]" = OrderedDict()
@@ -369,7 +409,7 @@ class CapturedStep:
                 self._graphs[key] = graph
                 self.captures += 1
                 tracing.count("captured_step.captured")
-                span.set(launches=dict(graph.launches))
+                span.set(launches=dict(graph.launches), nodes=graph.nodes)
                 return graph.first_result(leaves, modules)
         if self._graphs.get(key) is not graph:
             self._graphs[key] = graph

@@ -8,13 +8,23 @@ there is no other switch.  Off, a span costs one check of the profiler's
 own Python flag (``torch.autograd.profiler._is_profiler_enabled``) and
 enters nothing; a counter costs the same check.  On, a span
 
-* is a ``torch.profiler.record_function`` range, so it sits in the
-  profiler's event list on the clock of the device's events, and
+* is a ``torch.profiler.record_function`` range, an event of the profiler,
+  and
 * appends to this module's record a :class:`Span`: its name, its id, the
   id of the span it opened inside (its parent) and of the outermost span
   open on its thread when it opened (its root; every span of one
-  ``optimize`` shares it), the thread, its start and end by
-  ``time.perf_counter_ns()`` and its attributes.
+  ``optimize`` shares it), the thread, its start and end and its
+  attributes.
+
+**The clock.**  A span's ``start_ns`` and ``end_ns`` are ``time.time_ns()``,
+the clock on which the profiler stamps its events and the device activity
+it collects: the start is read just after the ``record_function`` range
+opens and the end just before it closes, so the record's span lies inside
+the profiler's event of the same range.  An event of a profile ``prof``
+starts at ``prof.profiler.kineto_results.trace_start_ns()`` plus its
+``time_range.start`` (microseconds) and ends at the same origin plus its
+``time_range.end``; the program's record can so be laid over the device's
+activity of the same profile.
 
 A counter adds to the record's counters.  :func:`spans`, :func:`counters`
 and :func:`reset` read and clear the record; a ``trace_to`` Chrome trace
@@ -28,7 +38,10 @@ The program's spans: ``vidp.trainer.optimize`` and
 of the captured step of both prior gradients, the Adam step and the
 re-linearization, and the new SDE),
 ``vidp.trainer.read_elbo`` (each ELBO read on the host),
-``vidp.captured_step.capture`` and ``vidp.captured_step.replay``,
+``vidp.captured_step.capture`` and ``vidp.captured_step.replay``, the
+replay's three children ``vidp.captured_step.copy_in``,
+``vidp.captured_step.launch`` and ``vidp.captured_step.hand_back``
+(``optim/compiled.py``),
 ``vidp.cvi_dp.relinearize``, ``vidp.cvi_dp.initialize_sde`` and
 ``vidp.vdp.initialize``; its counters: ``trainer.steps_tried`` and
 ``trainer.steps_accepted``, ``trainer.prior_steps`` (one an Adam step of
@@ -39,27 +52,25 @@ quadrature (``models/cvi_dp_packed_ch.py``), and ``vdp_energy.fused`` and
 ``vdp_energy.plain``, the route of VDP's drift energy (both decided by
 ``ops/quad_kl.py::kernel_drift``); ``dist_q_1d.k3`` and ``dist_q_1d.plain``,
 the route of the d = 1 naturals → marginals chain (``ops/btd.py::dist_q_1d``:
-kernel K3, or its plain version or float32 composition); and
+kernel K3, or its plain version or float32 composition);
 ``captured_step.captured`` and ``captured_step.shared``, a
 ``CapturedStep``'s first call of a structure that captured its graph or
-found it in the process's cache.  The route
+found it in the process's cache; and ``captured_step.nodes``,
+``captured_step.copied_bytes`` and ``captured_step.cloned_bytes``, each
+replay's graph nodes launched, bytes copied in and bytes cloned out.  The route
 counters sit inside the captured steps on purpose and count each execution
 of a step: an eager call or a warm-up counts them as any code does; a
 capture, which runs nothing, counts them into a tally (:func:`tallied`),
 whether or not a profile is active, and not into the record; every replay
 of the graph counts the tally again, as it counts its kernel launches.
 
-The reference gates TensorFlow name scopes behind the ``AUTO_NAMESCOPE``
-environment variable (markovflow/base.py:51-61, utils.py:31-73);
-:func:`named_scope_fn` wraps a function in the same gated span when it is
-set.  :func:`trace_to` captures CPU and CUDA activity into a Chrome trace.
+:func:`trace_to` captures CPU and CUDA activity into a Chrome trace.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 import itertools
-import os
 import threading
 import time
 from pathlib import Path
@@ -68,17 +79,16 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 import torch.autograd.profiler as _profiler
 
-__all__ = ["AUTO_NAMESCOPE", "named_scope_fn", "annotate", "annotated", "count", "tallied",
-           "spans", "counters", "reset", "Span", "trace_to", "TRACE_FILE"]
+__all__ = ["annotate", "annotated", "count", "tallied", "spans", "counters", "reset", "Span",
+           "trace_to", "TRACE_FILE"]
 
-#: mirrors markovflow/base.py:51: opt-in annotation of library functions
-AUTO_NAMESCOPE = os.environ.get("AUTO_NAMESCOPE", "").lower() in ("1", "true")
 #: the file that :func:`trace_to` writes inside its directory
 TRACE_FILE = "trace.json"
 
 
 class Span(NamedTuple):
-    """One closed span of the record; times in ``perf_counter`` nanoseconds."""
+    """One closed span of the record; times in ``time.time_ns()`` nanoseconds,
+    the profiler's clock."""
 
     name: str
     id: int
@@ -101,6 +111,8 @@ _open = threading.local()  # .stack: the thread's open spans, outermost first
 class _Off:
     """What :func:`annotate` returns while no profile is active."""
 
+    recording = False
+
     def __enter__(self):
         return self
 
@@ -118,6 +130,7 @@ class _On:
     """A recording span: a ``record_function`` range and a :class:`Span`."""
 
     __slots__ = ("name", "attrs", "id", "parent", "root", "stack", "start", "range")
+    recording = True
 
     def __init__(self, name: str, attrs: dict):
         self.name, self.attrs = name, attrs
@@ -136,15 +149,15 @@ class _On:
         self.stack = stack
         stack.append(self)
         self.range = torch.profiler.record_function(self.name)
-        self.start = time.perf_counter_ns()
         self.range.__enter__()
+        self.start = time.time_ns()
         return self
 
     def __exit__(self, *exc):
+        end = time.time_ns()
         try:
             self.range.__exit__(*exc)
         finally:
-            end = time.perf_counter_ns()
             self.stack.pop()
             _spans.append(Span(self.name, self.id, self.parent, self.root,
                                threading.get_ident(), self.start, end, self.attrs))
@@ -154,7 +167,9 @@ class _On:
 def annotate(name: str, **attrs):
     """A named span (``jax.named_scope``): a context manager that records
     while a profile is active and does nothing otherwise.  Entered, it
-    yields an object whose ``set(**attrs)`` adds attributes."""
+    yields an object whose ``set(**attrs)`` adds attributes and whose
+    ``recording`` says whether it records (so that a caller computes an
+    attribute only when it is kept)."""
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _On(name, attrs)
@@ -213,14 +228,6 @@ def reset() -> None:
     """Empty the record (spans and counters)."""
     _spans.clear()
     _counters.clear()
-
-
-def named_scope_fn(fn):
-    """Decorator: run ``fn`` inside :func:`annotate` under its qualified name
-    when ``AUTO_NAMESCOPE`` is set (utils.py:51 ``tf_scope_fn_decorator``)."""
-    if not AUTO_NAMESCOPE:
-        return fn
-    return annotated(fn.__qualname__)(fn)
 
 
 @contextlib.contextmanager
